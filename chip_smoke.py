@@ -22,7 +22,8 @@ Every phase raises on failure.  Phases:
    copy-on-write page copy.
 4. bf16 Llama-3-8B, all 32 layers, random weights from a seeded CUDA
    generator: 8 requests served to completion through the same entry
-   point; TTFT p50, decode tokens/s and peak memory.
+   point; TTFT p50, decode tokens/s, peak memory; then the same requests
+   once more under ``torch.profiler`` for where the device time goes.
 
 Tolerances (kernel vs plain version, max abs error): fp32 1e-4 — the sums
 run in another order over up to 8192 keys, on O(1) outputs; bf16 6e-2 —
@@ -139,7 +140,7 @@ def time_ms(torch, fn, *, iters, flush):
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
-def phase_kernel(torch, dev, card):
+def phase_kernel(torch, dev, smi):
     from cordum_tpu_torch.ops import paged_attention as pa
 
     import torch.nn.functional as F
@@ -240,19 +241,40 @@ def serving_prompts(vocab, seed=SEED):
     return wave1, wave2
 
 
-async def serve_waves(engine, waves, n_new, tag):
+async def serve_waves(engine, waves, n_new, tag, emits=None):
+    """Submit each wave's prompts concurrently, wave after wave; returns
+    the generated tokens.  ``emits``, when given, collects one
+    ``(monotonic time, request, tokens)`` entry per streamed packet."""
     from cordum_tpu_torch.serving.engine import GenRequest
+
+    def sink(key):
+        async def on_tokens(new, n_generated, done):
+            emits.append((time.monotonic(), key, len(new)))
+        return on_tokens
 
     outs = []
     for w, prompts in enumerate(waves):
         res = await asyncio.gather(*[
-            engine.submit(GenRequest(prompt=p, max_new_tokens=n_new, stream=False),
-                          job_id=f"{tag}-{w}-{i}")
+            engine.submit(GenRequest(prompt=p, max_new_tokens=n_new,
+                                     stream=emits is not None),
+                          job_id=f"{tag}-{w}-{i}",
+                          on_tokens=None if emits is None else sink(f"{w}-{i}"))
             for i, p in enumerate(prompts)
         ])
         outs.extend(r["tokens"] for r in res)
     await engine.stop()
     return outs
+
+
+def decode_rate(emits):
+    """Decode tokens/s once every request is decoding: tokens streamed after
+    the last request's first token, over the time from then to the end."""
+    first = {}
+    for t, key, _ in emits:
+        first.setdefault(key, t)
+    start, end = max(first.values()), max(t for t, _, _ in emits)
+    tokens = sum(n for t, _, n in emits if t > start)
+    return tokens / (end - start) if end > start else float("nan")
 
 
 def phase_oracle(torch, dev, card, cfg, *, n_new=16):
@@ -322,8 +344,9 @@ def phase_serve(torch, dev, card, cfg, *, n_requests=8, n_new=32, cache_pages=10
                                  max_new_tokens=n_new)
     torch.cuda.reset_peak_memory_stats(dev)
     pa.paged_attention.launches = 0
+    emits = []
     t0 = time.monotonic()
-    outs = asyncio.run(serve_waves(engine, [prompts], n_new, "serve"))
+    outs = asyncio.run(serve_waves(engine, [prompts], n_new, "serve", emits))
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = pa.paged_attention.launches
@@ -341,10 +364,43 @@ def phase_serve(torch, dev, card, cfg, *, n_requests=8, n_new=32, cache_pages=10
     log(f"[serve] {n_requests} requests, prompts {lengths[0]}..{lengths[-1]} tokens, "
         f"{n_new} new each: wall {wall:.3f} s, steps {st.steps}, "
         f"TTFT p50 {statistics.median(ttft) * 1e3:.1f} ms, "
-        f"output {st.decoded_tokens / wall:.1f} tokens/s (wall, prefill included), step p50 {step_ms:.2f} ms, "
+        f"decode {decode_rate(emits):.1f} tokens/s (all requests decoding), "
+        f"output {st.decoded_tokens / wall:.1f} tokens/s (whole run), step p50 {step_ms:.2f} ms, "
         f"peak memory {peak_gib:.2f} GiB, launches {launches}, "
         f"drafted {st.drafted_tokens} accepted {st.accepted_tokens}  [{card}]")
+    profile_serving(torch, dev, card, cfg, params, prompts, cache_pages=cache_pages)
     return launches
+
+
+def profile_serving(torch, dev, card, cfg, params, prompts, *, n_new=8, cache_pages=1024):
+    """Where a serving step's device time goes: the same prompts once more
+    (a fresh engine, fewer new tokens) under ``torch.profiler``; device time
+    by kernel, the paged-attention kernel's share, and the device's busy
+    share of the window's wall time.  Informational: it gates nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cordum_tpu_torch.worker.handlers import make_serving_engine
+
+    engine = make_serving_engine(cfg, params, device=dev, cache_pages=cache_pages,
+                                 max_new_tokens=n_new)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        asyncio.run(serve_waves(engine, [prompts], n_new, "profile"))
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0]
+    total = sum(r[1] for r in rows)
+    if not total:
+        log("[profile] the profiler recorded no device time")
+        return
+    rows.sort(key=lambda r: -r[1])
+    attn = sum(r[1] for r in rows if "paged_attention" in r[0])
+    log(f"[profile] {engine.stats.steps} steps, wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{total / 1e3:.1f} ms ({100 * total / wall_us:.1f}% of wall), paged_attention "
+        f"{attn / 1e3:.2f} ms ({100 * attn / total:.1f}% of device time)  [{card}]")
+    for key, us, count in rows[:8]:
+        log(f"[profile]   {us / 1e3:9.2f} ms {100 * us / total:5.1f}%  x{count:<6d} {key[:90]}")
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +421,6 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    card = smi
     log(f"[device] {smi}")
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"count {torch.cuda.device_count()}")
@@ -379,14 +434,14 @@ def main() -> int:
     if build_log:
         log(build_log.rstrip())
 
-    kernel = phase_kernel(torch, dev, card)
+    kernel = phase_kernel(torch, dev, smi)
     torch.cuda.empty_cache()
 
     cfg8b = llama.LlamaConfig.llama3_8b()
     fp32_launches = phase_oracle(
-        torch, dev, card, dataclasses.replace(cfg8b, n_layers=2, dtype=torch.float32))
+        torch, dev, smi, dataclasses.replace(cfg8b, n_layers=2, dtype=torch.float32))
     torch.cuda.empty_cache()
-    bf16_launches = phase_serve(torch, dev, card, cfg8b)
+    bf16_launches = phase_serve(torch, dev, smi, cfg8b)
 
     launches = {"float32": fp32_launches, "bfloat16": bf16_launches}
     line = {"kernels": [

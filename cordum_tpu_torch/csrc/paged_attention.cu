@@ -9,12 +9,22 @@
 // Bound: device-memory bytes.  The work is the K/V pages each sequence
 // needs, counted once, over 3.35 TB/s; the arithmetic (4*hd flops per key
 // and query head) is far below the card's rate at any batch this step runs.
-// This is the simple design: one block per (token, kv head), one warp per
-// query head of the group, so each K/V page is staged through shared memory
-// once per block and read by all the query heads that share it; scores, the
-// online softmax (running max and sum) and the output accumulator are fp32.
-// Blocks of one sequence re-read the same pages (from L2 when they fit).
-// Split-K over pages, tensor-core products and a TMA pipeline are later work.
+//
+// Design (the simple one):
+//   * one block per (token, kv head); one warp per query head of the GQA
+//     group, so each K/V page is staged through shared memory once per
+//     block and read by all the query heads that share it;
+//   * the block walks its own page-table row, pages 0 .. pos / page_size,
+//     through a ring of kStages shared-memory stages filled with cp.async,
+//     so the next pages' loads are in flight while a page is computed;
+//   * per page, a warp computes the scores of up to 16 keys at once (lanes
+//     over head dims, the 16 warp reductions interleaved), then one online
+//     softmax update (running max, running sum) and the PV accumulation —
+//     scores, softmax and accumulator in fp32.
+// What it does not do yet: a long row is walked by kv_heads blocks only,
+// each bounded by one SM's share of the bandwidth; splitting a row's pages
+// across blocks (with a second reduction pass) and tensor-core products are
+// later work.
 //
 // The K/V append is NOT done here: tokens of one prefill chunk attend to
 // each other's slots, which other blocks of the same grid would write in no
@@ -22,12 +32,12 @@
 // same stream.
 //
 // Layouts (all contiguous):
-//   q            [T, n_heads, head_dim]
-//   k/v pages    [num_pages, page_size, n_kv_heads, head_dim]
+//   q            [T, n_heads, HD]
+//   k/v pages    [num_pages, page_size, n_kv_heads, HD]
 //   page_tables  [S + 1, pages_per_seq] int32
 //   token_seq    [T] int32  (row of page_tables of each token)
 //   positions    [T] int32  (attends to keys 0 .. positions[t])
-//   out          [T, n_heads, head_dim]
+//   out          [T, n_heads, HD]
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,33 +46,56 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kMaxDimPerLane = 4;  // head_dim <= 128
+constexpr int kStages = 4;      // pages in flight per block
+constexpr int kKeyChunk = 16;   // keys scored together by one warp
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_stages() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
 }
 
-template <typename T>
+// Stage page `page`'s K and V rows of kv head g into one smem stage:
+// [page_size, HD] each, row j at j * HD.  16-byte chunks, all threads.
+template <typename T, int HD>
+__device__ __forceinline__ void load_page(T* ks, T* vs, const T* k_pages,
+                                          const T* v_pages, int page, int g,
+                                          int page_size, int n_kv_heads) {
+  constexpr int kChunk = 16 / sizeof(T);      // elements per 16 bytes
+  constexpr int kChunksPerRow = HD / kChunk;
+  const int n = page_size * kChunksPerRow;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const int j = c / kChunksPerRow;
+    const int d = (c - j * kChunksPerRow) * kChunk;
+    const size_t off = (((size_t)page * page_size + j) * n_kv_heads + g) * HD + d;
+    cp_async16(ks + j * HD + d, k_pages + off);
+    cp_async16(vs + j * HD + d, v_pages + off);
+  }
+}
+
+template <typename T, int HD>
 __global__ void paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const int* __restrict__ page_tables,
     const int* __restrict__ token_seq, const int* __restrict__ positions,
-    T* __restrict__ out, int n_heads, int n_kv_heads, int head_dim,
-    int page_size, int pages_per_seq, float scale) {
-  extern __shared__ float tile[];  // K then V: [page_size, head_dim] each
-  float* ks = tile;
-  float* vs = tile + page_size * head_dim;
+    T* __restrict__ out, int n_heads, int n_kv_heads, int page_size,
+    int pages_per_seq, float scale) {
+  constexpr int kDims = (HD + kWarp - 1) / kWarp;  // head dims per lane
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int stage_elems = 2 * page_size * HD;  // K then V
 
   const int t = blockIdx.x;
   const int g = blockIdx.y;
@@ -73,101 +106,165 @@ __global__ void paged_attention_kernel(
   const int* table = page_tables + (size_t)token_seq[t] * pages_per_seq;
   const int n_pages = min(pos / page_size + 1, pages_per_seq);
 
-  // this lane's slice of the query row and of the output accumulator:
-  // dims lane, lane + 32, lane + 64, lane + 96
-  float qr[kMaxDimPerLane];
-  float acc[kMaxDimPerLane];
-  const T* qrow = q + ((size_t)t * n_heads + head) * head_dim;
+  // prologue: the first kStages - 1 pages in flight (one commit group each,
+  // empty past the row's end, so the group count stays uniform)
 #pragma unroll
-  for (int i = 0; i < kMaxDimPerLane; ++i) {
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_pages) {
+      T* st = smem + s * stage_elems;
+      load_page<T, HD>(st, st + page_size * HD, k_pages, v_pages, table[s], g,
+                       page_size, n_kv_heads);
+    }
+    cp_async_commit();
+  }
+
+  // this lane's head dims: lane, lane + 32, ...; query row and accumulator
+  float qr[kDims];
+  float acc[kDims];
+  const T* qrow = q + ((size_t)t * n_heads + head) * HD;
+#pragma unroll
+  for (int i = 0; i < kDims; ++i) {
     const int d = lane + i * kWarp;
-    qr[i] = d < head_dim ? load_f(qrow + d) : 0.f;
+    qr[i] = d < HD ? to_f(qrow[d]) : 0.f;
     acc[i] = 0.f;
   }
   float m = -INFINITY;  // running max of the scores seen so far
   float l = 0.f;        // running sum of exp(score - m)
 
   for (int p = 0; p < n_pages; ++p) {
-    const int page = table[p];
-    const int n_keys = min(page_size, pos - p * page_size + 1);
-    __syncthreads();  // every warp is done with the previous tile
-    for (int e = threadIdx.x; e < n_keys * head_dim; e += blockDim.x) {
-      const int j = e / head_dim;
-      const int d = e - j * head_dim;
-      const size_t off =
-          (((size_t)page * page_size + j) * n_kv_heads + g) * head_dim + d;
-      ks[e] = load_f(k_pages + off);
-      vs[e] = load_f(v_pages + off);
+    cp_async_wait_stages();  // page p has landed (this thread's copies)
+    __syncthreads();         // ... and every thread's; stage p-1 is free
+    const int nxt = p + kStages - 1;
+    if (nxt < n_pages) {
+      T* st = smem + (nxt % kStages) * stage_elems;
+      load_page<T, HD>(st, st + page_size * HD, k_pages, v_pages, table[nxt],
+                       g, page_size, n_kv_heads);
     }
-    __syncthreads();
-    for (int j = 0; j < n_keys; ++j) {
-      const float* kr = ks + j * head_dim;
-      const float* vr = vs + j * head_dim;
-      float part = 0.f;
+    cp_async_commit();
+
+    const T* ks = smem + (p % kStages) * stage_elems;
+    const T* vs = ks + page_size * HD;
+    const int n_keys = min(page_size, pos - p * page_size + 1);
+    for (int j0 = 0; j0 < n_keys; j0 += kKeyChunk) {
+      float s[kKeyChunk];
 #pragma unroll
-      for (int i = 0; i < kMaxDimPerLane; ++i) {
-        const int d = lane + i * kWarp;
-        if (d < head_dim) part = fmaf(qr[i], kr[d], part);
+      for (int jj = 0; jj < kKeyChunk; ++jj) {
+        float part = 0.f;
+        if (j0 + jj < n_keys) {
+          const T* kr = ks + (j0 + jj) * HD;
+#pragma unroll
+          for (int i = 0; i < kDims; ++i) {
+            const int d = lane + i * kWarp;
+            if (d < HD) part = fmaf(qr[i], to_f(kr[d]), part);
+          }
+        }
+        s[jj] = part;
       }
-      const float s = warp_sum(part) * scale;
-      const float m_new = fmaxf(m, s);
-      const float corr = expf(m - m_new);
-      const float w = expf(s - m_new);
-      l = l * corr + w;
+      // the chunk's warp reductions, interleaved level by level
 #pragma unroll
-      for (int i = 0; i < kMaxDimPerLane; ++i) {
-        const int d = lane + i * kWarp;
-        if (d < head_dim) acc[i] = fmaf(w, vr[d], acc[i] * corr);
+      for (int o = kWarp / 2; o > 0; o >>= 1) {
+#pragma unroll
+        for (int jj = 0; jj < kKeyChunk; ++jj)
+          s[jj] += __shfl_xor_sync(0xffffffffu, s[jj], o);
+      }
+      float cmax = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < kKeyChunk; ++jj) {
+        s[jj] = j0 + jj < n_keys ? s[jj] * scale : -INFINITY;
+        cmax = fmaxf(cmax, s[jj]);
+      }
+      const float m_new = fmaxf(m, cmax);
+      const float corr = expf(m - m_new);
+      l *= corr;
+#pragma unroll
+      for (int i = 0; i < kDims; ++i) acc[i] *= corr;
+#pragma unroll
+      for (int jj = 0; jj < kKeyChunk; ++jj) {
+        if (j0 + jj < n_keys) {  // masked keys are skipped, never multiplied
+          const float w = expf(s[jj] - m_new);
+          l += w;
+          const T* vr = vs + (j0 + jj) * HD;
+#pragma unroll
+          for (int i = 0; i < kDims; ++i) {
+            const int d = lane + i * kWarp;
+            if (d < HD) acc[i] = fmaf(w, to_f(vr[d]), acc[i]);
+          }
+        }
       }
       m = m_new;
     }
   }
+  asm volatile("cp.async.wait_all;\n" ::);
 
-  T* orow = out + ((size_t)t * n_heads + head) * head_dim;
+  T* orow = out + ((size_t)t * n_heads + head) * HD;
   const float inv = 1.f / l;
 #pragma unroll
-  for (int i = 0; i < kMaxDimPerLane; ++i) {
+  for (int i = 0; i < kDims; ++i) {
     const int d = lane + i * kWarp;
-    if (d < head_dim) store_f(orow + d, acc[i] * inv);
+    if (d < HD) store_f(orow + d, acc[i] * inv);
   }
 }
 
-template <typename T>
-void launch(const void* q, const void* k, const void* v, const void* pt,
-            const void* ts, const void* pos, void* out, int n_tokens,
-            int n_heads, int n_kv_heads, int head_dim, int page_size,
-            int pages_per_seq, cudaStream_t stream) {
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* pt,
+                   const void* ts, const void* pos, void* out, int n_tokens,
+                   int n_heads, int n_kv_heads, int page_size,
+                   int pages_per_seq, cudaStream_t stream) {
   const dim3 grid(n_tokens, n_kv_heads);
   const dim3 block((n_heads / n_kv_heads) * kWarp);
-  const size_t smem = 2 * (size_t)page_size * head_dim * sizeof(float);
-  paged_attention_kernel<T><<<grid, block, smem, stream>>>(
+  const size_t smem = (size_t)kStages * 2 * page_size * HD * sizeof(T);
+  if (smem > 48 * 1024) {  // above 48 KB only after an explicit opt-in
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_attention_kernel<T, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  paged_attention_kernel<T, HD><<<grid, block, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(pt),
       static_cast<const int*>(ts), static_cast<const int*>(pos),
-      static_cast<T*>(out), n_heads, n_kv_heads, head_dim, page_size,
-      pages_per_seq, 1.f / sqrtf((float)head_dim));
+      static_cast<T*>(out), n_heads, n_kv_heads, page_size, pages_per_seq,
+      1.f / sqrtf((float)HD));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_hd(int head_dim, const void* q, const void* k,
+                      const void* v, const void* pt, const void* ts,
+                      const void* pos, void* out, int n_tokens, int n_heads,
+                      int n_kv_heads, int page_size, int pages_per_seq,
+                      cudaStream_t stream) {
+  switch (head_dim) {
+    case 16:
+      return launch<T, 16>(q, k, v, pt, ts, pos, out, n_tokens, n_heads,
+                           n_kv_heads, page_size, pages_per_seq, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, pt, ts, pos, out, n_tokens, n_heads,
+                            n_kv_heads, page_size, pages_per_seq, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 = cudaSuccess); the caller checks every argument beforehand.
+// dtype: 0 = float32, 1 = bfloat16; head_dim 16 or 128.  Returns the launch's
+// cudaGetLastError() (0 = cudaSuccess); the caller checks every argument.
 extern "C" int paged_attention_launch(
     int dtype, const void* q, const void* k_pages, const void* v_pages,
     const void* page_tables, const void* token_seq, const void* positions,
     void* out, int n_tokens, int n_heads, int n_kv_heads, int head_dim,
     int page_size, int pages_per_seq, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
   if (dtype == 0) {
-    launch<float>(q, k_pages, v_pages, page_tables, token_seq, positions, out,
-                  n_tokens, n_heads, n_kv_heads, head_dim, page_size,
-                  pages_per_seq, s);
+    e = launch_hd<float>(head_dim, q, k_pages, v_pages, page_tables, token_seq,
+                         positions, out, n_tokens, n_heads, n_kv_heads,
+                         page_size, pages_per_seq, s);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(q, k_pages, v_pages, page_tables, token_seq,
-                          positions, out, n_tokens, n_heads, n_kv_heads,
-                          head_dim, page_size, pages_per_seq, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    e = launch_hd<__nv_bfloat16>(head_dim, q, k_pages, v_pages, page_tables,
+                                 token_seq, positions, out, n_tokens, n_heads,
+                                 n_kv_heads, page_size, pages_per_seq, s);
   }
-  return (int)cudaGetLastError();
+  return (int)e;
 }

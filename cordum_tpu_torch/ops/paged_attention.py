@@ -19,7 +19,8 @@ The kernel is compiled with ``nvcc`` for ``sm_90a`` into ``build/`` at the
 repository root on first use and bound with ``ctypes``.  It is bounded by
 device-memory bytes: the K/V pages each sequence needs, counted once, over
 3.35 TB/s.  Its design is the simple one (one block per token and KV head,
-fp32 online softmax); see the source's head comment.
+pages streamed through shared memory with ``cp.async``, fp32 online
+softmax); see the source's head comment.
 """
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ NVCC_FLAGS = (
 #: 128 and the small test configurations' 16
 KERNEL_HEAD_DIMS = (16, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 48 * 1024  # static-launch dynamic shared memory, no opt-in
+_STAGES = 4  # pages in flight per block (kStages in the source)
+_SMEM_LIMIT = 227 * 1024  # a block's shared memory on Hopper, with opt-in
 _MAX_GROUP = 32  # one warp per query head: at most 1024 threads a block
 
 _lib: Optional[ctypes.CDLL] = None
@@ -193,8 +195,10 @@ def check_kernel_args(
         raise ValueError(
             f"paged_attention kernel: {h} query heads over {kvh} KV heads"
         )
-    if 2 * ps * hd * 4 > _SMEM_LIMIT:
+    if _STAGES * 2 * ps * hd * q.element_size() > _SMEM_LIMIT:
         raise ValueError(f"paged_attention kernel: page_size {ps} too large")
+    if any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
+        raise ValueError("paged_attention kernel: q/k/v must be 16-byte aligned")
     if t < 1 or page_tables.dim() != 2 or tuple(token_seq.shape) != (t,) \
             or tuple(positions.shape) != (t,):
         raise ValueError("paged_attention kernel: metadata shapes disagree")
