@@ -140,7 +140,7 @@ def time_ms(torch, fn, *, iters, flush):
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
-def phase_kernel(torch, dev, smi):
+def phase_kernel(torch, dev, card):
     from cordum_tpu_torch.ops import paged_attention as pa
 
     import torch.nn.functional as F
@@ -267,14 +267,14 @@ async def serve_waves(engine, waves, n_new, tag, emits=None):
 
 
 def decode_rate(emits):
-    """Decode tokens/s once every request is decoding: tokens streamed after
-    the last request's first token, over the time from then to the end."""
-    first = {}
-    for t, key, _ in emits:
-        first.setdefault(key, t)
-    start, end = max(first.values()), max(t for t, _, _ in emits)
-    tokens = sum(n for t, _, n in emits if t > start)
-    return tokens / (end - start) if end > start else float("nan")
+    """Per-request decode tokens/s, p50 over requests: the tokens streamed
+    after a request's first packet over the time from it to its last."""
+    by_key = {}
+    for t, key, n in emits:
+        by_key.setdefault(key, []).append((t, n))
+    rates = [sum(n for _, n in ev[1:]) / (ev[-1][0] - ev[0][0])
+             for ev in by_key.values() if len(ev) > 1 and ev[-1][0] > ev[0][0]]
+    return statistics.median(rates) if rates else float("nan")
 
 
 def phase_oracle(torch, dev, card, cfg, *, n_new=16):
@@ -364,7 +364,7 @@ def phase_serve(torch, dev, card, cfg, *, n_requests=8, n_new=32, cache_pages=10
     log(f"[serve] {n_requests} requests, prompts {lengths[0]}..{lengths[-1]} tokens, "
         f"{n_new} new each: wall {wall:.3f} s, steps {st.steps}, "
         f"TTFT p50 {statistics.median(ttft) * 1e3:.1f} ms, "
-        f"decode {decode_rate(emits):.1f} tokens/s (all requests decoding), "
+        f"decode p50 {decode_rate(emits):.1f} tokens/s per request, "
         f"output {st.decoded_tokens / wall:.1f} tokens/s (whole run), step p50 {step_ms:.2f} ms, "
         f"peak memory {peak_gib:.2f} GiB, launches {launches}, "
         f"drafted {st.drafted_tokens} accepted {st.accepted_tokens}  [{card}]")

@@ -11,20 +11,22 @@
 // and query head) is far below the card's rate at any batch this step runs.
 //
 // Design (the simple one):
-//   * one block per (token, kv head); one warp per query head of the GQA
-//     group, so each K/V page is staged through shared memory once per
+//   * one block per (token, kv head, split); one warp per query head of the
+//     GQA group, so each K/V page is staged through shared memory once per
 //     block and read by all the query heads that share it;
-//   * the block walks its own page-table row, pages 0 .. pos / page_size,
-//     through a ring of kStages shared-memory stages filled with cp.async,
-//     so the next pages' loads are in flight while a page is computed;
-//   * per page, a warp computes the scores of up to 16 keys at once (lanes
-//     over head dims, the 16 warp reductions interleaved), then one online
-//     softmax update (running max, running sum) and the PV accumulation —
-//     scores, softmax and accumulator in fp32.
-// What it does not do yet: a long row is walked by kv_heads blocks only,
-// each bounded by one SM's share of the bandwidth; splitting a row's pages
-// across blocks (with a second reduction pass) and tensor-core products are
-// later work.
+//   * a token's pages 0 .. pos / page_size are cut into at most n_splits
+//     contiguous runs, one per block (the run length follows the token's
+//     own position, so short rows use few blocks and long rows many); each
+//     block streams its run through a ring of kStages shared-memory stages
+//     filled with cp.async, so the next pages' loads are in flight while a
+//     page is computed;
+//   * per page, a warp scores up to 16 keys at once (lanes over head dims,
+//     the 16 warp reductions interleaved), then does one online softmax
+//     update (running max, running sum) and the PV accumulation; scores,
+//     softmax and accumulator are fp32;
+//   * each block writes its unnormalised partial (acc, max, sum) to fp32
+//     scratch, and a second kernel merges a token's partials per head.
+// Not done yet: tensor-core products, TMA, a persistent schedule.
 //
 // The K/V append is NOT done here: tokens of one prefill chunk attend to
 // each other's slots, which other blocks of the same grid would write in no
@@ -38,6 +40,7 @@
 //   token_seq    [T] int32  (row of page_tables of each token)
 //   positions    [T] int32  (attends to keys 0 .. positions[t])
 //   out          [T, n_heads, HD]
+//   scratch      [T, n_heads, n_splits, HD + 2] fp32: acc, max, sum
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -85,13 +88,21 @@ __device__ __forceinline__ void load_page(T* ks, T* vs, const T* k_pages,
   }
 }
 
+// pages of token t's row (0 .. n_pages) and the run length of one split
+__device__ __forceinline__ void row_split(int pos, int page_size,
+                                          int pages_per_seq, int n_splits,
+                                          int* n_pages, int* span) {
+  *n_pages = min(pos / page_size + 1, pages_per_seq);
+  *span = (*n_pages + n_splits - 1) / n_splits;
+}
+
 template <typename T, int HD>
-__global__ void paged_attention_kernel(
+__global__ void paged_attention_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const int* __restrict__ page_tables,
     const int* __restrict__ token_seq, const int* __restrict__ positions,
-    T* __restrict__ out, int n_heads, int n_kv_heads, int page_size,
-    int pages_per_seq, float scale) {
+    float* __restrict__ part, int n_heads, int n_kv_heads, int page_size,
+    int pages_per_seq, int n_splits, float scale) {
   constexpr int kDims = (HD + kWarp - 1) / kWarp;  // head dims per lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
@@ -103,8 +114,13 @@ __global__ void paged_attention_kernel(
   const int lane = threadIdx.x % kWarp;
   const int head = g * (n_heads / n_kv_heads) + warp;
   const int pos = positions[t];
-  const int* table = page_tables + (size_t)token_seq[t] * pages_per_seq;
-  const int n_pages = min(pos / page_size + 1, pages_per_seq);
+  int n_row, span;
+  row_split(pos, page_size, pages_per_seq, n_splits, &n_row, &span);
+  const int first = blockIdx.z * span;  // this block's run: first .. +n_pages
+  if (first >= n_row) return;           // the whole block: no run left
+  const int n_pages = min(span, n_row - first);
+  const int* table =
+      page_tables + (size_t)token_seq[t] * pages_per_seq + first;
 
   // prologue: the first kStages - 1 pages in flight (one commit group each,
   // empty past the row's end, so the group count stays uniform)
@@ -144,21 +160,21 @@ __global__ void paged_attention_kernel(
 
     const T* ks = smem + (p % kStages) * stage_elems;
     const T* vs = ks + page_size * HD;
-    const int n_keys = min(page_size, pos - p * page_size + 1);
+    const int n_keys = min(page_size, pos - (first + p) * page_size + 1);
     for (int j0 = 0; j0 < n_keys; j0 += kKeyChunk) {
       float s[kKeyChunk];
 #pragma unroll
       for (int jj = 0; jj < kKeyChunk; ++jj) {
-        float part = 0.f;
+        float dot = 0.f;
         if (j0 + jj < n_keys) {
           const T* kr = ks + (j0 + jj) * HD;
 #pragma unroll
           for (int i = 0; i < kDims; ++i) {
             const int d = lane + i * kWarp;
-            if (d < HD) part = fmaf(qr[i], to_f(kr[d]), part);
+            if (d < HD) dot = fmaf(qr[i], to_f(kr[d]), dot);
           }
         }
-        s[jj] = part;
+        s[jj] = dot;
       }
       // the chunk's warp reductions, interleaved level by level
 #pragma unroll
@@ -196,51 +212,88 @@ __global__ void paged_attention_kernel(
   }
   asm volatile("cp.async.wait_all;\n" ::);
 
-  T* orow = out + ((size_t)t * n_heads + head) * HD;
-  const float inv = 1.f / l;
+  float* prow =
+      part + (((size_t)t * n_heads + head) * n_splits + blockIdx.z) * (HD + 2);
 #pragma unroll
   for (int i = 0; i < kDims; ++i) {
     const int d = lane + i * kWarp;
-    if (d < HD) store_f(orow + d, acc[i] * inv);
+    if (d < HD) prow[d] = acc[i];
   }
+  if (lane == 0) {
+    prow[HD] = m;
+    prow[HD + 1] = l;
+  }
+}
+
+// Merge token t's partials for one query head: one thread per head dim.
+template <typename T, int HD>
+__global__ void paged_attention_combine_kernel(
+    const float* __restrict__ part, const int* __restrict__ positions,
+    T* __restrict__ out, int n_heads, int page_size, int pages_per_seq,
+    int n_splits) {
+  const int t = blockIdx.x;
+  const int head = blockIdx.y;
+  const int d = threadIdx.x;
+  int n_row, span;
+  row_split(positions[t], page_size, pages_per_seq, n_splits, &n_row, &span);
+  const int n_active = (n_row + span - 1) / span;
+  const float* prow = part + ((size_t)t * n_heads + head) * n_splits * (HD + 2);
+  float m = -INFINITY;
+  for (int z = 0; z < n_active; ++z) m = fmaxf(m, prow[z * (HD + 2) + HD]);
+  float l = 0.f, o = 0.f;
+  for (int z = 0; z < n_active; ++z) {
+    const float* pz = prow + z * (HD + 2);
+    const float w = expf(pz[HD] - m);
+    l = fmaf(w, pz[HD + 1], l);
+    o = fmaf(w, pz[d], o);
+  }
+  store_f(out + ((size_t)t * n_heads + head) * HD + d, o / l);
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* pt,
-                   const void* ts, const void* pos, void* out, int n_tokens,
-                   int n_heads, int n_kv_heads, int page_size,
-                   int pages_per_seq, cudaStream_t stream) {
-  const dim3 grid(n_tokens, n_kv_heads);
+                   const void* ts, const void* pos, void* out, void* scratch,
+                   int n_tokens, int n_heads, int n_kv_heads, int page_size,
+                   int pages_per_seq, int n_splits, cudaStream_t stream) {
+  const dim3 grid(n_tokens, n_kv_heads, n_splits);
   const dim3 block((n_heads / n_kv_heads) * kWarp);
   const size_t smem = (size_t)kStages * 2 * page_size * HD * sizeof(T);
   if (smem > 48 * 1024) {  // above 48 KB only after an explicit opt-in
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<T, HD>,
+        paged_attention_split_kernel<T, HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  paged_attention_kernel<T, HD><<<grid, block, smem, stream>>>(
+  float* part = static_cast<float*>(scratch);
+  paged_attention_split_kernel<T, HD><<<grid, block, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(pt),
-      static_cast<const int*>(ts), static_cast<const int*>(pos),
-      static_cast<T*>(out), n_heads, n_kv_heads, page_size, pages_per_seq,
+      static_cast<const int*>(ts), static_cast<const int*>(pos), part,
+      n_heads, n_kv_heads, page_size, pages_per_seq, n_splits,
       1.f / sqrtf((float)HD));
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  paged_attention_combine_kernel<T, HD><<<dim3(n_tokens, n_heads), HD, 0, stream>>>(
+      part, static_cast<const int*>(pos), static_cast<T*>(out), n_heads,
+      page_size, pages_per_seq, n_splits);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_hd(int head_dim, const void* q, const void* k,
                       const void* v, const void* pt, const void* ts,
-                      const void* pos, void* out, int n_tokens, int n_heads,
-                      int n_kv_heads, int page_size, int pages_per_seq,
-                      cudaStream_t stream) {
+                      const void* pos, void* out, void* scratch, int n_tokens,
+                      int n_heads, int n_kv_heads, int page_size,
+                      int pages_per_seq, int n_splits, cudaStream_t stream) {
   switch (head_dim) {
     case 16:
-      return launch<T, 16>(q, k, v, pt, ts, pos, out, n_tokens, n_heads,
-                           n_kv_heads, page_size, pages_per_seq, stream);
+      return launch<T, 16>(q, k, v, pt, ts, pos, out, scratch, n_tokens,
+                           n_heads, n_kv_heads, page_size, pages_per_seq,
+                           n_splits, stream);
     case 128:
-      return launch<T, 128>(q, k, v, pt, ts, pos, out, n_tokens, n_heads,
-                            n_kv_heads, page_size, pages_per_seq, stream);
+      return launch<T, 128>(q, k, v, pt, ts, pos, out, scratch, n_tokens,
+                            n_heads, n_kv_heads, page_size, pages_per_seq,
+                            n_splits, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -248,23 +301,26 @@ cudaError_t launch_hd(int head_dim, const void* q, const void* k,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim 16 or 128.  Returns the launch's
+// dtype: 0 = float32, 1 = bfloat16; head_dim 16 or 128; scratch holds
+// [n_tokens, n_heads, n_splits, head_dim + 2] floats.  Returns the launches'
 // cudaGetLastError() (0 = cudaSuccess); the caller checks every argument.
 extern "C" int paged_attention_launch(
     int dtype, const void* q, const void* k_pages, const void* v_pages,
     const void* page_tables, const void* token_seq, const void* positions,
-    void* out, int n_tokens, int n_heads, int n_kv_heads, int head_dim,
-    int page_size, int pages_per_seq, void* stream) {
+    void* out, void* scratch, int n_tokens, int n_heads, int n_kv_heads,
+    int head_dim, int page_size, int pages_per_seq, int n_splits,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
   if (dtype == 0) {
     e = launch_hd<float>(head_dim, q, k_pages, v_pages, page_tables, token_seq,
-                         positions, out, n_tokens, n_heads, n_kv_heads,
-                         page_size, pages_per_seq, s);
+                         positions, out, scratch, n_tokens, n_heads,
+                         n_kv_heads, page_size, pages_per_seq, n_splits, s);
   } else if (dtype == 1) {
     e = launch_hd<__nv_bfloat16>(head_dim, q, k_pages, v_pages, page_tables,
-                                 token_seq, positions, out, n_tokens, n_heads,
-                                 n_kv_heads, page_size, pages_per_seq, s);
+                                 token_seq, positions, out, scratch, n_tokens,
+                                 n_heads, n_kv_heads, page_size, pages_per_seq,
+                                 n_splits, s);
   }
   return (int)e;
 }

@@ -18,9 +18,10 @@ Three functions of the same computation live here:
 The kernel is compiled with ``nvcc`` for ``sm_90a`` into ``build/`` at the
 repository root on first use and bound with ``ctypes``.  It is bounded by
 device-memory bytes: the K/V pages each sequence needs, counted once, over
-3.35 TB/s.  Its design is the simple one (one block per token and KV head,
-pages streamed through shared memory with ``cp.async``, fp32 online
-softmax); see the source's head comment.
+3.35 TB/s.  Its design is the simple one (a token's pages cut across up to
+16 blocks per KV head, streamed through shared memory with ``cp.async``,
+fp32 online softmax, a second pass merging the blocks' partials); see the
+source's head comment.
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ NVCC_FLAGS = (
 KERNEL_HEAD_DIMS = (16, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _STAGES = 4  # pages in flight per block (kStages in the source)
+_MAX_SPLITS = 16  # blocks a token's pages are cut across, per KV head
 _SMEM_LIMIT = 227 * 1024  # a block's shared memory on Hopper, with opt-in
 _MAX_GROUP = 32  # one warp per query head: at most 1024 threads a block
 
@@ -152,8 +154,8 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             fn = lib.paged_attention_launch
             fn.argtypes = (
-                [ctypes.c_int] + [ctypes.c_void_p] * 7
-                + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+                [ctypes.c_int] + [ctypes.c_void_p] * 8
+                + [ctypes.c_int] * 7 + [ctypes.c_void_p]
             )
             fn.restype = ctypes.c_int
             _lib = lib
@@ -226,14 +228,19 @@ def paged_attention(
     fn = _load().paged_attention_launch
     t, h, hd = q.shape
     _, ps, kvh, _ = k_pages.shape
+    pages_per_seq = page_tables.shape[1]
+    n_splits = min(_MAX_SPLITS, pages_per_seq)
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
+        # per-split partials (acc, max, sum) the combine pass merges
+        scratch = torch.empty((t, h, n_splits, hd + 2), dtype=torch.float32,
+                              device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), page_tables.data_ptr(), token_seq.data_ptr(),
-            positions.data_ptr(), out.data_ptr(), t, h, kvh, hd, ps,
-            page_tables.shape[1], stream,
+            positions.data_ptr(), out.data_ptr(), scratch.data_ptr(), t, h,
+            kvh, hd, ps, pages_per_seq, n_splits, stream,
         )
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {err}")
