@@ -142,7 +142,7 @@ def build() -> tuple[Path, str]:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
+    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     return lib, log
 
 
