@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card (Hopper: the kernel is built for ``sm_90a``) and
-``nvcc``; it builds the hand-written kernel from ``cordum_tpu_torch/csrc``
+Needs one CUDA card (Hopper: the kernels are built for ``sm_90a``) and
+``nvcc``; it builds the hand-written kernels from ``cordum_tpu_torch/csrc``
 into ``build/`` and exits non-zero, printing no result, without a card.
 Every phase raises on failure.  Phases:
 
-1. Device: the card's name and power limit, the kernel build (with the
-   ``-Xptxas -v`` report when it compiles), TF32 turned off.
+1. Device: the card's name and power limit, the kernel builds (one
+   ``nvcc`` per source, started together; the ``-Xptxas -v`` report when
+   they compile), TF32 turned off.
 2. Kernel vs plain version at the main path's shapes (Llama-3-8B heads:
    h 32, kvh 8, hd 128; page size 16, a 24-token buffer over 8 sequences,
    512 pages a row for an 8192-token context, a 1200-page arena) on one
@@ -24,12 +25,34 @@ Every phase raises on failure.  Phases:
    generator: 8 requests served to completion through the same entry
    point; TTFT p50, decode tokens/s, peak memory; then the same requests
    once more under ``torch.profiler`` for where the device time goes.
+5. The embedder's attention kernel vs its plain version at the shape of a
+   full micro-batch (B 256, L 128, h 4, hd 64; rows of mixed lengths, one
+   all-pad row, one length-1 row, q/k/v as views of one fused projection),
+   fp32 and bf16, with times, the bound and SDPA's time as the yardstick.
+6. The port ``Worker`` on the card, built with
+   ``attach_default_gpu_worker`` over the port's ``LoopbackBus`` and
+   ``MemoryStore``; the script plays the scheduler, publishing
+   ``JobRequest`` s to the worker's subject.  One worker serves phase 3's
+   fp32 2-layer model with an fp32 embedder: its ``llm.generate`` results
+   must equal phase 3's dense oracle, its embeddings the plain-version
+   embedder's.  One serves phase 4's bf16 Llama-3-8B weights (no second
+   copy) with the default bf16 embedder: ``echo``, ``matmul``, ``infer``,
+   ``embed`` one job at a time and coalesced by the micro-batcher, and
+   ``llm.generate``; its heartbeat must name the card.  Prints echo
+   jobs/s, p50 dispatch→result per op, single-job and batched embeds/s
+   and TTFT p50 through the worker.
 
-Tolerances (kernel vs plain version, max abs error): fp32 1e-4 — the sums
-run in another order over up to 8192 keys, on O(1) outputs; bf16 6e-2 —
-the plain version rounds scores and probabilities to bf16 before the PV
-product while the kernel keeps both in fp32, a few bf16 ulps (2^-8
-relative) on outputs of magnitude up to ~3.
+Tolerances (kernel vs plain version, max abs error), paged attention:
+fp32 1e-4 — the sums run in another order over up to 8192 keys, on O(1)
+outputs; bf16 6e-2 — the plain version rounds scores and probabilities to
+bf16 before the PV product while the kernel keeps both in fp32, a few bf16
+ulps (2^-8 relative) on outputs of magnitude up to ~3.  Embedder
+attention: fp32 1e-5 — sums of at most 128 terms in another order on O(1)
+outputs; bf16 6e-2 — both versions round scores and probabilities to bf16
+at the same points, so only a rounding flipped by the fp32 sum order
+differs: two bf16 ulps at outputs up to ~4.  Worker embeddings vs the
+plain-version embedder (unit L2 vectors): fp32 1e-5; bf16 2e-2 (rounding
+flips carried through four layers, LayerNorm and pooling).
 
 Near-tie rule of phase 3, fixed before any run: tokens are compared up to
 the first generated position where the oracle's top-2 logits differ by
@@ -45,6 +68,7 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -55,10 +79,15 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 without tensor cores; bf16 dense
 KERNEL_ATOL = {"float32": 1e-4, "bfloat16": 6e-2}
+EMBED_KERNEL_ATOL = {"float32": 1e-5, "bfloat16": 6e-2}
+EMBED_ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 NEAR_TIE = 1e-4
 SEED = 0
-KERNEL_SOURCE = "cordum_tpu_torch/csrc/paged_attention.cu"
-REPLACES = "cordum_tpu/models/llama.py:467"
+#: kernel (its module under cordum_tpu_torch.ops) → the JAX-side function it replaces
+KERNELS = {
+    "paged_attention": "cordum_tpu/models/llama.py:467",
+    "embed_attention": "cordum_tpu/models/embedder.py:123",
+}
 
 
 def log(msg: str) -> None:
@@ -278,6 +307,8 @@ def decode_rate(emits):
 
 
 def phase_oracle(torch, dev, card, cfg, *, n_new=16):
+    """Returns the main path's kernel launches, the weights, the prompts and
+    the dense oracle's (tokens, near-tie positions) per prompt."""
     from cordum_tpu_torch.models import llama
     from cordum_tpu_torch.ops import paged_attention as pa
     from cordum_tpu_torch.worker.handlers import make_serving_engine
@@ -319,7 +350,7 @@ def phase_oracle(torch, dev, card, cfg, *, n_new=16):
             f"cow copies {st.cow_copies}, drafted {st.drafted_tokens}, "
             f"accepted {st.accepted_tokens}")
     log(f"[oracle] near-tie positions (top-2 gap < {NEAR_TIE:g}): {n_ties}  [{card}]")
-    return launches
+    return launches, params, prompts, oracle
 
 
 # ---------------------------------------------------------------------------
@@ -328,6 +359,8 @@ def phase_oracle(torch, dev, card, cfg, *, n_new=16):
 
 
 def phase_serve(torch, dev, card, cfg, *, n_requests=8, n_new=32, cache_pages=1024):
+    """Returns the main path's kernel launches and the weights, which
+    phase 6 serves again (one copy)."""
     from cordum_tpu_torch.models import llama
     from cordum_tpu_torch.ops import paged_attention as pa
     from cordum_tpu_torch.worker.handlers import make_serving_engine
@@ -369,7 +402,7 @@ def phase_serve(torch, dev, card, cfg, *, n_requests=8, n_new=32, cache_pages=10
         f"peak memory {peak_gib:.2f} GiB, launches {launches}, "
         f"drafted {st.drafted_tokens} accepted {st.accepted_tokens}  [{card}]")
     profile_serving(torch, dev, card, cfg, params, prompts, cache_pages=cache_pages)
-    return launches
+    return launches, params
 
 
 def profile_serving(torch, dev, card, cfg, params, prompts, *, n_new=8, cache_pages=1024):
@@ -404,6 +437,435 @@ def profile_serving(torch, dev, card, cfg, params, prompts, *, n_new=8, cache_pa
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the embedder's attention kernel vs plain version
+# ---------------------------------------------------------------------------
+
+
+def embed_attention_case(torch, dev, *, b=256, length=128, h=4, hd=64, seed=SEED):
+    """A full micro-batch at the embedder's widths: q, k, v as views of one
+    fused ``[B, L, 3, h, hd]`` projection (the forward's layout), rows of
+    mixed lengths, one full row, one all-pad row (batch padding) and one
+    length-1 row.  Returns the fp32 projection, the mask and the lengths."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(2, length + 1, b)
+    lens[0], lens[1], lens[2] = length, 0, 1
+    mask = (np.arange(length)[None, :] < lens[:, None]).astype(np.float32)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((b, length, 3, h, hd), generator=g, device=dev)
+    return qkv, torch.from_numpy(mask).to(dev), lens
+
+
+def embed_work_of(lens, length, h, hd, el):
+    """Bytes the call must move (q read and out written in full; of k and
+    v the keys each row attends to, all ``L`` on an all-pad row; the fp32
+    mask) and its operations (QK and PV: 4*hd per query, attended key and
+    head)."""
+    keys = int(np.where(lens > 0, lens, length).astype(np.int64).sum())
+    b = len(lens)
+    nbytes = 2 * b * length * h * hd * el + 2 * keys * h * hd * el + 4 * b * length
+    return nbytes, 4 * hd * h * length * keys
+
+
+def phase_embed_kernel(torch, dev, card):
+    from cordum_tpu_torch.ops import embed_attention as ea
+
+    import torch.nn.functional as F
+
+    qkv32, mask, lens = embed_attention_case(torch, dev)
+    b, length, _, h, hd = qkv32.shape
+    real = torch.from_numpy(lens > 0).to(dev)
+    flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        qkv = qkv32.to(dtype)
+        args = (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask)
+        got = ea.embed_attention(*args)
+        torch.cuda.synchronize()
+        want = ea.embed_attention_reference(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        if not (err <= EMBED_KERNEL_ATOL[name]) or not torch.isfinite(got).all():
+            raise AssertionError(
+                f"embed_attention vs plain {name}: max abs err {err} > "
+                f"{EMBED_KERNEL_ATOL[name]} (or not finite)")
+        # the library yardstick: SDPA on [B, h, L, hd] copies under the same
+        # boolean key mask (the copies are left out of its time; it has no
+        # defined output on the all-pad row, so that row is not compared)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in args[:3])
+        bmask = (mask > 0)[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bmask)
+
+        lib_err = (sdpa().transpose(1, 2)[real].float() - want[real].float()).abs().max().item()
+        kernel_ms = time_ms(torch, lambda: ea.embed_attention(*args), iters=50, flush=flush)
+        plain_ms = time_ms(torch, lambda: ea.embed_attention_reference(*args), iters=10,
+                           flush=flush)
+        library_ms = time_ms(torch, sdpa, iters=20, flush=flush)
+        nbytes, ops = embed_work_of(lens, length, h, hd, qkv.element_size())
+        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_OPS[name] * 1e3
+        results[name] = dict(
+            max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=max(mem_ms, ops_ms), bound_by="bytes" if mem_ms >= ops_ms else "operations",
+        )
+        log(f"[embed-kernel] {name}: max_abs_err {err:.3e} (tolerance "
+            f"{EMBED_KERNEL_ATOL[name]:.0e}), sdpa vs plain {lib_err:.3e} (real rows)")
+        log(f"[embed-kernel] {name}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
+            f"library_ms {library_ms:.4f}  bound_ms {results[name]['bound_ms']:.4f} "
+            f"({results[name]['bound_by']}: {nbytes} bytes, {ops} ops)  [{card}]")
+        del qh, kh, vh
+        torch.cuda.empty_cache()
+    del flush_buf
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the port worker on the card
+# ---------------------------------------------------------------------------
+
+WORDS = ("agent", "workflow", "context", "token", "page", "card", "batch", "queue",
+         "scheduler", "safety", "policy", "result", "stream", "embed", "recall", "job")
+
+
+def make_texts(rng, n, min_words, max_words):
+    """Texts of ``min_words``..``max_words`` words (each a token) with some
+    punctuation, so their token counts spread over the length buckets."""
+    return [" ".join(rng.choice(WORDS, rng.integers(min_words, max_words + 1)))
+            + rng.choice(["", ".", "!", " ?"]) for _ in range(n)]
+
+
+class JobDispatcher:
+    """Plays the scheduler for one port worker: publishes ``JobRequest`` s
+    on the worker's direct subject and collects the results, the streamed
+    tokens and the heartbeats from the bus."""
+
+    def __init__(self, bus, store, worker_id):
+        self.bus, self.store, self.worker_id = bus, store, worker_id
+        self.sent: dict = {}
+        self.done: dict = {}
+        self.first_token: dict = {}
+        self.streams: dict = {}
+        self.heartbeats: list = []
+        self._waiters: dict = {}
+        self._n = 0
+
+    async def start(self):
+        from cordum_tpu_torch.protocol import subjects as subj
+
+        await self.bus.subscribe(subj.RESULT, self._on_result)
+        await self.bus.subscribe(subj.PROGRESS, self._on_progress)
+        await self.bus.subscribe(subj.HEARTBEAT, self._on_heartbeat)
+
+    async def _on_result(self, subject, pkt):
+        r = pkt.job_result
+        if r is None or r.job_id not in self._waiters or r.status == "RUNNING":
+            return  # RUNNING is a requeue hint, not a terminal result
+        self.done[r.job_id] = time.monotonic()
+        fut = self._waiters.pop(r.job_id)
+        if not fut.done():
+            fut.set_result(r)
+
+    async def _on_progress(self, subject, pkt):
+        from cordum_tpu_torch.protocol.types import STATUS_HINT_STREAM
+
+        pr = pkt.job_progress
+        if pr is not None and pr.status_hint == STATUS_HINT_STREAM:
+            self.first_token.setdefault(pr.job_id, time.monotonic())
+            self.streams.setdefault(pr.job_id, []).extend(pr.tokens)
+
+    async def _on_heartbeat(self, subject, pkt):
+        if pkt.heartbeat is not None:
+            self.heartbeats.append(pkt.heartbeat)
+
+    async def _submit(self, payload, tag):
+        from cordum_tpu_torch.protocol import subjects as subj
+        from cordum_tpu_torch.protocol.types import BusPacket, JobRequest
+
+        self._n += 1
+        jid = f"{tag}-{self._n}"
+        ptr = await self.store.put_context(jid, payload)
+        fut = asyncio.get_running_loop().create_future()
+        self._waiters[jid] = fut
+        self.sent[jid] = time.monotonic()
+        await self.bus.publish(subj.direct_subject(self.worker_id), BusPacket.wrap(
+            JobRequest(job_id=jid, topic=f"job.gpu.{payload['op']}", context_ptr=ptr)))
+        return jid, fut
+
+    async def run(self, payloads, tag, *, timeout_s=600.0):
+        """Submit ``payloads`` together and wait for all; returns ``[(job
+        id, result doc)]`` and raises on any job that did not succeed."""
+        subs = [await self._submit(p, tag) for p in payloads]
+        res = await asyncio.wait_for(asyncio.gather(*(f for _, f in subs)), timeout_s)
+        out = []
+        for (jid, _), r in zip(subs, res):
+            if r.status != "SUCCEEDED":
+                raise AssertionError(f"{jid}: {r.status} {r.error_code} {r.error_message}")
+            out.append((jid, await self.store.get_result(jid)))
+        return out
+
+    def p50_ms(self, jids):
+        return statistics.median((self.done[j] - self.sent[j]) * 1e3 for j in jids)
+
+
+def make_port_worker(torch, dev, worker_id, **compute_kw):
+    """A port ``Worker`` over the port's ``LoopbackBus`` and ``MemoryStore``,
+    wired by ``attach_default_gpu_worker`` (micro-batches up to 256 rows,
+    the embedder's largest batch bucket)."""
+    from cordum_tpu_torch.infra.bus import LoopbackBus
+    from cordum_tpu_torch.infra.kv import MemoryKV
+    from cordum_tpu_torch.infra.memstore import MemoryStore
+    from cordum_tpu_torch.worker.handlers import attach_default_gpu_worker
+    from cordum_tpu_torch.worker.runtime import Worker
+
+    bus, store = LoopbackBus(), MemoryStore(MemoryKV())
+    w = Worker(bus=bus, store=store, worker_id=worker_id, pool="gpu",
+               capabilities=["gpu"], heartbeat_interval_s=2.0, device=dev)
+    compute = attach_default_gpu_worker(
+        w, max_batch_rows=256, serving_cache_pages=256, seed=SEED, **compute_kw)
+    return w, compute, JobDispatcher(bus, store, worker_id)
+
+
+def plain_embeddings(torch, embedder, texts):
+    """The embedder's forward with the attention's plain version, on the
+    card, over ``texts`` at ``max_len``: what the worker's embeddings are
+    held to."""
+    from cordum_tpu_torch.models import embedder as em
+    from cordum_tpu_torch.ops.embed_attention import embed_attention_reference
+
+    ids, mask = em.batch_tokenize(texts, embedder.cfg)
+    dev = embedder.device
+    with torch.no_grad():
+        out = em.forward(embedder.params, torch.from_numpy(ids).to(dev),
+                         torch.from_numpy(mask).to(dev), embedder.cfg,
+                         attention=embed_attention_reference)
+    return out.cpu().numpy()
+
+
+def check_embeddings(torch, compute, jobs, texts_of, name):
+    """Every embed job's vectors against the plain-version embedder; returns
+    the max abs error."""
+    texts = [t for jid, _ in jobs for t in texts_of[jid]]
+    got = np.concatenate([np.asarray(doc["embeddings"], np.float32) for _, doc in jobs])
+    want = plain_embeddings(torch, compute.embedder, texts)
+    err = float(np.abs(got - want).max())
+    if not err <= EMBED_ATOL[name] or got.shape != want.shape:
+        raise AssertionError(f"worker embeddings {name}: max abs err {err} > {EMBED_ATOL[name]}")
+    return err
+
+
+async def embed_jobs(sched, texts, per_job, tag, *, one_at_a_time):
+    """Embed ``texts`` as jobs of ``per_job`` texts, all together or one job
+    at a time; returns the jobs, each job's texts and the wall seconds."""
+    payloads = [{"op": "embed", "texts": texts[i:i + per_job]}
+                for i in range(0, len(texts), per_job)]
+    t0 = time.monotonic()
+    if one_at_a_time:
+        jobs = [j for p in payloads for j in await sched.run([p], tag)]
+    else:
+        jobs = await sched.run(payloads, tag)
+    wall = time.monotonic() - t0
+    return jobs, {jid: p["texts"] for (jid, _), p in zip(jobs, payloads)}, wall
+
+
+def zero_launches():
+    from cordum_tpu_torch.ops import embed_attention as ea
+    from cordum_tpu_torch.ops import paged_attention as pa
+
+    pa.paged_attention.launches = 0
+    ea.embed_attention.launches = 0
+
+
+def read_launches(n_layers_embed, n_layers_llama, steps):
+    """The launches of the run just driven; every kernel of the path must
+    have launched, and as often as its layers and calls say."""
+    from cordum_tpu_torch.ops import embed_attention as ea
+    from cordum_tpu_torch.ops import paged_attention as pa
+
+    pa_n, ea_n = pa.paged_attention.launches, ea.embed_attention.launches
+    if pa_n == 0 or pa_n != n_layers_llama * steps:
+        raise AssertionError(f"paged_attention launches {pa_n} != {n_layers_llama} x {steps}")
+    if ea_n == 0 or ea_n % n_layers_embed:
+        raise AssertionError(f"embed_attention launches {ea_n} (layers {n_layers_embed})")
+    return pa_n, ea_n
+
+
+async def drive_fp32_worker(torch, dev, card, cfg, params, prompts, oracle, *, n_new):
+    """Phase 3's fp32 model behind a port worker: generate must equal the
+    dense oracle token for token; embeds (fp32 embedder) the plain version."""
+    from cordum_tpu_torch.models.embedder import EmbedderConfig
+
+    w, compute, sched = make_port_worker(
+        torch, dev, "w-fp32", llama_cfg=cfg, llama_params=params,
+        embedder_cfg=EmbedderConfig(dtype=torch.float32))
+    await sched.start()
+    await w.start()
+    rng = np.random.default_rng(SEED + 6)
+    try:
+        zero_launches()
+        gens = await sched.run([{"op": "llm.generate", "tokens": p, "max_new_tokens": n_new}
+                                 for p in prompts], "gen32")
+        texts = make_texts(rng, 48, 1, 126)
+        emb, texts_of, _ = await embed_jobs(sched, texts, 4, "emb32", one_at_a_time=False)
+        torch.cuda.synchronize()
+        launches = read_launches(compute.embedder.cfg.n_layers, cfg.n_layers,
+                                 w.serving.stats.steps)
+    finally:
+        await w.stop()
+    for p, (jid, doc), (want, ties) in zip(prompts, gens, oracle):
+        upto = ties[0] if ties else n_new
+        if doc["tokens"][:upto] != want[:upto] or len(doc["tokens"]) != n_new:
+            raise AssertionError(f"worker fp32 generate of a {len(p)}-token prompt gave "
+                                 f"{doc['tokens']}, oracle {want} (compared up to {upto})")
+        if sched.streams.get(jid) != doc["tokens"]:
+            raise AssertionError(f"{jid}: streamed tokens differ from the result")
+    err = check_embeddings(torch, compute, emb, texts_of, "float32")
+    log(f"[worker] fp32: {len(prompts)} llm.generate jobs token-identical to the dense "
+        f"oracle; {len(texts)} embeddings within {err:.3e} of the plain version; launches "
+        f"paged_attention {launches[0]}, embed_attention {launches[1]}  [{card}]")
+    return {"paged_attention": launches[0], "embed_attention": launches[1]}
+
+
+async def drive_bf16_worker(torch, dev, card, cfg, params, *, n_new=16):
+    """Llama-3-8B bf16 (phase 4's weights) and the default bf16 embedder
+    behind a port worker: every op of the table through the bus."""
+    w, compute, sched = make_port_worker(torch, dev, "w-bf16", llama_cfg=cfg,
+                                          llama_params=params)
+    await sched.start()
+    await w.start()
+    rng = np.random.default_rng(SEED + 7)
+    kind = torch.cuda.get_device_name(dev)
+    try:
+        zero_launches()
+        t0 = time.monotonic()
+        echo = await sched.run([{"op": "echo", "i": i} for i in range(200)], "echo")
+        echo_rate = len(echo) / (time.monotonic() - t0)
+        mm = [j for _ in range(4) for j in await sched.run(
+            [{"op": "matmul", "b": 8, "n": 512, "k": 512, "m": 512, "iters": 4}], "matmul")]
+        infer = await sched.run([{"op": "infer", "tokens": [
+            rng.integers(0, cfg.vocab_size, 32).tolist(),
+            rng.integers(0, cfg.vocab_size, 20).tolist()]} for _ in range(4)], "infer")
+        single, single_texts, single_wall = await embed_jobs(
+            sched, make_texts(rng, 16, 1, 126), 1, "embed1", one_at_a_time=True)
+        batched, batched_texts, batched_wall = await embed_jobs(
+            sched, make_texts(rng, 256, 70, 126), 4, "embedB", one_at_a_time=False)
+        await profile_embeds(torch, card, sched, make_texts(rng, 256, 70, 126))
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (8, 50, 120, 200)]
+        gens = await sched.run([{"op": "llm.generate", "tokens": p, "max_new_tokens": n_new}
+                                 for p in prompts], "gen")
+        torch.cuda.synchronize()
+        launches = read_launches(compute.embedder.cfg.n_layers, cfg.n_layers,
+                                 w.serving.stats.steps)
+    finally:
+        await w.stop()
+    for jid, doc in echo:
+        if doc["echo"]["op"] != "echo" or doc["worker"] != "w-bf16":
+            raise AssertionError(f"{jid}: bad echo {doc}")
+    for jid, doc in mm:
+        if doc["shape"] != [8, 512, 512] or not math.isfinite(doc["checksum"]):
+            raise AssertionError(f"{jid}: bad matmul {doc}")
+    for jid, doc in infer:
+        if len(doc["next_tokens"]) != 2 or not all(0 <= t < cfg.vocab_size
+                                                   for t in doc["next_tokens"]):
+            raise AssertionError(f"{jid}: bad infer {doc}")
+    for jid, doc in gens:
+        if len(doc["tokens"]) != n_new or not all(0 <= t < cfg.vocab_size for t in doc["tokens"]):
+            raise AssertionError(f"{jid}: bad generate {doc}")
+        if sched.streams.get(jid) != doc["tokens"]:
+            raise AssertionError(f"{jid}: streamed tokens differ from the result")
+    err = max(check_embeddings(torch, compute, single, single_texts, "bfloat16"),
+              check_embeddings(torch, compute, batched, batched_texts, "bfloat16"))
+    hb = sched.heartbeats[0] if sched.heartbeats else None
+    if hb is None or hb.device_kind != kind or hb.type != "gpu" or not hb.devices_healthy:
+        raise AssertionError(f"the worker's heartbeat does not name the card: {hb}")
+    ttft = statistics.median((sched.first_token[j] - sched.sent[j]) * 1e3 for j, _ in gens)
+    p50 = {op: sched.p50_ms([j for j, _ in jobs]) for op, jobs in (
+        ("echo", echo), ("matmul", mm), ("infer", infer), ("embed (one at a time)", single),
+        ("embed (coalesced)", batched), ("llm.generate", gens))}
+    n_single = sum(len(t) for t in single_texts.values())
+    n_batched = sum(len(t) for t in batched_texts.values())
+    log(f"[worker] bf16: heartbeat device_kind {hb.device_kind!r}, hbm "
+        f"{hb.hbm_used_gb:.1f}/{hb.hbm_total_gb:.1f} GB, healthy {hb.devices_healthy}")
+    log(f"[worker] bf16: echo {echo_rate:.1f} jobs/s ({len(echo)} jobs together); "
+        f"embeds/s one job at a time {n_single / single_wall:.1f} ({n_single} texts), "
+        f"coalesced {n_batched / batched_wall:.1f} ({n_batched} texts in {len(batched)} jobs); "
+        f"TTFT p50 through the worker {ttft:.1f} ms ({len(gens)} requests, {n_new} new "
+        f"tokens each); embeddings within {err:.3e} of the plain version  [{card}]")
+    log("[worker] bf16: p50 dispatch->result ms: " + ", ".join(
+        f"{op} {ms:.2f}" for op, ms in p50.items()) + f"  [{card}]")
+    log(f"[worker] bf16: launches paged_attention {launches[0]} (= {cfg.n_layers} layers x "
+        f"{launches[0] // cfg.n_layers} steps), embed_attention {launches[1]}  [{card}]")
+    return {"paged_attention": launches[0], "embed_attention": launches[1]}
+
+
+async def profile_embeds(torch, card, sched, texts):
+    """Where the coalesced embed path's time goes: 256 texts as 64 jobs
+    once more under ``torch.profiler``; the device's busy share of the
+    window, the attention kernel's share of device time and the top
+    kernels.  Informational: it gates nothing (its launches are not counted
+    as the main path's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cordum_tpu_torch.ops import embed_attention as ea
+
+    launches = ea.embed_attention.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        await embed_jobs(sched, texts, 4, "embedP", one_at_a_time=False)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    ea.embed_attention.launches = launches
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0]
+    total = sum(r[1] for r in rows)
+    if not total:
+        log("[profile-embed] the profiler recorded no device time")
+        return
+    rows.sort(key=lambda r: -r[1])
+    attn = sum(r[1] for r in rows if "embed_attention" in r[0])
+    log(f"[profile-embed] {len(texts)} texts in 64 jobs: wall {wall_us / 1e3:.1f} ms, device "
+        f"busy {total / 1e3:.2f} ms ({100 * total / wall_us:.1f}% of wall), embed_attention "
+        f"{attn / 1e3:.2f} ms ({100 * attn / total:.1f}% of device time)  [{card}]")
+    for key, us, count in rows[:6]:
+        log(f"[profile-embed]   {us / 1e3:8.3f} ms {100 * us / total:5.1f}%  x{count:<5d} {key[:80]}")
+
+
+def phase_worker(torch, dev, card, *, fp32, bf16, n_new=16):
+    """``fp32`` = (cfg, params, prompts, oracle) of phase 3; ``bf16`` =
+    (cfg, params) of phase 4.  Returns each dtype's main-path launches."""
+    cfg32, params32, prompts, oracle = fp32
+    return {
+        "float32": asyncio.run(drive_fp32_worker(torch, dev, card, cfg32, params32, prompts,
+                                                 oracle, n_new=n_new)),
+        "bfloat16": asyncio.run(drive_bf16_worker(torch, dev, card, *bf16, n_new=n_new)),
+    }
+
+
+# ---------------------------------------------------------------------------
+
+
+def build_kernels():
+    """One ``nvcc`` per kernel source, all started together."""
+    import importlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cordum_tpu_torch.ops import _build
+
+    mods = [importlib.import_module(f"cordum_tpu_torch.ops.{name}") for name in KERNELS]
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(len(mods)) as ex:
+        built = list(ex.map(lambda m: _build.build(m.SOURCE), mods))
+    log(f"[device] kernels built in {time.monotonic() - t0:.1f} s")
+    for (path, build_log) in built:
+        log(f"[device] kernel library {path}")
+        if build_log:
+            log(build_log.rstrip())
+    return {name: str(mod.SOURCE.relative_to(mod.SOURCE.parents[2]))
+            for name, mod in zip(KERNELS, mods)}
 
 
 def main() -> int:
@@ -413,7 +875,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from cordum_tpu_torch.models import llama
-    from cordum_tpu_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -428,26 +889,30 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log("[device] TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
-    t0 = time.monotonic()
-    path, build_log = pa.build()
-    log(f"[device] kernel library {path} ({time.monotonic() - t0:.1f} s)")
-    if build_log:
-        log(build_log.rstrip())
+    sources = build_kernels()
 
-    kernel = phase_kernel(torch, dev, smi)
+    kernel = {"paged_attention": phase_kernel(torch, dev, smi)}
     torch.cuda.empty_cache()
 
     cfg8b = llama.LlamaConfig.llama3_8b()
-    fp32_launches = phase_oracle(
-        torch, dev, smi, dataclasses.replace(cfg8b, n_layers=2, dtype=torch.float32))
+    cfg32 = dataclasses.replace(cfg8b, n_layers=2, dtype=torch.float32)
+    fp32_launches, params32, prompts, oracle = phase_oracle(torch, dev, smi, cfg32)
     torch.cuda.empty_cache()
-    bf16_launches = phase_serve(torch, dev, smi, cfg8b)
+    bf16_launches, params8b = phase_serve(torch, dev, smi, cfg8b)
+    torch.cuda.empty_cache()
+    kernel["embed_attention"] = phase_embed_kernel(torch, dev, smi)
+    worker = phase_worker(torch, dev, smi, fp32=(cfg32, params32, prompts, oracle),
+                          bf16=(cfg8b, params8b))
 
-    launches = {"float32": fp32_launches, "bfloat16": bf16_launches}
+    launches = {
+        "paged_attention": {"float32": fp32_launches, "bfloat16": bf16_launches},
+        "embed_attention": {d: worker[d]["embed_attention"] for d in worker},
+    }
     line = {"kernels": [
-        {"name": f"paged_attention_{name}", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES, "launches": launches[name], **kernel[name]}
-        for name in ("bfloat16", "float32")
+        {"name": f"{name}_{dtype}", "route": "cuda", "source": sources[name],
+         "replaces": KERNELS[name], "launches": launches[name][dtype],
+         **kernel[name][dtype]}
+        for name in KERNELS for dtype in ("bfloat16", "float32")
     ]}
     print(json.dumps(line))
     print(smi)

@@ -26,23 +26,14 @@ source's head comment.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "paged_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from . import _build
+
+SOURCE = _build.CSRC / "paged_attention.cu"
 #: head widths the kernel is built and checked for on the card: Llama-3-8B's
 #: 128 and the small test configurations' 16
 KERNEL_HEAD_DIMS = (16, 128)
@@ -51,9 +42,6 @@ _STAGES = 4  # pages in flight per block (kStages in the source)
 _MAX_SPLITS = 16  # blocks a token's pages are cut across, per KV head
 _SMEM_LIMIT = 227 * 1024  # a block's shared memory on Hopper, with opt-in
 _MAX_GROUP = 32  # one warp per query head: at most 1024 threads a block
-
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
 
 
 # ---------------------------------------------------------------------------
@@ -110,56 +98,13 @@ def paged_attention_reference(
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    for cand in (
-        os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None,
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the paged-attention kernel cannot be built")
-
-
-def build() -> tuple[Path, str]:
-    """Compile the kernel into ``build/`` unless this exact source is
-    already built there.  Returns the library path and the compiler's
-    output (``-Xptxas -v``: registers, shared memory, spills), which is
-    empty when nothing was compiled."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libpaged_attention-{tag}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.paged_attention_launch
+    fn.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 8
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     )
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
-    return lib, log
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            fn = lib.paged_attention_launch
-            fn.argtypes = (
-                [ctypes.c_int] + [ctypes.c_void_p] * 8
-                + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-            )
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    fn.restype = ctypes.c_int
 
 
 def check_kernel_args(
@@ -225,7 +170,7 @@ def paged_attention(
             q, k_pages, v_pages, page_tables, token_seq, positions
         )
     check_kernel_args(q, k_pages, v_pages, page_tables, token_seq, positions)
-    fn = _load().paged_attention_launch
+    fn = _build.load(SOURCE, _bind).paged_attention_launch
     t, h, hd = q.shape
     _, ps, kvh, _ = k_pages.shape
     pages_per_seq = page_tables.shape[1]

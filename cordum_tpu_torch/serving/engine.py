@@ -35,6 +35,7 @@ from dataclasses import dataclass, field
 from typing import Any, Awaitable, Callable, Optional
 
 from ..infra import logging as logx
+from ..protocol.types import OP_SERVING_PREFILL, SERVING_OPS
 from .backend import StepEntry
 from .pager import CacheExhausted, PageAllocator
 from .prefixcache import PrefixCache, PrefixNode
@@ -58,10 +59,6 @@ INTERACTIVE_CLASSES = frozenset({"INTERACTIVE", "CRITICAL"})
 DEFAULT_DRAFT_K = 4
 SPEC_EWMA_ALPHA = 0.4
 SPEC_FLEET_ALPHA = 0.2
-# the worker protocol's serving op names, as ``cordum_tpu/protocol/types.py``
-# defines them; this package has no protocol module yet
-SERVING_OPS = frozenset({"llm.generate"})
-OP_SERVING_PREFILL = "llm.prefill"
 
 
 class SessionCancelled(Exception):

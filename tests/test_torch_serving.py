@@ -214,7 +214,7 @@ def test_port_imports_with_jax_blocked():
 import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split('.')[0] in ('jax', 'jaxlib', 'cordum_tpu'):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'cordum_tpu', 'msgpack'):
             raise ImportError('blocked: ' + name)
 sys.meta_path.insert(0, Block())
 import cordum_tpu_torch
@@ -222,7 +222,7 @@ mods = [m.name for m in pkgutil.walk_packages(cordum_tpu_torch.__path__, 'cordum
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
-assert not any(k.split('.')[0] in ('jax', 'cordum_tpu') for k in sys.modules)
+assert not any(k.split('.')[0] in ('jax', 'cordum_tpu', 'msgpack') for k in sys.modules)
 print(len(mods))
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
