@@ -15,7 +15,10 @@ Every phase raises on failure.  Phases:
    h 32, kvh 8, hd 128; page size 16, a 24-token buffer over 8 sequences,
    512 pages a row for an 8192-token context, a 1200-page arena) on one
    buffer mixing decode rows, a prefill chunk across a page boundary, a
-   draft row and padding, in fp32 and bf16, with times.
+   draft row and padding, in fp32 and bf16, with times and each kernel's
+   share of its bound; then, informational, the same at phase 4's own step
+   shape (8 sequences of 8-300 tokens, decode rows and one prefill chunk).
+   The step's plan is built once per buffer, as the serving step does.
 3. fp32 serving oracle at Llama-3-8B width, depth cut to 2 layers: the
    serving entry point (``make_serving_engine``) must emit exactly the
    tokens of a dense greedy oracle (``forward`` over the growing sequence)
@@ -23,8 +26,9 @@ Every phase raises on failure.  Phases:
    copy-on-write page copy.
 4. bf16 Llama-3-8B, all 32 layers, random weights from a seeded CUDA
    generator: 8 requests served to completion through the same entry
-   point; TTFT p50, decode tokens/s, peak memory; then the same requests
-   once more under ``torch.profiler`` for where the device time goes.
+   point; TTFT p50, decode tokens/s, peak memory, the host time of each
+   step's paged-attention plan; then the same requests once more under
+   ``torch.profiler`` for where the device time goes.
 5. The embedder's attention kernel vs its plain version at the shape of a
    full micro-batch (B 256, L 128, h 4, hd 64; rows of mixed lengths, one
    all-pad row, one length-1 row, q/k/v as views of one fused projection),
@@ -44,9 +48,10 @@ Every phase raises on failure.  Phases:
 
 Tolerances (kernel vs plain version, max abs error), paged attention:
 fp32 1e-4 — the sums run in another order over up to 8192 keys, on O(1)
-outputs; bf16 6e-2 — the plain version rounds scores and probabilities to
-bf16 before the PV product while the kernel keeps both in fp32, a few bf16
-ulps (2^-8 relative) on outputs of magnitude up to ~3.  Embedder
+outputs; bf16 6e-2 — the kernel rounds scores to bf16 as the plain version
+does, but rounds unnormalised online-softmax weights to bf16 for PV where
+the plain version rounds the normalised probabilities, a few bf16 ulps
+(2^-8 relative) on outputs of magnitude up to ~3.  Embedder
 attention: fp32 1e-5 — sums of at most 128 terms in another order on O(1)
 outputs; bf16 6e-2 — both versions round scores and probabilities to bf16
 at the same points, so only a rounding flipped by the fp32 sum order
@@ -99,16 +104,30 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def attention_case(torch, dev, *, h=32, kvh=8, hd=128, ps=16, s_rows=8,
-                   p_cols=512, num_pages=1200, seed=SEED):
-    """One ragged buffer at the main path's shapes: five decode rows (the
-    longest at the last position an 8192-token context holds), a 12-token
-    prefill chunk crossing a page boundary, a draft row of k+1 = 5 tokens
-    and two padding tokens on the null row.  Returns fp32 operands."""
+#: (start, n) per sequence of phase 2's 8192-token case: five decode rows
+#: (the longest at the last position an 8192-token context holds), a
+#: 12-token prefill chunk crossing a page boundary and a draft row of
+#: k+1 = 5 tokens; two padding tokens fill the 24-token buffer
+LONG_ROWS = [(5, 1), (300, 1), (1500, 1), (4000, 1), (8191, 1), (10, 12), (2040, 5)]
+
+
+def serving_rows(n_requests=8, n_new=32, chunk=16):
+    """Phase 4's own step shape: 8 sequences with prompts of 8..300
+    tokens, seven of them decoding halfway through their 32 new tokens and
+    the longest prompt's last prefill chunk — 24 tokens, the serving
+    buffer (8 sessions + a 16-token prefill budget)."""
+    lengths = np.linspace(8, 300, n_requests).astype(int).tolist()
+    rows = [(n + n_new // 2, 1) for n in lengths[:-1]]
+    return rows + [(lengths[-1] - chunk, chunk)]
+
+
+def attention_case(torch, dev, rows, *, h=32, kvh=8, hd=128, ps=16, s_rows=8,
+                   p_cols=512, num_pages=1200, t_buf=24, seed=SEED):
+    """One ragged buffer at the main path's widths (Llama-3-8B heads, page
+    size 16, 512-page rows for an 8192-token context): ``rows`` gives each
+    sequence's (start, n); padding tokens sit on the null row.  Returns
+    fp32 operands."""
     rng = np.random.default_rng(seed)
-    rows = [(5, 1), (300, 1), (1500, 1), (4000, 1), (p_cols * ps - 1, 1),
-            (10, 12), (2040, 5)]  # (start, n) per sequence
-    t_buf = 24
     tables = np.zeros((s_rows + 1, p_cols), np.int32)
     free = rng.permutation(np.arange(1, num_pages)).tolist()
     tokens_pos = np.zeros(t_buf, np.int32)
@@ -151,14 +170,23 @@ def work_of(q, k, tables, token_seq, positions):
     return nbytes, ops
 
 
+#: device cycles of the sleep kernel queued after each flush (~0.3 ms): the
+#: host's own work for the next call (argument checks, allocation, the
+#: launch) then overlaps the sleep and never shows as device idle time
+#: inside the timed window
+SLEEP_CYCLES = 500_000
+
+
 def time_ms(torch, fn, *, iters, flush):
     """Median CUDA-event time of ``fn`` with the L2 cache flushed before
-    each launch (the serving step finds each layer's pages cold)."""
+    each launch (the serving step finds each layer's pages cold) and the
+    device kept busy while the host prepares the call."""
     for _ in range(3):
         fn()
     events = []
     for _ in range(iters):
         flush()
+        torch.cuda._sleep(SLEEP_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -169,63 +197,110 @@ def time_ms(torch, fn, *, iters, flush):
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
-def phase_kernel(torch, dev, card):
+def measure_paged(torch, dev, card, case, name, tag, flush):
+    """The kernel vs its plain version on one buffer (gated on the
+    tolerance), then kernel, plain and SDPA times and the bound.  The plan
+    is built once, as the serving step builds it, and is not timed with
+    the kernel; its host time is logged."""
     from cordum_tpu_torch.ops import paged_attention as pa
 
     import torch.nn.functional as F
 
-    q32, k32, v32, tables, token_seq, positions = attention_case(torch, dev)
+    q, k, v, tables, token_seq, positions = case
+    args = (q, k, v, tables, token_seq, positions)
+    t, h, hd = q.shape
+    _, ps, kvh, _ = k.shape
+    t0 = time.perf_counter()
+    plan = pa.build_plan(token_seq.cpu().numpy(), positions.cpu().numpy(), page_size=ps,
+                         pages_per_seq=tables.shape[1], n_heads=h, n_kv_heads=kvh,
+                         device=dev, row_weighted=q.dtype == torch.float32)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    got = pa.paged_attention(*args, plan=plan)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_reference(*args)
+    err = (got.float() - want.float()).abs().max().item()
+    if not (err <= KERNEL_ATOL[name]) or not torch.isfinite(got).all():
+        raise AssertionError(
+            f"kernel vs plain {name} ({tag}): max abs err {err} > {KERNEL_ATOL[name]}")
+    # the library yardstick: SDPA over K/V already gathered and expanded
+    # to the query heads (the gather itself is left out of its time)
+    pt_tok = tables[token_seq.long()].long()
+    kc = k[pt_tok].reshape(t, -1, kvh, hd).repeat_interleave(h // kvh, 2)
+    vc = v[pt_tok].reshape(t, -1, kvh, hd).repeat_interleave(h // kvh, 2)
+    kh, vh = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    del kc, vc
+    qh = q[:, :, None, :]
+    mask = (torch.arange(kh.shape[2], device=dev)[None, :]
+            <= positions[:, None])[:, None, None, :]
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)[:, :, 0]
+    lib_err = (lib_out.float() - want.float()).abs().max().item()
+    kernel_ms = time_ms(torch, lambda: pa.paged_attention(*args, plan=plan), iters=20,
+                        flush=flush)
+    plain_ms = time_ms(torch, lambda: pa.paged_attention_reference(*args), iters=5, flush=flush)
+    library_ms = time_ms(
+        torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
+        iters=10, flush=flush)
+    del kh, vh, lib_out
+    split = device_split(torch, lambda: pa.paged_attention(*args, plan=plan), flush)
+    nbytes, ops = work_of(q, k, tables, token_seq, positions)
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS[name] * 1e3
+    bound_ms = max(mem_ms, ops_ms)
+    res = dict(
+        max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bound_ms, bound_by="bytes" if mem_ms >= ops_ms else "operations",
+    )
+    log(f"[kernel] {tag} {name}: max_abs_err {err:.3e} (tolerance {KERNEL_ATOL[name]:.0e}), "
+        f"sdpa vs plain {lib_err:.3e}; plan: {plan.n_items} items x {kvh} KV heads, "
+        f"span {plan.span} pages, {plan.n_splits} split groups, built in {plan_ms:.3f} ms (host)")
+    log(f"[kernel] {tag} {name}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
+        f"library_ms {library_ms:.4f}  bound_ms {bound_ms:.4f} "
+        f"({res['bound_by']}: {nbytes} bytes, {ops} ops), share of bound "
+        f"{bound_ms / kernel_ms:.3f}; device us per call: {split}  [{card}]")
+    torch.cuda.empty_cache()
+    return res
+
+
+def device_split(torch, fn, flush, *, calls=10):
+    """Device time per call of each CUDA kernel ``fn`` launches, from
+    ``torch.profiler`` over ``calls`` calls (the L2 flushes left out):
+    what a kernel's time is made of.  Informational."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if us > 0 and "fill" not in e.key.lower():
+            key = e.key.replace("(anonymous namespace)::", "")
+            name = key.split("(")[0].split("<")[0].split()[-1].split("::")[-1]
+            per[name] = per.get(name, 0.0) + us / calls
+    return ", ".join(f"{k} {v:.1f}" for k, v in sorted(per.items(), key=lambda kv: -kv[1]))
+
+
+def phase_kernel(torch, dev, card):
+    """The 8192-token case (its numbers go into the kernel line), then the
+    serving step's own shape (informational times, gated on the
+    tolerance)."""
+    long32 = attention_case(torch, dev, LONG_ROWS)
+    serve32 = attention_case(torch, dev, serving_rows(), num_pages=1024)
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        q, k, v = (x.to(dtype) for x in (q32, k32, v32))
-        args = (q, k, v, tables, token_seq, positions)
-        got = pa.paged_attention(*args)
-        torch.cuda.synchronize()
-        want = pa.paged_attention_reference(*args)
-        err = (got.float() - want.float()).abs().max().item()
-        if not (err <= KERNEL_ATOL[name]) or not torch.isfinite(got).all():
-            raise AssertionError(
-                f"kernel vs plain {name}: max abs err {err} > {KERNEL_ATOL[name]}")
-        # the library yardstick: SDPA over K/V already gathered and expanded
-        # to the query heads (the gather itself is left out of its time)
-        t, h, hd = q.shape
-        kvh = k.shape[2]
-        pt_tok = tables[token_seq.long()].long()
-        kc = k[pt_tok].reshape(t, -1, kvh, hd).repeat_interleave(h // kvh, 2)
-        vc = v[pt_tok].reshape(t, -1, kvh, hd).repeat_interleave(h // kvh, 2)
-        kh, vh = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
-        del kc, vc
-        qh = q[:, :, None, :]
-        mask = (torch.arange(kh.shape[2], device=dev)[None, :]
-                <= positions[:, None])[:, None, None, :]
-        lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)[:, :, 0]
-        lib_err = (lib_out.float() - want.float()).abs().max().item()
-
-        def flush():
-            flush_buf.zero_()
-
-        kernel_ms = time_ms(torch, lambda: pa.paged_attention(*args), iters=20, flush=flush)
-        plain_ms = time_ms(torch, lambda: pa.paged_attention_reference(*args), iters=5, flush=flush)
-        library_ms = time_ms(
-            torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
-            iters=10, flush=flush)
-        del kh, vh, lib_out
-        nbytes, ops = work_of(q, k, tables, token_seq, positions)
-        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / PEAK_OPS[name] * 1e3
-        bound_ms = max(mem_ms, ops_ms)
-        results[name] = dict(
-            max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=bound_ms, bound_by="bytes" if mem_ms >= ops_ms else "operations",
-        )
-        log(f"[kernel] {name}: max_abs_err {err:.3e} (tolerance {KERNEL_ATOL[name]:.0e}), "
-            f"sdpa vs plain {lib_err:.3e}")
-        log(f"[kernel] {name}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
-            f"library_ms {library_ms:.4f}  bound_ms {bound_ms:.4f} "
-            f"({results[name]['bound_by']}: {nbytes} bytes, {ops} ops)  [{card}]")
-        torch.cuda.empty_cache()
+        for tag, case in (("8192-token", long32), ("serving-shape", serve32)):
+            q, k, v = (x.to(dtype) for x in case[:3])
+            res = measure_paged(torch, dev, card, (q, k, v, *case[3:]), name, tag, flush)
+            results.setdefault(name, res)
+            del q, k, v
     del flush_buf
     return results
 
@@ -392,6 +467,7 @@ def phase_serve(torch, dev, card, cfg, *, n_requests=8, n_new=32, cache_pages=10
         raise AssertionError(
             f"kernel launches {launches} != layers {cfg.n_layers} x steps {st.steps}")
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    plan_ms = sorted(x * 1e3 for x in engine.backend.plan_seconds)
     ttft = sorted(st.ttft_seconds)
     step_ms = statistics.median(st.step_seconds) * 1e3
     log(f"[serve] {n_requests} requests, prompts {lengths[0]}..{lengths[-1]} tokens, "
@@ -401,6 +477,9 @@ def phase_serve(torch, dev, card, cfg, *, n_requests=8, n_new=32, cache_pages=10
         f"output {st.decoded_tokens / wall:.1f} tokens/s (whole run), step p50 {step_ms:.2f} ms, "
         f"peak memory {peak_gib:.2f} GiB, launches {launches}, "
         f"drafted {st.drafted_tokens} accepted {st.accepted_tokens}  [{card}]")
+    log(f"[serve] paged-attention plan, host time per step (once per step, all "
+        f"{cfg.n_layers} layers): p50 {statistics.median(plan_ms):.3f} ms, max "
+        f"{plan_ms[-1]:.3f} ms over {len(plan_ms)} steps")
     profile_serving(torch, dev, card, cfg, params, prompts, cache_pages=cache_pages)
     return launches, params
 
@@ -517,7 +596,8 @@ def phase_embed_kernel(torch, dev, card):
             f"{EMBED_KERNEL_ATOL[name]:.0e}), sdpa vs plain {lib_err:.3e} (real rows)")
         log(f"[embed-kernel] {name}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
             f"library_ms {library_ms:.4f}  bound_ms {results[name]['bound_ms']:.4f} "
-            f"({results[name]['bound_by']}: {nbytes} bytes, {ops} ops)  [{card}]")
+            f"({results[name]['bound_by']}: {nbytes} bytes, {ops} ops), share of bound "
+            f"{results[name]['bound_ms'] / kernel_ms:.3f}  [{card}]")
         del qh, kh, vh
         torch.cuda.empty_cache()
     del flush_buf

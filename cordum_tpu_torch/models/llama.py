@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..ops.paged_attention import gqa_attention, paged_attention
+from ..ops.paged_attention import AttentionPlan, gqa_attention, paged_attention
 
 Params = dict
 
@@ -306,6 +306,7 @@ def ragged_step(
     cfg: LlamaConfig,
     *,
     sample_logits: bool = True,
+    plan: Optional[AttentionPlan] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One ragged mixed prefill+decode step over the paged KV cache.
 
@@ -328,7 +329,10 @@ def ragged_step(
     every fed buffer position (speculative verification reads a draft row's
     whole span).  ``sample_logits=False`` (serving-gang followers) skips
     the lm_head projection and returns zeros; the arena writes are the
-    same."""
+    same.  ``plan`` is the step's paged-attention work list
+    (:func:`..ops.paged_attention.build_plan`), built once per step and
+    handed to every layer's kernel; without it the kernel wrapper builds
+    one per layer."""
     t_buf = tokens.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ps = k_pages.shape[2]
@@ -347,7 +351,8 @@ def ragged_step(
         k_pages[li, page_idx, slot] = k[:, 0]
         v_pages[li, page_idx, slot] = v[:, 0]
         attn = paged_attention(
-            q[:, 0], k_pages[li], v_pages[li], page_tables, token_seq, positions
+            q[:, 0], k_pages[li], v_pages[li], page_tables, token_seq, positions,
+            plan=plan,
         )
         x = x + (attn.reshape(t_buf, 1, h * hd) @ layer["wo"])
         x = _mlp(x, layer, cfg)

@@ -1,12 +1,14 @@
 """Masked bidirectional attention: the attention core of the embedder.
 
-Two functions of the same computation live here:
+Three functions of the same computation live here:
 
   * :func:`embed_attention_reference` — the plain PyTorch version, with the
     JAX package's numerics (``cordum_tpu/models/embedder.py`` ``forward``):
     scores in the input dtype, then fp32 divided by ``sqrt(hd)`` plus a
     ``-1e30`` bias on masked keys, an fp32 softmax, probabilities cast back
     to the dtype before the PV product;
+  * :func:`embed_attention_tiled` — a plain emulation of the kernel's
+    masked-tile skip (:func:`live_key_tiles`), for the tests;
   * :func:`embed_attention` — the wrapper the embedder calls.  For CPU
     tensors it is the plain version; for CUDA tensors it launches the
     hand-written Hopper kernel in ``csrc/embed_attention.cu`` or raises.
@@ -14,9 +16,10 @@ Two functions of the same computation live here:
 
 The kernel is built by :mod:`._build` at first use.  At the embedder's
 shapes it is bounded by the bytes of q, k, v and out in bf16 and by the
-fp32 operations in fp32; its design is the simple one (one block per
-(batch row, head) with K/V staged in shared memory); see the source's
-head comment.
+fp32 operations in fp32.  bf16 runs on the tensor cores (``mma.sync``),
+two blocks of four warps (64 query rows each) per (batch row, head); fp32
+on CUDA cores, one block of eight warps; both skip 16-key tiles whose keys
+are all masked.  See the source's head comment.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ SOURCE = _build.CSRC / "embed_attention.cu"
 KERNEL_HEAD_DIM = 64
 #: the longest row the kernel takes (EmbedderConfig.max_len)
 KERNEL_MAX_LEN = 128
+#: keys per tile of the kernel's masked-tile skip
+TILE_KEYS = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -46,6 +51,38 @@ def embed_attention_reference(
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(hd)
     bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e30).float()
     probs = torch.softmax(scores + bias, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def live_key_tiles(mask: torch.Tensor) -> torch.Tensor:
+    """``[B, ceil(L / 16)]`` bool: the 16-key tiles the kernel loads, scores
+    and multiplies.  A row with a real key keeps the tiles holding one (a
+    masked key's weight is exactly 0 there); a row with none (batch
+    padding) keeps every tile, since it attends uniformly to its keys."""
+    b, length = mask.shape
+    n_tiles = -(-length // TILE_KEYS)
+    real = torch.zeros((b, n_tiles * TILE_KEYS), dtype=torch.bool, device=mask.device)
+    real[:, :length] = mask > 0
+    tiles = real.reshape(b, n_tiles, TILE_KEYS).any(-1)
+    return tiles | ~tiles.any(-1, keepdim=True)
+
+
+def embed_attention_tiled(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor
+) -> torch.Tensor:
+    """A plain emulation of the kernel's masked-tile skip, for the tests:
+    the keys of the tiles :func:`live_key_tiles` drops, and the padding of
+    the last tile past ``L``, are left out of every softmax (weight exactly
+    0, as if never scored) and out of PV.  The reference's operations run
+    in its order over the ``L`` keys, so where the skip is exact this
+    equals :func:`embed_attention_reference` bit for bit."""
+    hd = q.shape[-1]
+    length = mask.shape[1]
+    keep = live_key_tiles(mask).repeat_interleave(TILE_KEYS, dim=1)[:, :length]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(hd)
+    bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e30).float()
+    scores = (scores + bias).masked_fill(~keep[:, None, None, :], -math.inf)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -64,8 +101,9 @@ def check_kernel_args(
     """Raise ``ValueError`` on any operand the kernel does not take: a
     dtype other than fp32/bf16 (fp32 mask), a shape it was not built for,
     a layout it does not index (q, k and v must share their strides, with
-    unit element stride and head stride ``hd``; the mask contiguous), or a
-    device other than one CUDA card (checked last)."""
+    unit element stride and head stride ``hd``, rows 16-byte aligned; the
+    mask contiguous), or a device other than one CUDA card (checked
+    last)."""
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"embed_attention kernel: q/k/v must share float32 or bfloat16, "
@@ -93,6 +131,13 @@ def check_kernel_args(
             f"embed_attention kernel: q/k/v strides {q.stride()}, {k.stride()}, "
             f"{v.stride()}; they must agree, with head stride {hd} and unit "
             f"element stride"
+        )
+    el = q.element_size()
+    if any(x.data_ptr() % 16 for x in (q, k, v)) or (q.stride(0) * el) % 16 \
+            or (q.stride(1) * el) % 16:
+        raise ValueError(
+            "embed_attention kernel: q/k/v rows must be 16-byte aligned "
+            "(data pointers, batch and row strides)"
         )
     tensors = (q, k, v, mask)
     if any(x.device.type != "cuda" for x in tensors) or len(

@@ -25,6 +25,8 @@ update the arena in place.
 from __future__ import annotations
 
 import threading
+import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -33,6 +35,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models import llama
+from ..ops.paged_attention import build_plan
 
 DEFAULT_MAX_SEQS = 16
 
@@ -114,6 +117,8 @@ class LlamaServingBackend:
         self._compiled_shapes: set = set()  # observability: step-shape count
         self._metrics = metrics
         self.last_step_compiled = False  # was the latest step a new shape?
+        # host seconds spent building each step's paged-attention plan
+        self.plan_seconds: deque = deque(maxlen=4096)
         # page-arena lock: steps update the K/V arenas in place from
         # executor threads, and exports must not read a half-written step
         self._dev_lock = threading.Lock()
@@ -201,6 +206,15 @@ class LlamaServingBackend:
             if self._metrics is not None:
                 self._metrics.serving_compiles.inc(entry="ragged")
         dev = self.device
+        # the paged-attention work list, once per step for every layer
+        t0 = time.perf_counter()
+        plan = build_plan(
+            token_seq, positions, page_size=self.page_size,
+            pages_per_seq=self.pages_per_seq, n_heads=self.cfg.n_heads,
+            n_kv_heads=self.cfg.n_kv_heads, device=dev,
+            row_weighted=self.cfg.dtype == torch.float32,
+        )
+        self.plan_seconds.append(time.perf_counter() - t0)
         with self._dev_lock:
             nxt, self._k_pages, self._v_pages = llama.ragged_step(
                 self._params, self._k_pages, self._v_pages,
@@ -209,7 +223,7 @@ class LlamaServingBackend:
                 torch.from_numpy(tables).to(dev),
                 torch.from_numpy(token_seq).to(dev),
                 torch.from_numpy(out_idx).to(dev),
-                self.cfg, sample_logits=bool(self.sample_output),
+                self.cfg, sample_logits=bool(self.sample_output), plan=plan,
             )
             out = nxt.cpu().numpy()
         # out is [T] per-position predictions: a sampled entry's token is

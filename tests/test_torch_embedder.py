@@ -17,7 +17,14 @@ and its PyTorch counterpart on the CPU.  Tolerances:
   1e-6 in fp32, one bf16 ulp of the output magnitude (2^-8 of max |v|) in
   bf16.
 
-The ``gpu``-marked test holds the CUDA kernel against its plain version on
+The kernel's masked-tile skip (16-key tiles whose keys are all masked are
+never loaded, scored or multiplied; an all-pad row skips nothing; keys past
+``L`` are in no softmax) is emulated in plain PyTorch
+(``embed_attention_tiled``) and held to the plain version BIT FOR BIT in
+fp32: prefix masks, masks with holes, a single-key row and an all-pad row,
+at L 5, 16 and 128.
+
+The ``gpu``-marked tests hold the CUDA kernel against its plain version on
 the card; it skips without one.  Tolerances there, fixed before the first
 run: fp32 1e-5 (sums of at most 128 terms in another order on O(1)
 outputs); bf16 6e-2 (the kernel and the plain version round scores and
@@ -244,6 +251,68 @@ def test_kernel_matches_plain_version_on_card(dtype, shape):
     qkv, mask = _attention_case(b=shape[0], length=shape[1])
     tqkv = torch.from_numpy(qkv).to(dev, dtype)
     tmask = torch.from_numpy(mask).to(dev)
+    args = (tqkv[:, :, 0], tqkv[:, :, 1], tqkv[:, :, 2], tmask)
+    before = ea.embed_attention.launches
+    got = ea.embed_attention(*args)
+    torch.cuda.synchronize()
+    assert ea.embed_attention.launches == before + 1
+    want = ea.embed_attention_reference(*args)
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= KERNEL_ATOL[dtype], err
+
+
+def _mask_case(b, length, seed):
+    """Masks of every kind the skip must get right: prefix rows, a row with
+    holes (every third key masked, and a whole masked tile when L > 16), a
+    single-key row, an all-pad row, a full row."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, length + 1, b)
+    lens[0], lens[1], lens[2] = 0, 1, length
+    mask = (np.arange(length)[None, :] < lens[:, None]).astype(np.float32)
+    mask[3, ::3] = 0.0
+    if length > 16:
+        mask[3, 16:32] = 0.0
+    mask[4, :] = 0.0
+    mask[4, length - 1] = 1.0  # one real key, at the end
+    return mask
+
+
+@pytest.mark.parametrize("length", [5, 16, 128])
+def test_tile_skip_emulation_is_bit_exact(length):
+    rng = np.random.default_rng(length)
+    b = 6
+    qkv = torch.from_numpy(rng.standard_normal((b, length, 3, 4, 64)).astype(np.float32))
+    mask = torch.from_numpy(_mask_case(b, length, seed=length))
+    args = (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask)
+    live = ea.live_key_tiles(mask)
+    n_tiles = -(-length // 16)
+    assert live.shape == (b, n_tiles)
+    assert live[0].all()  # the all-pad row skips nothing
+    if length > 16:
+        assert not live[1, 1:].any() and not live[3, 1]  # skipped tiles exist
+    got = ea.embed_attention_tiled(*args)
+    want = ea.embed_attention_reference(*args)
+    assert torch.equal(got, want)
+    # the all-pad row is uniform over its L keys, never the padding to 16
+    uniform = qkv[0, :, 2].mean(0)
+    torch.testing.assert_close(got[0], uniform.expand_as(got[0]), atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length", [5, 17, 100])
+def test_kernel_tiling_cases_on_card(dtype, length):
+    """A last tile that is not full, masks with holes and a masked tile, a
+    single-key row and an all-pad row (at L 5 too)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(length + 1)
+    b = 8
+    qkv = torch.from_numpy(rng.standard_normal((b, length, 3, 4, 64)).astype(np.float32))
+    tqkv = qkv.to(dev, dtype)
+    tmask = torch.from_numpy(_mask_case(b, length, seed=length + 1)).to(dev)
     args = (tqkv[:, :, 0], tqkv[:, :, 1], tqkv[:, :, 2], tmask)
     before = ea.embed_attention.launches
     got = ea.embed_attention(*args)
