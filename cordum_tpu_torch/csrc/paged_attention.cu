@@ -38,8 +38,8 @@
 //     4 head dims.  The rows a warp takes are a compile-time bucket (1, 2,
 //     4, 8 or 16), chosen once per block, so the loops over rows unroll
 //     with no per-row guard.  A page costs a warp time in proportion to its
-//     rows here, so the fp32 plan weights a group's pages by its rows
-//     (build_plan's row_weighted);
+//     rows here, so build_plan weights a float32 group's pages by its
+//     rows;
 //   * online softmax in fp32 (running max and sum per query row); a causal
 //     mask per row (k_pos <= pos).  The scale is a multiply by 1/sqrt(HD)
 //     and the final normalisation a fast reciprocal: no IEEE division in
@@ -602,7 +602,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_f32_kernel(
 // ---------------------------------------------------------------------------
 
 constexpr int kMergeRows = 4;     // query rows a merge block takes
-constexpr int kMaxRuns = 1024;    // runs a group may have (<= pages_per_seq)
+// runs a group may have: the plan caps them at MAX_MERGE_RUNS (ops/
+// paged_attention.py plan_capacity), whatever the page-table width
+constexpr int kMaxRuns = 1024;
 
 // One block per (split group, KV head, 4 query rows).  First each row's
 // max over the runs and each run's weight exp(max_z - max) into shared
@@ -727,8 +729,7 @@ extern "C" int paged_attention_launch(
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (n_kv_heads < 1 || n_heads % n_kv_heads ||
       tokens_per_group * (n_heads / n_kv_heads) > kRows ||
-      tokens_per_group > kMaxTok || page_size < 1 || cap_items < 1 ||
-      pages_per_seq > kMaxRuns) {
+      tokens_per_group > kMaxTok || page_size < 1 || cap_items < 1) {
     return (int)cudaErrorInvalidValue;
   }
   switch (head_dim) {

@@ -32,6 +32,7 @@ all the tokens of its group; see the source's head comment.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -50,14 +51,18 @@ _STAGES = 4  # pages in flight per block (kStages in the source)
 _SMEM_LIMIT = 227 * 1024  # a block's shared memory on Hopper, with opt-in
 #: query rows (tokens x GQA group) a block holds: four warps of 16 rows
 MAX_GROUP_ROWS = 64
-#: pages a page-table row may have (runs of one group: kMaxRuns in the source)
-MAX_PAGES_PER_SEQ = 1024
+#: runs one group may be cut into: the merge pass's weights per row in
+#: shared memory (kMaxRuns in the source); :func:`plan_capacity` caps the
+#: plan's runs at this, whatever the page-table width
+MAX_MERGE_RUNS = 1024
 #: tokens of one sequence a plan group holds at most
 MAX_GROUP_TOKENS = 16
-#: blocks a step's plan aims at: two on each of the H100's 132 SMs, so that
-#: the runs (runs x KV heads, plus one run more per group) fit in one wave
-#: of resident blocks (3 an SM in bf16, 2 in fp32) with few, long runs
-TARGET_BLOCKS = 2 * 132
+#: blocks a step's plan aims at per SM: two, so that the runs (runs x KV
+#: heads, plus one run more per group) fit in one wave of resident blocks
+#: (3 an SM in bf16, 2 in fp32) with few, long runs
+BLOCKS_PER_SM = 2
+#: the SM count a plan assumes when it is built for no card (the H100's)
+DEFAULT_SMS = 132
 _ITEM_COLS = 4  # group, first page, end page, partial slot (-1: none)
 _GROUP_COLS = 2 + MAX_GROUP_TOKENS  # sequence row, n tokens, token ids
 _SPLIT_COLS = 3  # group, first item, n items
@@ -143,16 +148,31 @@ class AttentionPlan:
     tokens_per_group: int
 
 
-def plan_capacity(n_tokens: int, n_kv_heads: int) -> tuple[int, int]:
-    """``(cap_items, cap_groups)`` of a plan for an ``n_tokens`` buffer:
-    at most one group per token, and at most ``TARGET_BLOCKS / n_kv_heads``
-    runs of the step's pages plus one more per group."""
-    return -(-TARGET_BLOCKS // n_kv_heads) + n_tokens, n_tokens
+@functools.lru_cache(maxsize=None)
+def _card_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sm_count(device: Optional[torch.device]) -> int:
+    if device is None or device.type != "cuda":
+        return DEFAULT_SMS
+    return _card_sms(torch.cuda.current_device() if device.index is None else device.index)
+
+
+def plan_capacity(n_tokens: int, n_kv_heads: int, device=None) -> tuple[int, int]:
+    """``(cap_items, cap_groups)`` of a plan for an ``n_tokens`` buffer on
+    ``device``: at most one group per token, and at most
+    ``BLOCKS_PER_SM x SMs / n_kv_heads`` runs of the step's pages (capped
+    at ``MAX_MERGE_RUNS``) plus one more per group."""
+    dev = None if device is None else torch.device(device)
+    runs = -(-BLOCKS_PER_SM * _sm_count(dev) // n_kv_heads)
+    return min(runs, MAX_MERGE_RUNS) + n_tokens, n_tokens
 
 
 def build_plan(
     token_seq, positions, *, page_size: int, pages_per_seq: int,
-    n_heads: int, n_kv_heads: int, device=None, row_weighted: bool = False,
+    n_heads: int, n_kv_heads: int, dtype: torch.dtype = torch.bfloat16,
+    device=None,
 ) -> AttentionPlan:
     """The work list of one step, from its ``[T]`` page-table rows and
     positions (numpy or CPU tensors), with vectorised numpy.
@@ -161,15 +181,16 @@ def build_plan(
     buffer need not hold a sequence's tokens side by side — at most
     ``min(16, 64 // group)`` a group (at most 64 query rows); padding
     tokens on the null row group like any sequence.  A group needs pages
-    ``0 .. max position // page_size``.  A page costs ``w`` units: 1, or
-    with ``row_weighted`` (the fp32 kernel, whose time per page grows with
-    the rows a warp takes) ``ceil(rows / 4)``.  The run cost ``span``
-    comes from the whole step's cost over ``TARGET_BLOCKS / n_kv_heads``
-    runs; a group of ``n`` pages gets ``min(n, ceil(n * w / span))`` runs
-    of near-equal length (they differ by at most one page), so with
-    ``w = 1`` every item holds at most ``span`` pages and every item of a
-    split group at least ``span // 2``.  The tensors go to ``device`` in
-    one copy."""
+    ``0 .. max position // page_size``.  A page costs ``w`` units: 1 in
+    bf16, and ``ceil(rows / 4)`` for the ``dtype`` float32 kernel, whose
+    time per page grows with the rows a warp takes.  The run cost ``span``
+    comes from the whole step's cost over the runs of
+    :func:`plan_capacity` (two blocks per SM of ``device``); a group of
+    ``n`` pages gets ``min(n, ceil(n * w / span))`` runs of near-equal
+    length (they differ by at most one page), so with ``w = 1`` every item
+    holds at most ``span`` pages and every item of a split group at least
+    ``span // 2``.  The tensors go to a CUDA ``device`` in one copy that
+    does not wait for the card."""
     seq = np.asarray(token_seq, np.int64).reshape(-1)
     pos = np.asarray(positions, np.int64).reshape(-1)
     t = seq.shape[0]
@@ -178,7 +199,7 @@ def build_plan(
     if n_heads % n_kv_heads or n_heads // n_kv_heads > MAX_GROUP_ROWS:
         raise ValueError(f"plan: {n_heads} query heads over {n_kv_heads} KV heads")
     tpg = min(MAX_GROUP_TOKENS, MAX_GROUP_ROWS // (n_heads // n_kv_heads))
-    cap_items, cap_groups = plan_capacity(t, n_kv_heads)
+    cap_items, cap_groups = plan_capacity(t, n_kv_heads, device)
     target_runs = cap_items - t
 
     order = np.lexsort((pos, seq))
@@ -200,7 +221,8 @@ def build_plan(
     n_pages = np.minimum(np.maximum.reduceat(pos_s, starts) // page_size + 1,
                          pages_per_seq)
     group = n_heads // n_kv_heads
-    weight = -(-groups[:n_groups, 1] * group // 4) if row_weighted else np.ones(n_groups, np.int64)
+    weight = (-(-groups[:n_groups, 1] * group // 4) if dtype == torch.float32
+              else np.ones(n_groups, np.int64))
     cost = n_pages * weight
     span = max(1, -(-int(cost.sum()) // target_runs))
     runs = np.minimum(n_pages, -(-cost // span))
@@ -219,7 +241,10 @@ def build_plan(
 
     parts = (items, groups, splits)
     flat = torch.from_numpy(np.concatenate([x.ravel() for x in parts]))
-    flat = flat.to(device) if device is not None else flat
+    if device is not None and torch.device(device).type == "cuda":
+        # from pageable memory the copy returns once CUDA has staged the
+        # bytes, without waiting for the stream's earlier work
+        flat = flat.to(device, non_blocking=True)
     ends = np.cumsum([x.size for x in parts])
     return AttentionPlan(
         items=flat[:ends[0]].view(cap_items, _ITEM_COLS),
@@ -341,11 +366,6 @@ def check_kernel_args(
         )
     if smem_bytes(q.dtype, ps, hd) > _SMEM_LIMIT:
         raise ValueError(f"paged_attention kernel: page_size {ps} too large")
-    if page_tables.shape[1] > MAX_PAGES_PER_SEQ:
-        raise ValueError(
-            f"paged_attention kernel: {page_tables.shape[1]} pages a row; the "
-            f"merge takes at most {MAX_PAGES_PER_SEQ}"
-        )
     if any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
         raise ValueError("paged_attention kernel: q/k/v must be 16-byte aligned")
     if t < 1 or page_tables.dim() != 2 or tuple(token_seq.shape) != (t,) \
@@ -361,7 +381,7 @@ def check_plan(plan: AttentionPlan, q: torch.Tensor, n_kv_heads: int) -> None:
     """Raise ``ValueError`` on a plan that was not built for this call's
     buffer size and heads, or that does not lie on ``q``'s card."""
     t, h, _ = q.shape
-    cap_items, cap_groups = plan_capacity(t, n_kv_heads)
+    cap_items, cap_groups = plan_capacity(t, n_kv_heads, q.device)
     want = min(MAX_GROUP_TOKENS, MAX_GROUP_ROWS // (h // n_kv_heads))
     if tuple(plan.items.shape) != (cap_items, _ITEM_COLS) \
             or tuple(plan.groups.shape) != (cap_groups, _GROUP_COLS) \
@@ -401,7 +421,7 @@ def paged_attention(
         plan = build_plan(
             token_seq.cpu().numpy(), positions.cpu().numpy(), page_size=ps,
             pages_per_seq=pages_per_seq, n_heads=h, n_kv_heads=kvh,
-            device=q.device, row_weighted=q.dtype == torch.float32,
+            dtype=q.dtype, device=q.device,
         )
     check_plan(plan, q, kvh)
     fn = _build.load(SOURCE, _bind).paged_attention_launch

@@ -117,7 +117,7 @@ class LlamaServingBackend:
         self._compiled_shapes: set = set()  # observability: step-shape count
         self._metrics = metrics
         self.last_step_compiled = False  # was the latest step a new shape?
-        # host seconds spent building each step's paged-attention plan
+        # host seconds spent building each step's paged-attention plan (card only)
         self.plan_seconds: deque = deque(maxlen=4096)
         # page-arena lock: steps update the K/V arenas in place from
         # executor threads, and exports must not read a half-written step
@@ -206,15 +206,17 @@ class LlamaServingBackend:
             if self._metrics is not None:
                 self._metrics.serving_compiles.inc(entry="ragged")
         dev = self.device
-        # the paged-attention work list, once per step for every layer
-        t0 = time.perf_counter()
-        plan = build_plan(
-            token_seq, positions, page_size=self.page_size,
-            pages_per_seq=self.pages_per_seq, n_heads=self.cfg.n_heads,
-            n_kv_heads=self.cfg.n_kv_heads, device=dev,
-            row_weighted=self.cfg.dtype == torch.float32,
-        )
-        self.plan_seconds.append(time.perf_counter() - t0)
+        plan = None
+        if dev.type == "cuda":
+            # the kernel's work list, once per step for every layer (the
+            # CPU takes the plain version, which needs none)
+            t0 = time.perf_counter()
+            plan = build_plan(
+                token_seq, positions, page_size=self.page_size,
+                pages_per_seq=self.pages_per_seq, n_heads=self.cfg.n_heads,
+                n_kv_heads=self.cfg.n_kv_heads, dtype=self.cfg.dtype, device=dev,
+            )
+            self.plan_seconds.append(time.perf_counter() - t0)
         with self._dev_lock:
             nxt, self._k_pages, self._v_pages = llama.ragged_step(
                 self._params, self._k_pages, self._v_pages,

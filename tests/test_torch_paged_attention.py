@@ -32,6 +32,8 @@ collects where JAX is not installed: the card's machine runs
 ``python -m pytest --noconftest -m gpu tests/test_torch_paged_attention.py``
 (``tests/conftest.py`` imports JAX).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -177,10 +179,12 @@ def _ragged_case(rows, *, h=4, kvh=2, hd=16, ps=8, num_pages=None, t_buf=None,
     return q, k, v, tables, seq, pos
 
 
-def _plan(seq, pos, *, ps, p_cols, h, kvh, device=None, row_weighted=False):
+def _plan(seq, pos, *, ps, p_cols, h, kvh, device=None, weighted=False):
+    """The plan of the float32 kernel (pages weighted by rows per warp)
+    with ``weighted``, else of the bf16 kernel."""
     return pa.build_plan(seq, pos, page_size=ps, pages_per_seq=p_cols,
                          n_heads=h, n_kv_heads=kvh, device=device,
-                         row_weighted=row_weighted)
+                         dtype=torch.float32 if weighted else torch.bfloat16)
 
 
 @st.composite
@@ -207,7 +211,7 @@ def test_plan_partitions_the_step(step):
     perm = rng.permutation(len(pos))
     pos, seq = pos[perm].astype(np.int32), seq[perm].astype(np.int32)
     p_cols = int(pos.max()) // ps + 1 + int(rng.integers(0, 3))
-    plan = _plan(seq, pos, ps=ps, p_cols=p_cols, h=h, kvh=kvh, row_weighted=weighted)
+    plan = _plan(seq, pos, ps=ps, p_cols=p_cols, h=h, kvh=kvh, weighted=weighted)
     items, groups, splits = plan.items.numpy(), plan.groups.numpy(), plan.splits.numpy()
     t = len(pos)
     tpg = min(16, 64 // (h // kvh))
@@ -270,6 +274,7 @@ SPLIT_CASES = {
     "prefill_over_16": dict(rows=[(3, 20), (50, 1), (0, 33)], shuffle=True),
     "gqa_8": dict(rows=[(300, 12), (2, 1), (77, 5)], h=16, kvh=2, shuffle=True),
     "last_page": dict(rows=[(20, 1), (35, 4)], last_page_row=1),
+    "wide_table": dict(rows=[(5000, 1), (7, 2), (4500, 3)], ps=4),  # 1251 pages a row
 }
 
 
@@ -279,7 +284,7 @@ def test_split_merge_emulation_matches_plain_version(name, weighted):
     case = _ragged_case(**SPLIT_CASES[name])
     q, k, v, tables, seq, pos = map(torch.from_numpy, case)
     plan = _plan(seq.numpy(), pos.numpy(), ps=k.shape[1], p_cols=tables.shape[1],
-                 h=q.shape[1], kvh=k.shape[2], row_weighted=weighted)
+                 h=q.shape[1], kvh=k.shape[2], weighted=weighted)
     got = pa.paged_attention_planned(q, k, v, tables, pos, plan)
     want = pa.paged_attention_reference(q, k, v, tables, seq, pos)
     assert torch.isfinite(got).all()
@@ -297,6 +302,28 @@ def test_plan_rejects_what_the_kernel_does_not_take():
     q = torch.zeros((5, 4, 16))
     with pytest.raises(ValueError, match="another step shape"):
         pa.check_plan(plan, q, 2)
+
+
+@pytest.mark.parametrize("sms", [pa.DEFAULT_SMS, 1000])
+def test_plan_caps_runs_at_the_merge_bound_not_the_table_width(sms, monkeypatch):
+    """A 20000-page row over one KV head, on an H100's SM count and on a
+    card with 1000 SMs: the plan cuts no group into more runs than the
+    merge pass holds, and the kernel's checks take the row (only the
+    device check fails on CPU tensors)."""
+    monkeypatch.setattr(pa, "DEFAULT_SMS", sms)
+    p_cols, ps = 20000, 4
+    seq = np.array([0, 1, 2, 2], np.int32)
+    pos = np.array([p_cols * ps - 1, 9, 40000, 40001], np.int32)
+    plan = _plan(seq, pos, ps=ps, p_cols=p_cols, h=8, kvh=1)
+    runs = np.bincount(plan.items[:plan.n_items, 0].numpy())
+    cap_runs = pa.plan_capacity(len(seq), 1)[0] - len(seq)
+    assert cap_runs == min(pa.BLOCKS_PER_SM * sms, pa.MAX_MERGE_RUNS)
+    assert 1 < runs.max() <= cap_runs
+    q = torch.zeros((4, 8, 16))
+    k = torch.zeros((8, ps, 1, 16))
+    tables = torch.zeros((4, p_cols), dtype=torch.int32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        pa.check_kernel_args(q, k, k, tables, torch.from_numpy(seq), torch.from_numpy(pos))
 
 
 PARTITION_CASES = {
@@ -319,8 +346,8 @@ def test_kernel_partition_cases_on_card(name, dtype, shape):
     case = _ragged_case(**PARTITION_CASES[name], h=h, kvh=kvh, hd=hd, ps=16)
     q, k, v, tables, seq, pos = [torch.from_numpy(a).to(dev) for a in case]
     q, k, v = (x.to(dtype) for x in (q, k, v))
-    plan = _plan(case[4], case[5], ps=16, p_cols=tables.shape[1], h=h, kvh=kvh, device=dev,
-                 row_weighted=dtype == torch.float32)
+    plan = pa.build_plan(case[4], case[5], page_size=16, pages_per_seq=tables.shape[1],
+                         n_heads=h, n_kv_heads=kvh, dtype=dtype, device=dev)
     if name == "one_and_many_runs":
         runs = np.bincount(plan.items[:plan.n_items, 0].cpu().numpy())
         assert runs.min() == 1 and runs.max() > 1
@@ -355,3 +382,57 @@ def test_kernel_pages_smaller_than_a_tile_on_card(dtype, shape):
     assert torch.isfinite(got).all()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= KERNEL_ATOL[dtype], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ps", [4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 2, 16), (32, 8, 128)])
+def test_kernel_rows_wider_than_1024_pages_on_card(ps, dtype, shape):
+    """Page-table rows of more than 1024 pages: an 8192-token context at
+    page size 4, a 20000-token context at page size 16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    h, kvh, hd = shape
+    dev = torch.device("cuda")
+    longest = 8191 if ps == 4 else 19999
+    case = _ragged_case([(longest, 1), (longest // 2, 3), (10, 1)], h=h, kvh=kvh, hd=hd, ps=ps)
+    q, k, v, tables, seq, pos = [torch.from_numpy(a).to(dev) for a in case]
+    assert tables.shape[1] > 1024
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    got = pa.paged_attention(q, k, v, tables, seq, pos)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_reference(q, k, v, tables, seq, pos)
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= KERNEL_ATOL[dtype], err
+
+
+def test_per_token_gate_sees_a_lost_run_on_long_rows():
+    """``chip_smoke.py``'s per-token gate on its 8192-token case (here at
+    small widths): a merge that leaves out one run of a split group moves
+    the long rows' small outputs by less than the 6e-2 absolute tolerance
+    can see, but by far more than the per-token bound."""
+    import chip_smoke
+
+    case = chip_smoke.attention_case(torch, torch.device("cpu"), chip_smoke.LONG_ROWS,
+                                     h=4, kvh=2, hd=16)
+    q, k, v, tables, seq, pos = case
+    plan = _plan(seq.numpy(), pos.numpy(), ps=16, p_cols=tables.shape[1], h=4, kvh=2)
+    want = pa.paged_attention_reference(*case)
+
+    def row_rel(got):
+        diff = (got - want).abs()
+        return (diff.amax((1, 2)) / want.abs().amax((1, 2))).max().item()
+
+    bound = chip_smoke.KERNEL_ROW_REL["bfloat16"]
+    assert row_rel(pa.paged_attention_planned(q, k, v, tables, pos, plan)) <= 1e-5
+    assert plan.n_splits >= 2
+    abs_errs = []
+    for i in range(plan.n_splits):
+        splits = plan.splits.clone()
+        splits[i, 2] -= 1  # the merge leaves out the group's last run
+        got = pa.paged_attention_planned(q, k, v, tables, pos, dataclasses.replace(plan, splits=splits))
+        assert row_rel(got) > bound
+        abs_errs.append((got - want).abs().max().item())
+    assert min(abs_errs) < chip_smoke.KERNEL_ATOL["bfloat16"]
