@@ -21,9 +21,10 @@ Every phase raises on failure.  Phases:
    The step's plan is built once per buffer, as the serving step does.
 3. fp32 serving oracle at Llama-3-8B width, depth cut to 2 layers: the
    serving entry point (``make_serving_engine``) must emit exactly the
-   tokens of a dense greedy oracle (``forward`` over the growing sequence)
-   with speculative decoding off and on, through prefix sharing and a
-   copy-on-write page copy.
+   tokens of a dense greedy oracle (``forward`` over the growing sequence,
+   on the dense attention's plain version, so the oracle does not run the
+   kernels it judges) with speculative decoding off and on, through prefix
+   sharing and a copy-on-write page copy.
 4. bf16 Llama-3-8B, all 32 layers, random weights from a seeded CUDA
    generator: 8 requests served to completion through the same entry
    point; TTFT p50, decode tokens/s, peak memory, the host time of each
@@ -40,11 +41,29 @@ Every phase raises on failure.  Phases:
    fp32 2-layer model with an fp32 embedder: its ``llm.generate`` results
    must equal phase 3's dense oracle, its embeddings the plain-version
    embedder's.  One serves phase 4's bf16 Llama-3-8B weights (no second
-   copy) with the default bf16 embedder: ``echo``, ``matmul``, ``infer``,
+   copy) with the default bf16 embedder: ``echo``, ``matmul``, ``infer``
+   (its ``forward`` launches the dense attention kernel, counted),
    ``embed`` one job at a time and coalesced by the micro-batcher, and
    ``llm.generate``; its heartbeat must name the card.  Prints echo
    jobs/s, p50 dispatch→result per op, single-job and batched embeds/s
    and TTFT p50 through the worker.
+7. Training, once phase 4's weights are freed.  (1) The dense attention
+   kernels (B9, forward and backward) against autograd of their plain
+   version on the same seeded inputs and ``dO``, at the main shape
+   (Llama-3-8B heads: B 4, T 2048, H 32, KVH 8, hd 128) and at
+   ``LlamaConfig()``'s (B 8, T 2048, H 8, KVH 4, hd 64), bf16 and fp32,
+   with times, bounds and SDPA (``is_causal``, K/V expanded) as the
+   yardstick, forward alone and backward alone.  (2) An fp32 train-step
+   oracle at Llama-3-8B widths, depth cut to 2 layers: B 2, T 256, 3
+   AdamW steps on seeded batches, the B9 path against the plain-attention
+   path from one initial copy of the params, one path after the other.
+   (3) A bf16 run at the same widths, B 4, T 2048, 10 steps on one batch:
+   the loss falls; step p50, tokens/s, peak memory, then two steps under
+   ``torch.profiler``.  (4) ``train`` jobs through a port worker: a
+   ``llama`` job (``LlamaConfig()``, B 8, T 2048, 6 steps, a checkpoint
+   every 2) cancelled after step 2 (the runner waits for the cancel sent
+   when step 2 reports), re-dispatched to resume from step 2 and complete;
+   then a ``llama-tiny`` job; result keys as the reference's.
 
 Tolerances (kernel vs plain version, max abs error), paged attention:
 fp32 1e-4 — the sums run in another order over up to 8192 keys, on O(1)
@@ -66,6 +85,26 @@ differs: two bf16 ulps at outputs up to ~4.  Worker embeddings vs the
 plain-version embedder (unit L2 vectors): fp32 1e-5; bf16 2e-2 (rounding
 flips carried through four layers, LayerNorm and pooling).
 
+Dense attention (phase 7), fp32: the output's max abs error 1e-5 (sums
+over up to 2048 keys in another order, on O(1) outputs), each gradient's
+max error over its largest |value| 1e-4.  bf16 is held row by row, since
+a long row's output (about sqrt(e/n) over n keys) and a late key's dk and
+dv are small beside their tensor's max: for each query row of out and dq
+and each key row of dk and dv, the max error from the exact result (the
+plain version in fp32 on the same bf16 inputs) over the row's largest
+|exact| value (at least 2^-8 of the tensor's largest); the kernel's worst
+row within twice the bf16 plain version's worst row, plus 2^-9.  Three
+planted faults must fail that gate, each logged beside what the earlier
+gate (6e-2 absolute, 5e-2 of the max) said of it: the backward with one
+query head of each KV group left out of dK/dV for the second half of
+the keys, the plain version with
+the keys of each later row's own 64-row tile masked out, and the plain
+version on inputs rounded to float8_e4m3.  fp32 train oracle: each step's
+loss within 1e-4 relative; every param within 6 lr = 1.8e-3 after 3
+steps (Adam moves an element by about lr * sign(g), so a gradient within
+fp32 noise of 0 flips an update by 2 lr a step), and at most a 1e-4 share
+of the elements further apart than 1e-6.
+
 Near-tie rule of phase 3, fixed before any run: tokens are compared up to
 the first generated position where the oracle's top-2 logits differ by
 less than 1e-4 (fp32 sums in another order may flip such a tie); the
@@ -79,8 +118,10 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -99,10 +140,12 @@ EMBED_KERNEL_ATOL = {"float32": 1e-5, "bfloat16": 6e-2}
 EMBED_ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 NEAR_TIE = 1e-4
 SEED = 0
-#: kernel (its module under cordum_tpu_torch.ops) → the JAX-side function it replaces
+#: kernel row → (its module under cordum_tpu_torch.ops, the JAX-side function it replaces)
 KERNELS = {
-    "paged_attention": "cordum_tpu/models/llama.py:467",
-    "embed_attention": "cordum_tpu/models/embedder.py:123",
+    "paged_attention": ("paged_attention", "cordum_tpu/models/llama.py:467"),
+    "embed_attention": ("embed_attention", "cordum_tpu/models/embedder.py:123"),
+    "dense_attention_fwd": ("dense_attention", "cordum_tpu/models/llama.py:179-197"),
+    "dense_attention_bwd": ("dense_attention", "cordum_tpu/models/llama.py:179-197"),
 }
 
 
@@ -305,6 +348,16 @@ def device_split(torch, fn, flush, *, calls=10):
     return ", ".join(f"{k} {v:.1f}" for k, v in sorted(per.items(), key=lambda kv: -kv[1]))
 
 
+def kernel_rows(prof):
+    """``(name, device us, count)`` of each kernel a profile recorded, from
+    the device's own events only: a host op's row repeats the device time of
+    the kernels it launched, so a sum over every row counts it twice."""
+    from torch.autograd import DeviceType
+
+    return [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
 def phase_kernel(torch, dev, card):
     """The 8192-token case (its numbers go into the kernel line), then the
     serving step's own shape (informational times, gated on the
@@ -333,14 +386,24 @@ def phase_kernel(torch, dev, card):
 # ---------------------------------------------------------------------------
 
 
+def plain_attention(q, k, v, cfg, *, q_offset=None):
+    """The dense attention's plain version as ``forward``'s ``attention``
+    core: the oracles run on it, independent of the kernels they judge."""
+    from cordum_tpu_torch.ops.dense_attention import gqa_attention
+
+    return gqa_attention(q, k, v, q_offset=q_offset)
+
+
 def dense_greedy(torch, llama, params, cfg, prompt, n_new, dev):
-    """The sequential oracle: ``forward`` over the growing sequence, greedy
-    argmax.  Returns the tokens and the generated positions whose top-2
-    logits differ by less than the near-tie threshold."""
+    """The sequential oracle: ``forward`` over the growing sequence on the
+    plain attention, greedy argmax.  Returns the tokens and the generated
+    positions whose top-2 logits differ by less than the near-tie
+    threshold."""
     toks, out, ties = list(prompt), [], []
     with torch.no_grad():
         for i in range(n_new):
-            logits = llama.forward(params, torch.tensor([toks], device=dev), cfg)[0, -1]
+            logits = llama.forward(params, torch.tensor([toks], device=dev), cfg,
+                                   attention=plain_attention)[0, -1]
             top = torch.topk(logits.float(), 2).values
             if (top[0] - top[1]).item() < NEAR_TIE:
                 ties.append(i)
@@ -523,8 +586,7 @@ def profile_serving(torch, dev, card, cfg, params, prompts, *, n_new=8, cache_pa
         asyncio.run(serve_waves(engine, [prompts], n_new, "profile"))
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if getattr(e, "self_device_time_total", 0) > 0]
+    rows = kernel_rows(prof)
     total = sum(r[1] for r in rows)
     if not total:
         log("[profile] the profiler recorded no device time")
@@ -654,6 +716,8 @@ class JobDispatcher:
         self.first_token: dict = {}
         self.streams: dict = {}
         self.heartbeats: list = []
+        #: called with every ``JobProgress`` of this dispatcher's jobs
+        self.on_progress = None
         self._waiters: dict = {}
         self._n = 0
 
@@ -680,6 +744,15 @@ class JobDispatcher:
         if pr is not None and pr.status_hint == STATUS_HINT_STREAM:
             self.first_token.setdefault(pr.job_id, time.monotonic())
             self.streams.setdefault(pr.job_id, []).extend(pr.tokens)
+        if pr is not None and self.on_progress is not None and pr.job_id in self.sent:
+            await self.on_progress(pr)
+
+    async def cancel(self, job_id, reason=""):
+        from cordum_tpu_torch.protocol import subjects as subj
+        from cordum_tpu_torch.protocol.types import BusPacket, JobCancel
+
+        await self.bus.publish(subj.CANCEL, BusPacket.wrap(JobCancel(job_id=job_id,
+                                                                     reason=reason)))
 
     async def _on_heartbeat(self, subject, pkt):
         if pkt.heartbeat is not None:
@@ -775,26 +848,42 @@ async def embed_jobs(sched, texts, per_job, tag, *, one_at_a_time):
     return jobs, {jid: p["texts"] for (jid, _), p in zip(jobs, payloads)}, wall
 
 
+def launch_counters():
+    """Each kernel row's launch counter (the wrapper's ``launches``)."""
+    from cordum_tpu_torch.ops import dense_attention as da
+    from cordum_tpu_torch.ops import embed_attention as ea
+    from cordum_tpu_torch.ops import paged_attention as pa
+
+    return {"paged_attention": pa.paged_attention, "embed_attention": ea.embed_attention,
+            "dense_attention_fwd": da.dense_attention_fwd,
+            "dense_attention_bwd": da.dense_attention_bwd}
+
+
 def zero_launches():
-    from cordum_tpu_torch.ops import embed_attention as ea
-    from cordum_tpu_torch.ops import paged_attention as pa
-
-    pa.paged_attention.launches = 0
-    ea.embed_attention.launches = 0
+    for fn in launch_counters().values():
+        fn.launches = 0
 
 
-def read_launches(n_layers_embed, n_layers_llama, steps):
-    """The launches of the run just driven; every kernel of the path must
-    have launched, and as often as its layers and calls say."""
-    from cordum_tpu_torch.ops import embed_attention as ea
-    from cordum_tpu_torch.ops import paged_attention as pa
+def read_launches():
+    return {name: fn.launches for name, fn in launch_counters().items()}
 
-    pa_n, ea_n = pa.paged_attention.launches, ea.embed_attention.launches
+
+def check_worker_launches(n_layers_embed, n_layers_llama, steps, *, infer):
+    """The launches of the worker run just driven; every kernel of the path
+    must have launched, and as often as its layers and calls say: the paged
+    kernel once a layer a serving step, the embedder's once a layer a
+    flush, the dense forward once a layer an ``infer`` call (none without
+    ``infer`` jobs), the dense backward never."""
+    n = read_launches()
+    pa_n, ea_n, fwd_n = n["paged_attention"], n["embed_attention"], n["dense_attention_fwd"]
     if pa_n == 0 or pa_n != n_layers_llama * steps:
         raise AssertionError(f"paged_attention launches {pa_n} != {n_layers_llama} x {steps}")
     if ea_n == 0 or ea_n % n_layers_embed:
         raise AssertionError(f"embed_attention launches {ea_n} (layers {n_layers_embed})")
-    return pa_n, ea_n
+    if (fwd_n == 0) == infer or fwd_n % n_layers_llama or n["dense_attention_bwd"]:
+        raise AssertionError(f"dense_attention launches {fwd_n} forward, "
+                             f"{n['dense_attention_bwd']} backward (infer jobs: {infer})")
+    return n
 
 
 async def drive_fp32_worker(torch, dev, card, cfg, params, prompts, oracle, *, n_new):
@@ -815,8 +904,8 @@ async def drive_fp32_worker(torch, dev, card, cfg, params, prompts, oracle, *, n
         texts = make_texts(rng, 48, 1, 126)
         emb, texts_of, _ = await embed_jobs(sched, texts, 4, "emb32", one_at_a_time=False)
         torch.cuda.synchronize()
-        launches = read_launches(compute.embedder.cfg.n_layers, cfg.n_layers,
-                                 w.serving.stats.steps)
+        launches = check_worker_launches(compute.embedder.cfg.n_layers, cfg.n_layers,
+                                         w.serving.stats.steps, infer=False)
     finally:
         await w.stop()
     for p, (jid, doc), (want, ties) in zip(prompts, gens, oracle):
@@ -829,8 +918,9 @@ async def drive_fp32_worker(torch, dev, card, cfg, params, prompts, oracle, *, n
     err = check_embeddings(torch, compute, emb, texts_of, "float32")
     log(f"[worker] fp32: {len(prompts)} llm.generate jobs token-identical to the dense "
         f"oracle; {len(texts)} embeddings within {err:.3e} of the plain version; launches "
-        f"paged_attention {launches[0]}, embed_attention {launches[1]}  [{card}]")
-    return {"paged_attention": launches[0], "embed_attention": launches[1]}
+        f"paged_attention {launches['paged_attention']}, embed_attention "
+        f"{launches['embed_attention']}  [{card}]")
+    return launches
 
 
 async def drive_bf16_worker(torch, dev, card, cfg, params, *, n_new=16):
@@ -861,8 +951,8 @@ async def drive_bf16_worker(torch, dev, card, cfg, params, *, n_new=16):
         gens = await sched.run([{"op": "llm.generate", "tokens": p, "max_new_tokens": n_new}
                                  for p in prompts], "gen")
         torch.cuda.synchronize()
-        launches = read_launches(compute.embedder.cfg.n_layers, cfg.n_layers,
-                                 w.serving.stats.steps)
+        launches = check_worker_launches(compute.embedder.cfg.n_layers, cfg.n_layers,
+                                         w.serving.stats.steps, infer=True)
     finally:
         await w.stop()
     for jid, doc in echo:
@@ -900,9 +990,12 @@ async def drive_bf16_worker(torch, dev, card, cfg, params, *, n_new=16):
         f"tokens each); embeddings within {err:.3e} of the plain version  [{card}]")
     log("[worker] bf16: p50 dispatch->result ms: " + ", ".join(
         f"{op} {ms:.2f}" for op, ms in p50.items()) + f"  [{card}]")
-    log(f"[worker] bf16: launches paged_attention {launches[0]} (= {cfg.n_layers} layers x "
-        f"{launches[0] // cfg.n_layers} steps), embed_attention {launches[1]}  [{card}]")
-    return {"paged_attention": launches[0], "embed_attention": launches[1]}
+    log(f"[worker] bf16: launches paged_attention {launches['paged_attention']} (= "
+        f"{cfg.n_layers} layers x {launches['paged_attention'] // cfg.n_layers} steps), "
+        f"embed_attention {launches['embed_attention']}, dense_attention_fwd "
+        f"{launches['dense_attention_fwd']} (= {cfg.n_layers} layers x "
+        f"{launches['dense_attention_fwd'] // cfg.n_layers} infer calls)  [{card}]")
+    return launches
 
 
 async def profile_embeds(torch, card, sched, texts):
@@ -922,8 +1015,7 @@ async def profile_embeds(torch, card, sched, texts):
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     ea.embed_attention.launches = launches
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if getattr(e, "self_device_time_total", 0) > 0]
+    rows = kernel_rows(prof)
     total = sum(r[1] for r in rows)
     if not total:
         log("[profile-embed] the profiler recorded no device time")
@@ -949,6 +1041,524 @@ def phase_worker(torch, dev, card, *, fp32, bf16, n_new=16):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+
+#: B9 fp32 vs its plain version: the output's max abs error, and each
+#: gradient's max abs error over its largest |value|
+DENSE_OUT_ATOL = 1e-5
+DENSE_GRAD_REL = 1e-4
+#: B9 bf16, per row (a query row of out and dq, a key row of dk and dv):
+#: the row's max error from the exact result (the plain version in fp32 on
+#: the same bf16 inputs and dO) over the row's largest |exact| value, a row
+#: smaller than DENSE_ROW_FLOOR of its tensor's largest |value| held to that
+#: instead.  The kernel's worst row must stay within DENSE_ROW_FACTOR times
+#: the bf16 plain version's worst row, plus DENSE_ROW_SLACK (half a bf16 ulp,
+#: for a tensor the plain version gets exactly: dq and dk at T 1).  A row
+#: that is wrong (a GQA head left out of dk/dv, a tile dropped) is off by a
+#: large share of its own value, whatever its size beside the tensor's max.
+DENSE_ROW_FLOOR = 2.0**-8
+DENSE_ROW_FACTOR = 2.0
+DENSE_ROW_SLACK = 2.0**-9
+#: (tag, B, T, H, KVH, hd): phase 7's main shape (Llama-3-8B heads; its
+#: numbers go into the kernel line) and ``LlamaConfig()``'s, the ``train``
+#: job's
+DENSE_SHAPES = (("llama3-8b", 4, 2048, 32, 8, 128), ("llama-default", 8, 2048, 8, 4, 64))
+#: phase 7.2, the B9 path against the plain-attention path: each step's
+#: loss (relative); every param element within six learning rates (each of
+#: three Adam steps moves an element by about lr * sign(g), so a gradient
+#: within the fp32 noise of 0 may flip an update by 2 lr), and at most a
+#: 1e-4 share of the elements further apart than 1e-6
+TRAIN_LOSS_REL = 1e-4
+TRAIN_PARAM_ATOL = 6 * 3e-4
+TRAIN_PARAM_NEAR = 1e-6
+TRAIN_PARAM_FAR_SHARE = 1e-4
+#: the keys of the reference's ``TrainRunner.train`` result
+#: (``cordum_tpu/worker/training.py:168-178``)
+TRAIN_RESULT_KEYS = {"model", "mesh", "resumed_from", "steps_done", "completed",
+                     "final_loss", "loss_first", "seconds", "checkpointed"}
+
+
+def dense_case(torch, dev, b, t, h, kvh, hd, dtype, seed=SEED):
+    """Seeded q, k, v and dO in ``dtype``, positions ``arange(T)`` as
+    ``forward`` passes them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, t, h, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, t, kvh, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, t, kvh, hd), generator=g, device=dev).to(dtype)
+    do = torch.randn((b, t, h, hd), generator=g, device=dev).to(dtype)
+    pos = torch.arange(t, dtype=torch.int32, device=dev).expand(b, t).contiguous()
+    return q, k, v, do, pos
+
+
+def dense_work_of(b, t, h, kvh, hd, el, positions):
+    """(bytes, operations) of the forward and of the backward: each input
+    read once and each output written once (q, k, v, positions, out, lse;
+    the backward also dO, dq, dk, dv); QK and PV, 4 hd a live (query, key)
+    pair, forward; QK again, dP, dV, dK and dQ, 10 hd a pair, backward —
+    over the pairs these positions make live (a row at a negative position
+    attends to all T keys).  The bf16 kernels' ``out_lo`` is a means of
+    theirs, not the function's, and is not counted."""
+    pos = positions.long().cpu()
+    live = (pos + 1).clamp(max=t)
+    live[pos < 0] = t
+    pairs = int(live.sum())
+    q_el, kv_el = b * t * h * hd, b * t * kvh * hd
+    small = 4 * b * t + 4 * b * h * t
+    fwd = (el * (2 * q_el + 2 * kv_el) + small, 4 * hd * h * pairs)
+    bwd = (el * (4 * q_el + 4 * kv_el) + small, 10 * hd * h * pairs)
+    return fwd, bwd
+
+
+def worst_row(got, exact, scale):
+    """The largest over rows (the last axis) of a row's max ``|got -
+    exact|`` over the larger of the row's largest ``|exact|`` and
+    ``DENSE_ROW_FLOOR * scale``."""
+    exact = exact.float()
+    big = exact.abs().amax(-1)
+    diff = (got.float() - exact).abs().amax(-1)
+    return (diff / big.clamp(min=max(DENSE_ROW_FLOOR * scale, 1e-30))).max().item()
+
+
+def dense_grads(torch, fn, q, k, v, pos, do):
+    """``fn(q, k, v, pos)`` and its (dq, dk, dv) for ``do``, through autograd."""
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = fn(qr, kr, vr, pos)
+    return (out.detach(), *torch.autograd.grad(out, (qr, kr, vr), do))
+
+
+def bf16_row_gate(got, plain, exact):
+    """Each of out, dq, dk, dv: the kernel's and the plain version's worst
+    row (:func:`worst_row`, scaled by the tensor's largest ``|exact|``, or
+    dv's where the tensor is exactly 0: dq and dk at T 1), the limit, and
+    whether the kernel is within."""
+    res = {}
+    dv_scale = exact[3].abs().max().item()
+    for name, g, p, e in zip(("out", "dq", "dk", "dv"), got, plain, exact):
+        scale = e.abs().max().item() or dv_scale
+        kernel, ref = worst_row(g, e, scale), worst_row(p, e, scale)
+        limit = DENSE_ROW_FACTOR * ref + DENSE_ROW_SLACK
+        res[name] = dict(kernel=kernel, plain=ref, limit=limit, ok=kernel <= limit)
+    return res
+
+
+def dense_gate_controls(torch, q, k, v, pos, do, plain, exact):
+    """Planted faults the bf16 row gate must refuse, each beside what the
+    earlier gate (out within 6e-2 absolute of the bf16 plain version, each
+    gradient within 5e-2 of its largest |value|) said of it:
+
+    * ``gqa-head-dropped``: dK/dV from the kernel's backward with the last
+      query head of each KV group left out (its dO zeroed) for the second
+      half of the keys, whose dk and dv are small beside the early keys':
+      a GQA sum that skips a head over half the sequence;
+    * ``diagonal-tile-dropped``: the plain version with the keys of a row's
+      own 64-row tile masked out in the second half of the rows;
+    * ``fp8-inputs``: the plain version on q, k, v and dO rounded to
+      float8_e4m3 (3 mantissa bits against bf16's 7).
+
+    Raises if the row gate passes a control."""
+    from cordum_tpu_torch.ops import dense_attention as da
+
+    rep, late = q.shape[2] // k.shape[2], q.shape[1] // 2
+    do_drop = do.clone()
+    do_drop[:, :, rep - 1::rep] = 0
+    fwd = da.dense_attention_fwd(q, k, v, pos)
+    dq, dk, dv = da.dense_attention_bwd(q, k, v, pos, *fwd, do)
+    _, dk_drop, dv_drop = da.dense_attention_bwd(q, k, v, pos, *fwd, do_drop)
+    dk[:, late:], dv[:, late:] = dk_drop[:, late:], dv_drop[:, late:]
+    controls = {
+        "gqa-head-dropped": (fwd[0], dq, dk, dv),
+        "diagonal-tile-dropped": dense_grads(
+            torch, da.dense_attention_reference, q, k, v,
+            torch.where(pos >= q.shape[1] // 2, (pos // 64) * 64 - 1, pos), do),
+        "fp8-inputs": dense_grads(
+            torch, da.dense_attention_reference,
+            *(x.to(torch.float8_e4m3fn).to(q.dtype) for x in (q, k, v)), pos,
+            do.to(torch.float8_e4m3fn).to(q.dtype)),
+    }
+    readings = {}
+    for cname, got in controls.items():
+        gate = bf16_row_gate(got, plain, exact)
+        failed = [t for t in gate if not gate[t]["ok"]]
+        old_out = (got[0].float() - plain[0].float()).abs().max().item()
+        old_grads = [(g.float() - p.float()).abs().max().item() / p.float().abs().max().item()
+                     for g, p in zip(got[1:], plain[1:])]
+        old_ok = old_out <= 6e-2 and all(e <= 5e-2 for e in old_grads)
+        readings[cname] = {t: gate[t]["kernel"] for t in gate}
+        log(f"[dense-gate] control {cname}: worst row "
+            + ", ".join(f"{t} {gate[t]['kernel']:.3e} (limit {gate[t]['limit']:.3e})"
+                        for t in gate)
+            + f"; refused on {failed}; earlier gate: out {old_out:.3e}, gradients "
+            + ", ".join(f"{e:.3e}" for e in old_grads) + f" -> {'pass' if old_ok else 'fail'}")
+        if not failed or (cname == "gqa-head-dropped" and not {"dk", "dv"} <= set(failed)):
+            raise AssertionError(f"the bf16 row gate passed the planted fault {cname}: {gate}")
+    return readings
+
+
+def measure_dense(torch, dev, card, shape, dtype, flush):
+    """B9's forward and backward against the plain version on one seeded
+    case (fp32: against autograd of it, on the absolute and max-relative
+    tolerances; bf16: the row gate against the exact result, which must also
+    refuse three planted faults), then kernel, plain and SDPA times (forward
+    alone; backward alone on a kept graph) and the bounds."""
+    import torch.nn.functional as F
+
+    from cordum_tpu_torch.ops import dense_attention as da
+
+    tag, b, t, h, kvh, hd = shape
+    name = str(dtype).split(".")[-1]
+    q, k, v, do, pos = dense_case(torch, dev, b, t, h, kvh, hd, dtype)
+    out, lse, out_lo = da.dense_attention_fwd(q, k, v, pos)
+    grads = da.dense_attention_bwd(q, k, v, pos, out, lse, out_lo, do)
+    torch.cuda.synchronize()
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    ref = da.dense_attention_reference(qr, kr, vr, pos)
+    ref_grads = torch.autograd.grad(ref, (qr, kr, vr), do, retain_graph=True)
+    errs = {"out": (out.float() - ref.float()).abs().max().item()}
+    grad_abs = 0.0
+    for gname, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+        diff = (got.float() - want.float()).abs().max().item()
+        grad_abs = max(grad_abs, diff)
+        errs[gname] = diff / want.float().abs().max().item()
+    finite = all(torch.isfinite(x).all().item() for x in (out, *grads))
+    if not finite:
+        raise AssertionError(f"dense_attention {name} ({tag}): a value is not finite")
+    if dtype == torch.float32:
+        if not (errs["out"] <= DENSE_OUT_ATOL
+                and all(errs[g] <= DENSE_GRAD_REL for g in ("dq", "dk", "dv"))):
+            raise AssertionError(
+                f"dense_attention vs plain {name} ({tag}): {errs}; tolerances out "
+                f"{DENSE_OUT_ATOL}, gradients {DENSE_GRAD_REL} of their max")
+        gate_msg = (f"out {errs['out']:.3e} (tolerance {DENSE_OUT_ATOL:.0e}); gradients' max "
+                    f"err over their max |value| dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, dv "
+                    f"{errs['dv']:.3e} (tolerance {DENSE_GRAD_REL:.0e})")
+    else:
+        plain = (ref.detach(), *ref_grads)
+        exact = dense_grads(torch, da.dense_attention_reference,
+                            *(x.float() for x in (q, k, v)), pos, do.float())
+        gate = bf16_row_gate((out, *grads), plain, exact)
+        if not all(g["ok"] for g in gate.values()):
+            raise AssertionError(f"dense_attention {name} ({tag}): bf16 row gate {gate}")
+        dense_gate_controls(torch, q, k, v, pos, do, plain, exact)
+        gate_msg = ("worst row's err from exact over its max |exact| (kernel / plain bf16 / "
+                    "limit): " + ", ".join(
+                        f"{g} {r['kernel']:.3e} / {r['plain']:.3e} / {r['limit']:.3e}"
+                        for g, r in gate.items())
+                    + f"; against plain bf16: out max abs {errs['out']:.3e}, gradients' max "
+                    f"err over their max dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, dv "
+                    f"{errs['dv']:.3e}")
+        del plain, exact
+    # the library yardstick: SDPA on [B, H, T, hd] copies, K/V expanded to
+    # the query heads (the copies are left out of its time)
+    rep = h // kvh
+    qh = q.transpose(1, 2).contiguous().requires_grad_()
+    kh = k.repeat_interleave(rep, 2).transpose(1, 2).contiguous().requires_grad_()
+    vh = v.repeat_interleave(rep, 2).transpose(1, 2).contiguous().requires_grad_()
+    doh = do.transpose(1, 2).contiguous()
+    lib = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    lib_err = (lib.detach().transpose(1, 2).float() - ref.detach().float()).abs().max().item()
+    kernel_fwd = time_ms(torch, lambda: da.dense_attention_fwd(q, k, v, pos), iters=20,
+                         flush=flush)
+    kernel_bwd = time_ms(torch, lambda: da.dense_attention_bwd(q, k, v, pos, out, lse, out_lo,
+                                                               do),
+                         iters=20, flush=flush)
+    with torch.no_grad():
+        plain_fwd = time_ms(torch, lambda: da.dense_attention_reference(q, k, v, pos), iters=5,
+                            flush=flush)
+        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                        is_causal=True),
+                          iters=10, flush=flush)
+    plain_bwd = time_ms(torch, lambda: torch.autograd.grad(ref, (qr, kr, vr), do,
+                                                           retain_graph=True),
+                        iters=5, flush=flush)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(lib, (qh, kh, vh), doh,
+                                                         retain_graph=True),
+                      iters=10, flush=flush)
+    split = device_split(torch, lambda: da.dense_attention_bwd(q, k, v, pos, out, lse, out_lo,
+                                                               do),
+                         flush)
+    fwd_work, bwd_work = dense_work_of(b, t, h, kvh, hd, q.element_size(), pos)
+    res = {}
+    for kind, ms, plain_ms, lib_ms, (nbytes, ops), err in (
+            ("fwd", kernel_fwd, plain_fwd, lib_fwd, fwd_work, errs["out"]),
+            ("bwd", kernel_bwd, plain_bwd, lib_bwd, bwd_work, grad_abs)):
+        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_OPS[name] * 1e3
+        res[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=max(mem_ms, ops_ms),
+                         bound_by="bytes" if mem_ms >= ops_ms else "operations")
+        log(f"[dense-kernel] {tag} {name} {kind}: kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
+            f"library_ms {lib_ms:.4f}  bound_ms {res[kind]['bound_ms']:.4f} "
+            f"({res[kind]['bound_by']}: {nbytes} bytes, {ops} ops), share of bound "
+            f"{res[kind]['bound_ms'] / ms:.3f}  [{card}]")
+    log(f"[dense-kernel] {tag} {name} (B {b}, T {t}, H {h}, KVH {kvh}, hd {hd}): {gate_msg}; "
+        f"sdpa vs plain {lib_err:.3e}; backward device us per call: {split}")
+    del q, k, v, do, out, lse, out_lo, grads, qr, kr, vr, ref, ref_grads, qh, kh, vh, doh, lib
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_dense_kernel(torch, dev, card):
+    """Both shapes in both dtypes; returns the main shape's rows."""
+    flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    rows = {"dense_attention_fwd": {}, "dense_attention_bwd": {}}
+    for shape in DENSE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            res = measure_dense(torch, dev, card, shape, dtype, flush)
+            if shape is DENSE_SHAPES[0]:
+                name = str(dtype).split(".")[-1]
+                rows["dense_attention_fwd"][name] = res["fwd"]
+                rows["dense_attention_bwd"][name] = res["bwd"]
+    del flush_buf
+    return rows
+
+
+def dense_launches(n_layers, steps):
+    """The dense kernels' launches of the run just driven: one forward and
+    one backward a layer a step."""
+    n = read_launches()
+    fwd, bwd = n["dense_attention_fwd"], n["dense_attention_bwd"]
+    if fwd != n_layers * steps or bwd != n_layers * steps or fwd == 0:
+        raise AssertionError(f"dense_attention launches forward {fwd}, backward {bwd}; "
+                             f"{n_layers} layers x {steps} steps expected")
+    return {"dense_attention_fwd": fwd, "dense_attention_bwd": bwd}
+
+
+def phase_train_oracle(torch, dev, card, cfg, *, batch=2, seq=256, steps=3):
+    """fp32 train steps (AdamW 3e-4, wd 0.01) at ``cfg``'s widths: the B9
+    path against the plain-attention path, both from one initial copy of the
+    params (kept on the host), one path after the other so that one
+    optimizer state lives at a time.  Returns the B9 path's launches."""
+    from cordum_tpu_torch import optim
+    from cordum_tpu_torch.models import llama
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = llama.init_params(cfg, generator=gen, device=dev)
+    leaves = optim.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    initial = [p.detach().to("cpu", copy=True) for p in leaves]
+    rng = np.random.default_rng(SEED + 8)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32))
+               .to(dev) for _ in range(steps)]
+
+    def run(attention):
+        with torch.no_grad():
+            for p, x in zip(leaves, initial):
+                p.copy_(x)
+        _, step = llama.make_train_step(cfg, device=dev, attention=attention)
+        state = optim.adamw_init(params)
+        losses = []
+        for toks in batches:
+            _, state, loss = step(params, state, toks)
+            losses.append(loss.item())
+        del state
+        torch.cuda.synchronize()
+        return losses
+
+    zero_launches()
+    kernel_losses = run(llama._attention)
+    launches = dense_launches(cfg.n_layers, steps)
+    kernel_params = [p.detach().clone() for p in leaves]
+    torch.cuda.empty_cache()
+    zero_launches()
+    plain_losses = run(plain_attention)
+    if any(read_launches()[k] for k in ("dense_attention_fwd", "dense_attention_bwd")):
+        raise AssertionError("the plain-attention path launched the dense kernels")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(kernel_losses, plain_losses))
+    max_diff, far, total = 0.0, 0, 0
+    for a, b in zip(kernel_params, leaves):
+        diff = (a - b.detach()).abs()
+        max_diff = max(max_diff, diff.max().item())
+        far += int((diff > TRAIN_PARAM_NEAR).sum().item())
+        total += diff.numel()
+    finite = all(math.isfinite(x) for x in kernel_losses + plain_losses)
+    if not (finite and loss_rel <= TRAIN_LOSS_REL and max_diff <= TRAIN_PARAM_ATOL
+            and far <= TRAIN_PARAM_FAR_SHARE * total):
+        raise AssertionError(
+            f"fp32 train oracle: losses {kernel_losses} (B9) vs {plain_losses} (plain), rel "
+            f"{loss_rel:.3e} (tolerance {TRAIN_LOSS_REL:g}); params max abs diff {max_diff:.3e} "
+            f"(tolerance {TRAIN_PARAM_ATOL:g}), {far} of {total} elements apart by more than "
+            f"{TRAIN_PARAM_NEAR:g} (allowed share {TRAIN_PARAM_FAR_SHARE:g})")
+    log(f"[train-oracle] fp32 {cfg.n_layers}-layer Llama-3-8B widths, B {batch}, T {seq}, "
+        f"{steps} AdamW steps: losses B9 {kernel_losses}, plain {plain_losses} (max rel diff "
+        f"{loss_rel:.3e}); params after step {steps}: max abs diff {max_diff:.3e}, {far} of "
+        f"{total} elements apart by more than {TRAIN_PARAM_NEAR:g}; launches {launches}  [{card}]")
+    del params, leaves, initial, kernel_params, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_bf16(torch, dev, card, cfg, *, batch=4, seq=2048, steps=10):
+    """bf16 train steps on one fixed batch through ``make_train_step``: the
+    loss must be finite and fall from the first step to the last.  Then two
+    steps more under ``torch.profiler`` (informational, not counted).
+    Returns the launches."""
+    from cordum_tpu_torch.models import llama
+
+    init, step = llama.make_train_step(cfg, device=dev)
+    params, state = init(SEED)
+    rng = np.random.default_rng(SEED + 9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    state_gib = torch.cuda.memory_allocated(dev) / 2**30  # params, moments, the batch
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, state, loss = step(params, state, toks)
+        losses.append(loss.item())  # waits for the step
+        secs.append(time.perf_counter() - t0)
+    launches = dense_launches(cfg.n_layers, steps)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bf16 train run: losses {losses} (finite, falling expected)")
+    p50 = statistics.median(secs[1:])
+    log(f"[train] bf16 {cfg.n_layers}-layer Llama-3-8B widths, B {batch}, T {seq}, {steps} "
+        f"steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f} ({', '.join(f'{x:.4f}' for x in losses)}); "
+        f"step p50 {p50 * 1e3:.2f} ms (steps 2-{steps}), first step {secs[0] * 1e3:.2f} ms, "
+        f"{batch * seq / p50:.1f} tokens/s, peak memory {peak_gib:.2f} GiB ({state_gib:.2f} "
+        f"GiB allocated before the first step); launches "
+        f"{launches}  [{card}]")
+    profile_train(torch, card, lambda: step(params, state, toks))
+    del params, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_train(torch, card, one_step, *, steps=2):
+    """Where a train step's device time goes: ``steps`` steps under
+    ``torch.profiler``; the device's busy share of the window, the dense
+    kernels' share of device time and the top kernels.  Informational."""
+    from torch.profiler import ProfilerActivity, profile
+
+    saved = read_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            one_step()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    for name, fn in launch_counters().items():
+        fn.launches = saved[name]
+    rows = kernel_rows(prof)
+    total = sum(r[1] for r in rows)
+    if not total:
+        log("[profile-train] the profiler recorded no device time")
+        return
+    rows.sort(key=lambda r: -r[1])
+    attn = sum(r[1] for r in rows if "dense_attention" in r[0])
+    log(f"[profile-train] {steps} steps: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{total / 1e3:.1f} ms ({100 * total / wall_us:.1f}% of wall), dense_attention kernels "
+        f"{attn / 1e3:.2f} ms ({100 * attn / total:.1f}% of device time)  [{card}]")
+    for key, us, count in rows[:8]:
+        log(f"[profile-train]   {us / 1e3:9.2f} ms {100 * us / total:5.1f}%  x{count:<6d} {key[:90]}")
+
+
+async def drive_train_worker(torch, dev, card, ckpt_root, *, batch=8, seq=2048):
+    """``train`` jobs through a port worker: a ``llama`` run of 6 steps
+    checkpointed every 2, cancelled after step 2 (the cancel is sent when
+    step 2 reports, and the runner waits for it before step 3, so it lands
+    there whatever the timing), re-dispatched to resume from step 2 and
+    finish; then a ``llama-tiny`` run without checkpoints."""
+    from cordum_tpu_torch.models import llama
+    from cordum_tpu_torch.worker import handlers
+    from cordum_tpu_torch.worker.training import CheckpointDir, TrainRunner
+
+    class StepBarrierRunner(TrainRunner):
+        """A runner that, once step 2 has reported, waits until the job's
+        cancel has landed."""
+
+        def train(self, payload, *, cancelled=None, progress=None):
+            def report_then_wait(frac, msg):
+                progress(frac, msg)
+                deadline = time.monotonic() + 120
+                while msg.startswith("step 2/") and not cancelled():
+                    if time.monotonic() > deadline:
+                        raise AssertionError("the cancel sent at step 2 never landed")
+                    time.sleep(0.005)
+
+            return super().train(payload, cancelled=cancelled, progress=report_then_wait)
+
+    w, _, sched = make_port_worker(torch, dev, "w-train", ckpt_root=ckpt_root)
+    await sched.start()
+    await w.start()
+    payload = {"op": "train", "model": "llama", "steps": 6, "batch": batch, "seq": seq,
+               "checkpoint_every": 2, "run_name": "phase7"}
+    tiny_payload = {"op": "train", "model": "llama-tiny", "steps": 3, "batch": 4, "seq": 64}
+
+    async def cancel_at_step_2(pr):
+        if pr.message.startswith("step 2/"):
+            await sched.cancel(pr.job_id, "preempted")
+
+    try:
+        zero_launches()
+        sched.on_progress = cancel_at_step_2
+        handlers.TrainRunner = StepBarrierRunner
+        try:
+            [(_, first)] = await sched.run([payload], "train")
+        finally:
+            handlers.TrainRunner = TrainRunner
+        sched.on_progress = None
+        [(_, second)] = await sched.run([payload], "train")
+        [(_, tiny)] = await sched.run([tiny_payload], "train-tiny")
+        torch.cuda.synchronize()
+        n = read_launches()
+    finally:
+        await w.stop()
+    for doc in (first, second, tiny):
+        if set(doc) != TRAIN_RESULT_KEYS:
+            raise AssertionError(f"train result keys {sorted(doc)} != the reference's")
+    if first["completed"] or first["steps_done"] != 2 or first["resumed_from"] != 0:
+        raise AssertionError(f"the cancelled train job: {first}")
+    if second["resumed_from"] != 2 or second["steps_done"] != 6 or not second["completed"]:
+        raise AssertionError(f"the re-dispatched train job: {second}")
+    if not tiny["completed"] or tiny["checkpointed"] or not math.isfinite(tiny["final_loss"]):
+        raise AssertionError(f"the llama-tiny train job: {tiny}")
+    steps = CheckpointDir(os.path.join(ckpt_root, "phase7")).steps()
+    if steps != [2, 4, 6]:
+        raise AssertionError(f"checkpoints {steps}, [2, 4, 6] expected")
+    layers = llama.LlamaConfig().n_layers
+    run_steps = first["steps_done"] + second["steps_done"] - second["resumed_from"]
+    want = layers * run_steps + llama.LlamaConfig.tiny().n_layers * tiny["steps_done"]
+    if not n["dense_attention_fwd"] == n["dense_attention_bwd"] == want:
+        raise AssertionError(f"dense_attention launches {n}; {want} each expected")
+    tokens = payload["batch"] * payload["seq"]
+    log(f"[train-worker] llama (LlamaConfig(): {layers} layers, d 512, bf16), B {batch}, "
+        f"T {seq}: "
+        f"cancelled after {first['steps_done']} steps ({first['seconds']:.3f} s, loss "
+        f"{first['loss_first']:.4f} -> {first['final_loss']:.4f}); re-dispatched: resumed from "
+        f"{second['resumed_from']}, {second['steps_done']} steps done, completed, "
+        f"{tokens * (second['steps_done'] - second['resumed_from']) / second['seconds']:.1f} "
+        f"tokens/s over the job; checkpoints {steps}; llama-tiny: {tiny['steps_done']} steps, "
+        f"loss {tiny['final_loss']:.4f}; launches forward {n['dense_attention_fwd']}, backward "
+        f"{n['dense_attention_bwd']}  [{card}]")
+    return {k: n[k] for k in ("dense_attention_fwd", "dense_attention_bwd")}
+
+
+def phase_train(torch, dev, card, cfg8b):
+    """7.1 B9 vs its plain version and its times; 7.2 the fp32 train-step
+    oracle; 7.3 the bf16 train run; 7.4 ``train`` jobs through a worker.
+    Returns the kernel rows' numbers and each dtype's main-path launches."""
+    import tempfile
+
+    rows = phase_dense_kernel(torch, dev, card)
+    torch.cuda.empty_cache()
+    cfg2 = dataclasses.replace(cfg8b, n_layers=2)
+    fp32 = phase_train_oracle(torch, dev, card, dataclasses.replace(cfg2, dtype=torch.float32))
+    bf16 = phase_train_bf16(torch, dev, card, cfg2)
+    with tempfile.TemporaryDirectory(prefix="cordum-ckpt-") as ckpt_root:
+        jobs = asyncio.run(drive_train_worker(torch, dev, card, ckpt_root))
+    launches = {k: {"float32": fp32[k], "bfloat16": bf16[k] + jobs[k]} for k in fp32}
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_kernels():
@@ -958,17 +1568,18 @@ def build_kernels():
 
     from cordum_tpu_torch.ops import _build
 
-    mods = [importlib.import_module(f"cordum_tpu_torch.ops.{name}") for name in KERNELS]
+    mods = {m: importlib.import_module(f"cordum_tpu_torch.ops.{m}")
+            for m in dict.fromkeys(m for m, _ in KERNELS.values())}
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(mods)) as ex:
-        built = list(ex.map(lambda m: _build.build(m.SOURCE), mods))
+        built = list(ex.map(lambda m: _build.build(m.SOURCE), mods.values()))
     log(f"[device] kernels built in {time.monotonic() - t0:.1f} s")
     for (path, build_log) in built:
         log(f"[device] kernel library {path}")
         if build_log:
             log(build_log.rstrip())
-    return {name: str(mod.SOURCE.relative_to(mod.SOURCE.parents[2]))
-            for name, mod in zip(KERNELS, mods)}
+    sources = {m: str(mod.SOURCE.relative_to(mod.SOURCE.parents[2])) for m, mod in mods.items()}
+    return {name: sources[m] for name, (m, _) in KERNELS.items()}
 
 
 def main() -> int:
@@ -1006,14 +1617,27 @@ def main() -> int:
     kernel["embed_attention"] = phase_embed_kernel(torch, dev, smi)
     worker = phase_worker(torch, dev, smi, fp32=(cfg32, params32, prompts, oracle),
                           bf16=(cfg8b, params8b))
+    del params32, params8b  # phase 7 needs the room
+    gc.collect()  # whatever of the stopped workers sits in reference cycles
+    torch.cuda.empty_cache()
+    log(f"[train] device memory allocated before phase 7: "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    dense, train = phase_train(torch, dev, smi, cfg8b)
+    kernel.update(dense)
 
     launches = {
         "paged_attention": {"float32": fp32_launches, "bfloat16": bf16_launches},
         "embed_attention": {d: worker[d]["embed_attention"] for d in worker},
+        # the bf16 forward also ran in phase 6's infer jobs
+        "dense_attention_fwd": {
+            "float32": train["dense_attention_fwd"]["float32"],
+            "bfloat16": train["dense_attention_fwd"]["bfloat16"]
+            + worker["bfloat16"]["dense_attention_fwd"]},
+        "dense_attention_bwd": train["dense_attention_bwd"],
     }
     line = {"kernels": [
         {"name": f"{name}_{dtype}", "route": "cuda", "source": sources[name],
-         "replaces": KERNELS[name], "launches": launches[name][dtype],
+         "replaces": KERNELS[name][1], "launches": launches[name][dtype],
          **kernel[name][dtype]}
         for name in KERNELS for dtype in ("bfloat16", "float32")
     ]}

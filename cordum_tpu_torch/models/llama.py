@@ -1,4 +1,4 @@
-"""Llama-family decoder in PyTorch: the serving half of
+"""Llama-family decoder in PyTorch: the serving and training halves of
 ``cordum_tpu/models/llama.py``.
 
 The same architecture and numerics as the JAX module — GQA attention with
@@ -11,9 +11,14 @@ Device placement is explicit: :func:`init_params` and
 :func:`init_kv_pages` take a ``device`` (``None`` = the current CUDA card,
 raising when there is none); every other function runs where its tensors
 live.  The ragged serving step's attention core goes through
-:func:`..ops.paged_attention.paged_attention`, which launches the
-hand-written Hopper kernel for CUDA tensors and runs the plain version for
+:func:`..ops.paged_attention.paged_attention`, and the dense ``forward``'s
+(the one :func:`loss_fn` differentiates) through
+:func:`..ops.dense_attention.dense_attention`: each launches its
+hand-written Hopper kernels for CUDA tensors and runs the plain version for
 CPU ones.
+
+Training (:func:`make_train_step`) keeps the params as leaf tensors with
+``requires_grad`` and updates them and the optimizer state in place.
 
 Unlike JAX's functional ``.at[].set``, the paged-arena functions here
 update the K/V arenas IN PLACE (and return them, for call-site symmetry
@@ -23,13 +28,15 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from .. import optim
 from ..device import DeviceLike, resolve_device
-from ..ops.paged_attention import AttentionPlan, gqa_attention, paged_attention
+from ..ops.dense_attention import dense_attention, gqa_attention
+from ..ops.paged_attention import AttentionPlan, paged_attention
 
 Params = dict
 
@@ -166,8 +173,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 def _attention(q, k, v, cfg: LlamaConfig, *, causal: bool = True, q_offset=None):
-    """SDPA with GQA head expansion; fp32 softmax accumulation.  The head
-    counts come from the shapes (``cfg`` stays for signature parity)."""
+    """GQA attention with the JAX ``_attention``'s numerics (an einsum in
+    the input dtype, an fp32 softmax).  Causal self-attention with
+    positions (``_block``'s call) goes through :func:`dense_attention`: the
+    B9 kernels for CUDA tensors, the plain version for CPU ones; any other
+    call (queries and keys of other lengths, no mask, no positions) is the
+    plain einsum, which the kernels do not compute.  The head counts come
+    from the shapes (``cfg`` stays for signature parity)."""
+    if causal and q_offset is not None and q.shape[1] == k.shape[1]:
+        return dense_attention(q, k, v, q_offset)
     return gqa_attention(q, k, v, causal=causal, q_offset=q_offset)
 
 
@@ -178,7 +192,7 @@ def _mlp(x: torch.Tensor, layer: dict, cfg: LlamaConfig) -> torch.Tensor:
     return x + ((gate * up) @ layer["w_down"])
 
 
-def _block(x, layer, cfg: LlamaConfig, positions):
+def _block(x, layer, cfg: LlamaConfig, positions, attention=_attention):
     b, t, d = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -188,7 +202,7 @@ def _block(x, layer, cfg: LlamaConfig, positions):
     v = (attn_in @ layer["wv"]).reshape(b, t, kvh, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    attn = _attention(q, k, v, cfg, q_offset=positions)
+    attn = attention(q, k, v, cfg, q_offset=positions)
     x = x + (attn.reshape(b, t, h * hd) @ layer["wo"])
     return _mlp(x, layer, cfg)
 
@@ -199,17 +213,76 @@ def forward(
     cfg: LlamaConfig,
     *,
     positions: Optional[torch.Tensor] = None,
+    attention=_attention,
 ) -> torch.Tensor:
     """Logits for next-token prediction; tokens: [B, T] int → [B, T, V].
-    The dense path (no mesh, no KV cache): the serving oracle."""
+    The dense path (no mesh, no KV cache): the serving oracle, the
+    ``infer`` op and the train step.  ``attention`` is the attention core,
+    called as ``attention(q, k, v, cfg, q_offset=positions)``; a caller
+    holding the kernels to their plain version passes one that computes
+    :func:`gqa_attention`."""
     b, t = tokens.shape
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32, device=tokens.device).expand(b, t)
     x = params["embed"][tokens.long()]
     for layer in params["layers"]:
-        x = _block(x, layer, cfg, positions)
+        x = _block(x, layer, cfg, positions, attention)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
+            attention=_attention) -> torch.Tensor:
+    """Next-token cross entropy over all positions but the last: logits cast
+    to fp32, log-softmax, the next token's log-probability, mean over
+    ``[B, T-1]`` (``cross_entropy`` is that sequence in one call; the last
+    position is cut before the cast, which changes no value and saves an
+    fp32 copy of the logits)."""
+    logits = forward(params, tokens, cfg, attention=attention)[:, :-1].float()
+    vocab = logits.shape[-1]
+    return torch.nn.functional.cross_entropy(
+        logits.reshape(-1, vocab), tokens[:, 1:].reshape(-1).long())
+
+
+def make_train_step(cfg: LlamaConfig, optimizer: Optional[tuple[Callable, Callable]] = None,
+                    *, device: DeviceLike = None, attention=_attention):
+    """The single-card train step: ``init(seed) -> (params, opt_state)`` and
+    ``step(params, opt_state, tokens) -> (params, opt_state, loss)``, with
+    ``optimizer`` an ``(init(params), update(grads, state, params))`` pair,
+    by default :func:`optim.adamw_init` and :func:`optim.adamw_update`.
+
+    ``init`` draws the weights from a torch generator seeded with ``seed``
+    on ``device`` (``None``: the current CUDA card) and marks them as leaves
+    that require grad.  ``step`` takes the gradients of :func:`loss_fn` and
+    updates the params and the optimizer state IN PLACE under
+    ``torch.no_grad()`` (it returns the same objects): this takes the place
+    of the JAX step's buffer donation (``donated_train_step``), so one copy
+    of the params and the moments lives on the card.  There is no mesh:
+    one card (ROADMAP A6/A11 for more)."""
+    opt_init, opt_update = optimizer or (optim.adamw_init, optim.adamw_update)
+    dev = resolve_device(device)
+
+    def init(seed: int):
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        params = init_params(cfg, generator=gen, device=dev)
+        for p in optim.tree_leaves(params):
+            p.requires_grad_(True)
+        return params, opt_init(params)
+
+    def step(params: Params, opt_state: dict, tokens: torch.Tensor):
+        leaves = optim.tree_leaves(params)
+        loss = loss_fn(params, tokens.to(dev), cfg, attention=attention)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            opt_update(grads, opt_state, params)
+        return params, opt_state, loss.detach()
+
+    return init, step
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,248 @@
+"""Dense causal GQA self-attention and its gradient: the attention core of
+the Llama ``forward`` that ``loss_fn`` differentiates and the ``infer`` op
+runs.
+
+The functions of one computation live here:
+
+  * :func:`gqa_attention` — the plain PyTorch version, with the JAX
+    package's numerics (``cordum_tpu/models/llama.py`` ``_attention``):
+    scores in the input dtype, then fp32 divided by ``sqrt(hd)`` with a
+    ``-1e30`` causal mask and an fp32 softmax, probabilities cast back to
+    the dtype before the PV product.  Autograd of it is the plain version of
+    the gradient; the paged serving step's plain version calls it too;
+  * :func:`dense_attention_fwd` and :func:`dense_attention_bwd` — the
+    wrappers of the hand-written Hopper kernels in
+    ``csrc/dense_attention.cu``: the forward returns the output, the
+    per-row ``lse`` (fp32 ``[B, H, T]``) and, in bf16, the output's rounding
+    residual ``out_lo``; the backward recomputes the probabilities from
+    ``lse`` (a pre-pass for ``rowsum(dO * O)`` with ``O = out + out_lo``, a
+    dK/dV kernel that sums a KV head's query heads in registers, a dQ
+    kernel);
+  * :class:`DenseAttention` — the ``torch.autograd.Function`` joining them:
+    it saves q, k, v, the positions, the output, ``out_lo`` and ``lse``,
+    never the probabilities;
+  * :func:`dense_attention` — the entry the model calls.  For CPU tensors
+    it is the plain version (and autograd of it); for CUDA tensors it runs
+    the kernels through :class:`DenseAttention` or raises.  There is no
+    fallback from the kernels to the plain version.
+
+The kernels are built by :mod:`._build` at first use.  At the training
+shapes they are bound by the operations (the tensor cores in bf16, the CUDA
+cores in fp32); key tiles wholly above the causal diagonal are skipped.
+See the source's head comment.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+SOURCE = _build.CSRC / "dense_attention.cu"
+#: head widths the kernels are built for: ``LlamaConfig.tiny()``'s 16,
+#: ``LlamaConfig()``'s 64 and Llama-3-8B's 128
+KERNEL_HEAD_DIMS = (16, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID_YZ = 65535  # batch rows and heads are grid dimensions
+
+
+def gqa_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, q_offset: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Dense GQA attention; q ``[B, Tq, H, Dh]``, k/v ``[B, Tk, KVH, Dh]``.
+    ``q_offset`` (``[Tq, 1]`` or ``[B, Tq]``) gives each query's global
+    position; without it query ``i`` sits at position ``i``."""
+    _, tq, h, hd = q.shape
+    tk = k.shape[1]
+    rep = h // k.shape[2]
+    k = torch.repeat_interleave(k, rep, dim=2)
+    v = torch.repeat_interleave(v, rep, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(hd)
+    if causal:
+        dev = q.device
+        q_pos = (
+            torch.arange(tq, device=dev)[:, None] if q_offset is None
+            else q_offset[:, :, None]
+        )
+        k_pos = torch.arange(tk, device=dev)[None, :]
+        mask = q_pos >= k_pos  # [Tq, Tk] or [B, Tq, Tk]
+        mask = mask[None, None] if mask.dim() == 2 else mask[:, None]
+        scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def dense_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor
+) -> torch.Tensor:
+    """The plain version of :func:`dense_attention`: causal self-attention
+    of ``q [B, T, H, hd]`` over ``k, v [B, T, KVH, hd]`` under ``k_index <=
+    positions[b, q]``."""
+    return gqa_attention(q, k, v, q_offset=positions)
+
+
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    fwd = lib.dense_attention_fwd
+    fwd.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    fwd.restype = ctypes.c_int
+    bwd = lib.dense_attention_bwd
+    bwd.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    bwd.restype = ctypes.c_int
+
+
+def check_kernel_args(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+    *more: torch.Tensor,
+) -> None:
+    """Raise ``ValueError`` on any operand the kernels do not take: a dtype
+    other than fp32/bf16 shared by q, k, v (and ``more``: the output and
+    ``dO`` of the backward, of q's shape), positions other than int32
+    ``[B, T]``, a head width not in :data:`KERNEL_HEAD_DIMS`, query heads
+    not a multiple of the KV heads, a non-contiguous or misaligned operand,
+    or a device other than one CUDA card (checked last)."""
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype \
+            or any(x.dtype != q.dtype for x in more):
+        raise ValueError(
+            f"dense_attention kernel: q/k/v must share float32 or bfloat16, "
+            f"got {q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] \
+            or any(x.shape != q.shape for x in more):
+        raise ValueError(
+            f"dense_attention kernel: q [B,T,H,hd], k/v [B,T,KVH,hd], got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, t, h, hd = q.shape
+    kvh = k.shape[2]
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"dense_attention kernel: head_dim {hd}; built for {KERNEL_HEAD_DIMS}")
+    if kvh < 1 or h % kvh or not 1 <= b <= _MAX_GRID_YZ or h > _MAX_GRID_YZ or t < 1 \
+            or b * t * h >= 2**31:
+        raise ValueError(f"dense_attention kernel: B {b}, T {t}, H {h}, KVH {kvh}")
+    if positions.dtype != torch.int32 or tuple(positions.shape) != (b, t):
+        raise ValueError(
+            f"dense_attention kernel: positions must be int32 [B, T], got "
+            f"{positions.dtype} {tuple(positions.shape)}"
+        )
+    tensors = (q, k, v, positions, *more)
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("dense_attention kernel: every operand must be contiguous")
+    if any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError("dense_attention kernel: operands must be 16-byte aligned")
+    if any(x.device.type != "cuda" for x in tensors) or len({x.device for x in tensors}) != 1:
+        raise ValueError("dense_attention kernel: all operands on one CUDA device")
+
+
+def dense_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The forward kernel: ``(out [B, T, H, hd], lse [B, H, T] fp32,
+    out_lo)``; ``out_lo`` (bf16 only, ``None`` in fp32) is what rounding the
+    output to bf16 left out, for the backward's ``rowsum(dO * O)``.
+    Counted in ``dense_attention_fwd.launches``."""
+    check_kernel_args(q, k, v, positions)
+    fn = _build.load(SOURCE, _bind).dense_attention_fwd
+    b, t, h, hd = q.shape
+    with torch.cuda.device(q.device):
+        out = torch.empty_like(q)
+        out_lo = torch.empty_like(q) if q.dtype == torch.bfloat16 else None
+        lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), _ptr(out_lo), lse.data_ptr(), b, t, h,
+            k.shape[2], 1.0 / math.sqrt(hd), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"dense_attention forward kernel launch failed: CUDA error {err}")
+    dense_attention_fwd.launches += 1
+    return out, lse, out_lo
+
+
+dense_attention_fwd.launches = 0  # type: ignore[attr-defined]
+
+
+def dense_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, out_lo: Optional[torch.Tensor], dout: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels (pre-pass, dK/dV, dQ, in that order on one
+    stream): ``(dq, dk, dv)`` in the inputs' dtype, from what
+    :func:`dense_attention_fwd` returned (``out_lo`` is required in bf16 and
+    ``None`` in fp32).  One call counts one in
+    ``dense_attention_bwd.launches``."""
+    bf16 = q.dtype == torch.bfloat16
+    if (out_lo is None) == bf16:
+        raise ValueError("dense_attention kernel: out_lo goes with bf16 and only bf16")
+    check_kernel_args(q, k, v, positions, out, dout, *([out_lo] if bf16 else []))
+    b, t, h, hd = q.shape
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, t) or not lse.is_contiguous() \
+            or lse.device != q.device:
+        raise ValueError("dense_attention kernel: lse must be a contiguous fp32 [B, H, T]")
+    fn = _build.load(SOURCE, _bind).dense_attention_bwd
+    with torch.cuda.device(q.device):
+        d_scratch = torch.empty_like(lse)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), _ptr(out_lo), dout.data_ptr(), lse.data_ptr(),
+            d_scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h,
+            k.shape[2], 1.0 / math.sqrt(hd), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"dense_attention backward kernel launch failed: CUDA error {err}")
+    dense_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+dense_attention_bwd.launches = 0  # type: ignore[attr-defined]
+
+
+class DenseAttention(torch.autograd.Function):
+    """The kernels under autograd: the forward saves q, k, v, the
+    positions, the output, ``lse`` and ``out_lo`` (never the ``[B, H, T,
+    T]`` probabilities); the backward returns dq, dk, dv in the inputs'
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, positions):  # type: ignore[override]
+        out, lse, out_lo = dense_attention_fwd(q, k, v, positions)
+        ctx.save_for_backward(q, k, v, positions, out, lse, out_lo)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):  # type: ignore[override]
+        q, k, v, positions, out, lse, out_lo = ctx.saved_tensors
+        dq, dk, dv = dense_attention_bwd(q, k, v, positions, out, lse, out_lo,
+                                         dout.contiguous())
+        return dq, dk, dv, None
+
+
+def dense_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor
+) -> torch.Tensor:
+    """Causal GQA self-attention, ``q [B, T, H, hd]`` over ``k, v [B, T,
+    KVH, hd]`` with key ``j`` live for query ``i`` when ``j <=
+    positions[b, i]``; returns ``[B, T, H, hd]``, differentiable in q, k and
+    v.  CPU tensors take the plain version; CUDA tensors the kernels or a
+    raise (``positions`` is made a contiguous int32 first: ``forward``
+    hands an expanded ``arange``)."""
+    if q.device.type == "cpu":
+        return dense_attention_reference(q, k, v, positions)
+    return DenseAttention.apply(q, k, v, positions.to(torch.int32).contiguous())

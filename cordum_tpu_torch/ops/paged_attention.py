@@ -2,14 +2,11 @@
 
 The functions of one computation live here:
 
-  * :func:`gqa_attention` — dense causal GQA attention with the JAX
-    package's numerics (``cordum_tpu/models/llama.py`` ``_attention``):
-    scores in the input dtype, then fp32 with a ``-1e30`` mask and an fp32
-    softmax, probabilities cast back to the dtype before the PV product;
   * :func:`paged_attention_reference` — the plain PyTorch version of the
     paged step: gather each token's whole page-table row out of the arena
     and attend under ``k_pos <= position`` (``ragged_step``'s
-    ``k_pages[li][pt_tok]`` + ``_attention(q_offset=pos2)``);
+    ``k_pages[li][pt_tok]`` + ``_attention(q_offset=pos2)``) through
+    :func:`.dense_attention.gqa_attention`, the dense plain version;
   * :func:`build_plan` — the kernel's work list for one step, built once
     per step on the host with numpy: tokens grouped by sequence (at most
     16 a group, at most 64 query rows), each group's pages cut into runs
@@ -41,6 +38,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .dense_attention import gqa_attention
 
 SOURCE = _build.CSRC / "paged_attention.cu"
 #: head widths the kernel is built and checked for on the card: Llama-3-8B's
@@ -70,33 +68,6 @@ _SPLIT_COLS = 3  # group, first item, n items
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
-
-
-def gqa_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    causal: bool = True, q_offset: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Dense GQA attention; q ``[B, Tq, H, Dh]``, k/v ``[B, Tk, KVH, Dh]``.
-    ``q_offset`` (``[Tq, 1]`` or ``[B, Tq]``) gives each query's global
-    position; without it query ``i`` sits at position ``i``."""
-    _, tq, h, hd = q.shape
-    tk = k.shape[1]
-    rep = h // k.shape[2]
-    k = torch.repeat_interleave(k, rep, dim=2)
-    v = torch.repeat_interleave(v, rep, dim=2)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(hd)
-    if causal:
-        dev = q.device
-        q_pos = (
-            torch.arange(tq, device=dev)[:, None] if q_offset is None
-            else q_offset[:, :, None]
-        )
-        k_pos = torch.arange(tk, device=dev)[None, :]
-        mask = q_pos >= k_pos  # [Tq, Tk] or [B, Tq, Tk]
-        mask = mask[None, None] if mask.dim() == 2 else mask[:, None]
-        scores = scores.masked_fill(~mask, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 def paged_attention_reference(

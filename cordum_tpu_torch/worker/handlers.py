@@ -10,7 +10,7 @@ Each op maps a control-plane job onto device work:
   * ``infer``         — Llama forward step (greedy next-token scoring)
   * ``llm.generate``  — continuous-batching serving (the worker routes it to
                         the serving engine before the op table)
-  * ``train``         — not ported yet: raises
+  * ``train``         — a checkpointed training job (:class:`.training.TrainRunner`)
 
 Handlers are async wrappers that push the device work onto the worker's
 executor threads (each pinned to the worker's device) so heartbeats and
@@ -41,6 +41,7 @@ from ..models.embedder import Embedder, EmbedderConfig, batch_tokenize, token_co
 from ..serving.backend import LlamaServingBackend
 from ..serving.engine import ServingEngine
 from .runtime import JobContext, Worker
+from .training import TrainRunner, model_config
 
 
 class HandlerError(Exception):
@@ -89,8 +90,10 @@ class GPUCompute:
         device: DeviceLike = None,
         llama_params: Optional[llama_mod.Params] = None,
         embedder_params: Optional[dict] = None,
+        ckpt_root: Optional[str] = None,
     ):
         self.device = resolve_device(device)
+        self.ckpt_root = ckpt_root
         self.embedder = Embedder(embedder_cfg, seed=seed, device=self.device,
                                  params=embedder_params)
         self.llama_cfg = llama_cfg or llama_mod.LlamaConfig.tiny()
@@ -272,9 +275,25 @@ def make_gpu_handlers(compute: GPUCompute):
                 "(plus optional session_id/max_new_tokens/eos_token/stream)"
             )
         if op == "train":
-            raise HandlerError(
-                "train is not ported to this worker yet (ROADMAP A7: the train "
-                "step and TrainRunner)"
+            try:  # a family this worker cannot train fails here, not on the executor
+                model_config(str(payload.get("model", "llama-tiny")))
+            except ValueError as e:
+                raise HandlerError(
+                    f"train: {e}; this worker trains the llama families (ROADMAP A7)"
+                ) from None
+            # the runner's loop runs on the worker's executor (threads pinned
+            # to the worker's device); progress goes back to the loop, and
+            # the cancel event is read before each step
+            loop = asyncio.get_running_loop()
+
+            def report(frac: float, msg: str) -> None:
+                asyncio.run_coroutine_threadsafe(ctx.progress(100 * frac, msg), loop)
+
+            runner = TrainRunner(ckpt_root=compute.ckpt_root, device=compute.device)
+            return await ctx.worker.run_in_executor(
+                functools.partial(
+                    runner.train, payload, cancelled=ctx.cancelled.is_set, progress=report,
+                )
             )
         raise HandlerError(f"unknown op {op!r}")
 

@@ -118,12 +118,23 @@ async def test_op_table_matches_reference(computes, payload):
     ({"op": "llm.generate", "tokens": [1, 2]}, "requires the serving engine"),
     ({"op": "nope"}, "unknown op"),
     ({"op": "embed", "texts": "not a list"}, "requires texts"),
-    ({"op": "train"}, "ROADMAP A7"),
+    ({"op": "train", "model": "moe"}, "ROADMAP A7"),
 ])
 async def test_op_table_errors(computes, payload, match):
     _, tc = computes
     with pytest.raises(th.HandlerError, match=match):
         await _call(th.make_gpu_handlers(tc), trt.JobContext, tt.JobRequest, payload)
+
+
+@pytest.mark.parametrize("model, item", [("moe", "ROADMAP A8"), ("moe-tiny", "ROADMAP A8"),
+                                         ("pipeline", "ROADMAP A9")])
+async def test_train_op_names_the_roadmap_item_of_an_unported_family(computes, model, item):
+    """A family the port cannot train yet fails at intake, naming the item
+    that will port it beside the llama families' (A7)."""
+    _, tc = computes
+    with pytest.raises(th.HandlerError, match=f"{item}.*ROADMAP A7"):
+        await _call(th.make_gpu_handlers(tc), trt.JobContext, tt.JobRequest,
+                    {"op": "train", "model": model})
 
 
 @pytest.mark.parametrize("iters", [0, 1, 3])
