@@ -4,7 +4,7 @@ card, by one method, each leg in a process of its own, in the order
 other, this, this, other.
 
     git archive <commit> | tar -x -C build/parent   # a git-ignored directory
-    python3 chip_ab.py --other build/parent [--legs kernels,serve]
+    python3 chip_ab.py --other build/parent [--legs kernels,serve,dense,train]
 
 Legs:
 
@@ -25,6 +25,16 @@ Legs:
   times in one process; the first run warms up, the other two are kept:
   step p50, TTFT p50, wall, and the plan's host time per step where the
   tree builds one.
+* ``dense``: the dense causal attention kernels (B9) on ``chip_smoke.py``'s
+  phase 7.1 shapes (``DENSE_SHAPES``), bf16 and fp32, forward alone and
+  backward alone: each tree's kernels checked against that tree's plain
+  version at ``chip_smoke.py``'s gates (``measure_dense``: fp32 tolerances;
+  the bf16 row gate and its three planted faults; two backward calls with
+  the same bits), then timed with this tree's ``time_ms``, beside the
+  plain version and SDPA timed in the same process.
+* ``train``: ``chip_smoke.py``'s phase 7.3 — bf16 train steps at
+  Llama-3-8B widths, 2 layers, B 4, T 2048, on one seeded batch through
+  ``make_train_step`` — 10 steps; the step p50 over steps 2-10.
 
 Prints each leg's numbers, then a summary (per measure: the two legs of
 each tree and this tree's median over the other's) and writes it all to
@@ -173,6 +183,53 @@ def plan_parts(torch, cs, pa, cfg, dev, *, calls=500):
     return out
 
 
+def leg_dense(torch, cs, dev):
+    """B9 at phase 7.1's shapes: ``measure_dense``'s gates, then its times."""
+    flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    card = torch.cuda.get_device_name(0)
+    res = {}
+    for shape in cs.DENSE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            got = cs.measure_dense(torch, dev, card, shape, dtype, flush)
+            for kind in ("fwd", "bwd"):
+                r = got[kind]
+                res[f"{shape[0]}_{name}_{kind}"] = {
+                    "ms": r["ms"], "plain_ms": r["plain_ms"], "sdpa_ms": r["library_ms"],
+                    "bound_ms": r["bound_ms"], "max_abs_err": r["max_abs_err"]}
+    return res
+
+
+def leg_train(torch, cs, dev, *, batch=4, seq=2048, steps=10):
+    """Phase 7.3's bf16 train steps: the step p50 over steps 2 on."""
+    import dataclasses
+
+    import numpy as np
+
+    from cordum_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2)
+    init, step = llama.make_train_step(cfg, device=dev)
+    params, state = init(cs.SEED)
+    rng = np.random.default_rng(cs.SEED + 9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)).to(dev)
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, state, loss = step(params, state, toks)
+        losses.append(loss.item())  # waits for the step
+        secs.append(time.perf_counter() - t0)
+    return {"step_p50_ms": statistics.median(secs[1:]) * 1e3, "loss_first": losses[0],
+            "loss_last": losses[-1]}
+
+
+LEGS = {"kernels": leg_kernels, "serve": leg_serve, "dense": leg_dense, "train": leg_train}
+
+
 def run_leg(leg: str, root: str) -> int:
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
@@ -186,7 +243,7 @@ def run_leg(leg: str, root: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    res = (leg_kernels if leg == "kernels" else leg_serve)(torch, cs, dev)
+    res = LEGS[leg](torch, cs, dev)
     print(MARK + json.dumps(res), flush=True)
     return 0
 
@@ -208,6 +265,14 @@ def summarise(leg, results):
             for how in ("sleep", "nosleep"):
                 row(f"{name} {how} ms", [r[name][how] for r in by["this"]],
                     [r[name][how] for r in by["other"]])
+    elif leg == "dense":
+        for name in by["this"][0]:
+            for key in ("ms", "plain_ms", "sdpa_ms"):
+                row(f"{name} {key}", [r[name][key] for r in by["this"]],
+                    [r[name][key] for r in by["other"]])
+    elif leg == "train":
+        row("step_p50_ms", [r["step_p50_ms"] for r in by["this"]],
+            [r["step_p50_ms"] for r in by["other"]])
     else:
         for key in ("step_p50_ms", "ttft_p50_ms", "wall_s"):
             row(key, [x[key] for r in by["this"] for x in r["runs"]],
@@ -221,7 +286,7 @@ def summarise(leg, results):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="an unpacked tree to compare with")
-    ap.add_argument("--legs", default="kernels,serve")
+    ap.add_argument("--legs", default="kernels,serve,dense,train")
     ap.add_argument("--out", default=str(HERE / "build" / "ab.json"))
     ap.add_argument("--leg", help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)

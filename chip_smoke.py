@@ -53,7 +53,9 @@ Every phase raises on failure.  Phases:
    (Llama-3-8B heads: B 4, T 2048, H 32, KVH 8, hd 128) and at
    ``LlamaConfig()``'s (B 8, T 2048, H 8, KVH 4, hd 64), bf16 and fp32,
    with times, bounds and SDPA (``is_causal``, K/V expanded) as the
-   yardstick, forward alone and backward alone.  (2) An fp32 train-step
+   yardstick, forward alone and backward alone; first the ptxas report of
+   every B9 kernel (registers, spills) from the build, and each backward
+   run twice, which must give the same bits.  (2) An fp32 train-step
    oracle at Llama-3-8B widths, depth cut to 2 layers: B 2, T 256, 3
    AdamW steps on seeded batches, the B9 path against the plain-attention
    path from one initial copy of the params, one path after the other.
@@ -1210,7 +1212,12 @@ def measure_dense(torch, dev, card, shape, dtype, flush):
     q, k, v, do, pos = dense_case(torch, dev, b, t, h, kvh, hd, dtype)
     out, lse, out_lo = da.dense_attention_fwd(q, k, v, pos)
     grads = da.dense_attention_bwd(q, k, v, pos, out, lse, out_lo, do)
+    again = da.dense_attention_bwd(q, k, v, pos, out, lse, out_lo, do)
     torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(grads, again))
+    if not same_bits:
+        raise AssertionError(f"dense_attention {dtype} ({shape[0]}): two backward calls differ")
+    del again
     qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
     ref = da.dense_attention_reference(qr, kr, vr, pos)
     ref_grads = torch.autograd.grad(ref, (qr, kr, vr), do, retain_graph=True)
@@ -1292,10 +1299,69 @@ def measure_dense(torch, dev, card, shape, dtype, flush):
             f"({res[kind]['bound_by']}: {nbytes} bytes, {ops} ops), share of bound "
             f"{res[kind]['bound_ms'] / ms:.3f}  [{card}]")
     log(f"[dense-kernel] {tag} {name} (B {b}, T {t}, H {h}, KVH {kvh}, hd {hd}): {gate_msg}; "
-        f"sdpa vs plain {lib_err:.3e}; backward device us per call: {split}")
+        f"sdpa vs plain {lib_err:.3e}; backward bits equal on two calls: {same_bits}; "
+        f"backward device us per call: {split}")
     del q, k, v, do, out, lse, out_lo, grads, qr, kr, vr, ref, ref_grads, qh, kh, vh, doh, lib
     torch.cuda.empty_cache()
     return res
+
+
+def _kernel_label(mangled):
+    """``name<dtype, head_dim>`` of a kernel's mangled name: the identifier
+    ending in ``_kernel`` that its length prefix names, and its template
+    arguments."""
+    import re
+
+    end = mangled.index("_kernelI") + len("_kernel")
+    name = mangled
+    for n in range(len("_kernel") + 1, 60):
+        if mangled[end - n - len(str(n)):end - n] == str(n):
+            name = mangled[end - n:end]
+            break
+    tail = mangled[end + 1:]
+    hd = re.search(r"Li(\d+)E", tail)
+    if tail.startswith("13__nv_bfloat16") or "_wgmma_" in name or "_mma_" in name:
+        dtype = "bf16"
+    else:
+        dtype = "fp32"
+    return f"{name}<{dtype}, {hd.group(1) if hd else '?'}>"
+
+
+def ptxas_report(build_log):
+    """``(kernel, registers, spill store bytes, spill load bytes)`` of each
+    kernel in an ``nvcc -Xptxas -v`` log."""
+    import re
+
+    rows, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": _kernel_label(m.group(1))}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur["stores"], cur["loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            rows.append((cur["kernel"], int(m.group(1)), cur.get("stores", 0), cur.get("loads", 0)))
+            cur = None
+    return rows
+
+
+def log_ptxas(build_log):
+    """Phase 7.1's build lines: registers and spills of every B9 kernel
+    (the Hopper kernels' count is the launch's; setmaxnreg then moves
+    registers from the producer warpgroup to the consumers)."""
+    if not build_log:
+        log("[dense-build] the library was not built in this run: no ptxas report")
+        return
+    rows = ptxas_report(build_log)
+    for kernel, regs, stores, loads in rows:
+        log(f"[dense-build] {kernel}: {regs} registers, spill stores {stores} B, spill loads "
+            f"{loads} B")
+    hopper = [r for r in rows if "_wgmma_" in r[0]]
+    log(f"[dense-build] bf16 wgmma kernels (head_dim 64, 128): {len(hopper)}, spill stores "
+        f"{sum(r[2] for r in hopper)} B in all")
 
 
 def phase_dense_kernel(torch, dev, card):
@@ -1541,12 +1607,14 @@ async def drive_train_worker(torch, dev, card, ckpt_root, *, batch=8, seq=2048):
     return {k: n[k] for k in ("dense_attention_fwd", "dense_attention_bwd")}
 
 
-def phase_train(torch, dev, card, cfg8b):
-    """7.1 B9 vs its plain version and its times; 7.2 the fp32 train-step
+def phase_train(torch, dev, card, cfg8b, dense_log=""):
+    """7.1 B9 vs its plain version and its times (``dense_log``: the B9
+    library's build log, for its ptxas lines); 7.2 the fp32 train-step
     oracle; 7.3 the bf16 train run; 7.4 ``train`` jobs through a worker.
     Returns the kernel rows' numbers and each dtype's main-path launches."""
     import tempfile
 
+    log_ptxas(dense_log)
     rows = phase_dense_kernel(torch, dev, card)
     torch.cuda.empty_cache()
     cfg2 = dataclasses.replace(cfg8b, n_layers=2)
@@ -1562,7 +1630,9 @@ def phase_train(torch, dev, card, cfg8b):
 
 
 def build_kernels():
-    """One ``nvcc`` per kernel source, all started together."""
+    """One ``nvcc`` per kernel source, all started together.  Returns each
+    kernel row's source and each module's build log (empty where the
+    library was already built)."""
     import importlib
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1579,7 +1649,8 @@ def build_kernels():
         if build_log:
             log(build_log.rstrip())
     sources = {m: str(mod.SOURCE.relative_to(mod.SOURCE.parents[2])) for m, mod in mods.items()}
-    return {name: sources[m] for name, (m, _) in KERNELS.items()}
+    logs = {m: build_log for m, (_, build_log) in zip(mods, built)}
+    return {name: sources[m] for name, (m, _) in KERNELS.items()}, logs
 
 
 def main() -> int:
@@ -1603,7 +1674,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log("[device] TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
-    sources = build_kernels()
+    sources, build_logs = build_kernels()
 
     kernel = {"paged_attention": phase_kernel(torch, dev, smi)}
     torch.cuda.empty_cache()
@@ -1622,7 +1693,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[train] device memory allocated before phase 7: "
         f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
-    dense, train = phase_train(torch, dev, smi, cfg8b)
+    dense, train = phase_train(torch, dev, smi, cfg8b, build_logs["dense_attention"])
     kernel.update(dense)
 
     launches = {

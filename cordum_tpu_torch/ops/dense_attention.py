@@ -17,7 +17,10 @@ The functions of one computation live here:
     residual ``out_lo``; the backward recomputes the probabilities from
     ``lse`` (a pre-pass for ``rowsum(dO * O)`` with ``O = out + out_lo``, a
     dK/dV kernel that sums a KV head's query heads in registers, a dQ
-    kernel);
+    kernel; deterministic).  bf16 at head_dim 64 and 128 runs on ``wgmma``
+    with TMA (warp-specialised blocks; forward and dQ rows pack the query
+    heads of a KV head), bf16 at head_dim 16 on ``mma.sync``, fp32 on CUDA
+    cores with register tiles;
   * :class:`DenseAttention` — the ``torch.autograd.Function`` joining them:
     it saves q, k, v, the positions, the output, ``out_lo`` and ``lse``,
     never the probabilities;
@@ -26,10 +29,11 @@ The functions of one computation live here:
     the kernels through :class:`DenseAttention` or raises.  There is no
     fallback from the kernels to the plain version.
 
-The kernels are built by :mod:`._build` at first use.  At the training
-shapes they are bound by the operations (the tensor cores in bf16, the CUDA
-cores in fp32); key tiles wholly above the causal diagonal are skipped.
-See the source's head comment.
+The kernels are built by :mod:`._build` at first use (the TMA maps are
+encoded at every call).  At the training shapes they are bound by the
+operations (the tensor cores in bf16, the CUDA cores in fp32); key tiles
+wholly above the causal diagonal are skipped.  See the source's head
+comment; ``tests/test_torch_dense_schedule.py`` emulates the bf16 schedule.
 """
 from __future__ import annotations
 
