@@ -31,7 +31,10 @@ Legs:
   version at ``chip_smoke.py``'s gates (``measure_dense``: fp32 tolerances;
   the bf16 row gate and its three planted faults; two backward calls with
   the same bits), then timed with this tree's ``time_ms``, beside the
-  plain version and SDPA timed in the same process.
+  plain version and SDPA timed in the same process; in bf16 also the dq
+  rows beyond the row gate's limit, by their count of live keys; in fp32 a
+  digest of the forward's and backward's outputs (equal digests: the same
+  bits in both trees).
 * ``train``: ``chip_smoke.py``'s phase 7.3 — bf16 train steps at
   Llama-3-8B widths, 2 layers, B 4, T 2048, on one seeded batch through
   ``make_train_step`` — 10 steps; the step p50 over steps 2-10.
@@ -183,6 +186,24 @@ def plan_parts(torch, cs, pa, cfg, dev, *, calls=500):
     return out
 
 
+def dense_digest(torch, cs, dev, shape, dtype):
+    """sha256 of the forward's out and lse and the backward's dq, dk, dv on
+    ``chip_smoke.dense_case``'s seeded inputs: equal digests in two trees
+    mean bit-identical results."""
+    import hashlib
+
+    from cordum_tpu_torch.ops import dense_attention as da
+
+    _, b, t, h, kvh, hd = shape
+    q, k, v, do, pos = cs.dense_case(torch, dev, b, t, h, kvh, hd, dtype)
+    fwd = da.dense_attention_fwd(q, k, v, pos)
+    grads = da.dense_attention_bwd(q, k, v, pos, *fwd, do)
+    digest = hashlib.sha256()
+    for x in (*fwd[:2], *grads):
+        digest.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
 def leg_dense(torch, cs, dev):
     """B9 at phase 7.1's shapes: ``measure_dense``'s gates, then its times."""
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)
@@ -196,6 +217,10 @@ def leg_dense(torch, cs, dev):
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
             got = cs.measure_dense(torch, dev, card, shape, dtype, flush)
+            if "dq_fails" in got:
+                res[f"{shape[0]}_{name}_dq_fails"] = got["dq_fails"]
+            else:
+                res[f"{shape[0]}_{name}_sha256"] = dense_digest(torch, cs, dev, shape, dtype)
             for kind in ("fwd", "bwd"):
                 r = got[kind]
                 res[f"{shape[0]}_{name}_{kind}"] = {
@@ -267,6 +292,10 @@ def summarise(leg, results):
                     [r[name][how] for r in by["other"]])
     elif leg == "dense":
         for name in by["this"][0]:
+            if "ms" not in by["this"][0][name]:  # the dq fail counts and fp32 digests
+                lines.append(f"[ab] dense {name}: other {[r[name] for r in by['other']]} "
+                             f"this {[r[name] for r in by['this']]}")
+                continue
             for key in ("ms", "plain_ms", "sdpa_ms"):
                 row(f"{name} {key}", [r[name][key] for r in by["this"]],
                     [r[name][key] for r in by["other"]])

@@ -66,6 +66,20 @@ Every phase raises on failure.  Phases:
    every 2) cancelled after step 2 (the runner waits for the cancel sent
    when step 2 reports), re-dispatched to resume from step 2 and complete;
    then a ``llama-tiny`` job; result keys as the reference's.
+8. The worker as its own process: ``python -m cordum_tpu_torch.cmd.statebus``
+   and ``python -m cordum_tpu_torch.cmd.worker`` (``LlamaConfig.tiny()`` in
+   fp32, the default bf16 embedder, micro-batches up to 256 rows) as
+   subprocesses; this script plays the dispatcher over TCP with the port's
+   statebus client: 2000 ``echo`` jobs with 200 in flight, ``matmul``,
+   ``infer``, ``embed`` one at a time and 512 texts coalesced, and 8
+   ``llm.generate`` prompts whose tokens must equal a dense greedy run on
+   the worker's own weights (drawn here from a generator on the card seeded
+   as the worker seeds its own); embeddings against the plain-version
+   embedder; the heartbeat names the card and a telemetry beacon arrives;
+   SIGTERM drains the worker to exit 0 with no cancelled session; the
+   kernel launches are the worker process's own (its exit line).  Prints
+   echo jobs/s, p50 dispatch→result per op, embeds/s and TTFT p50 beside
+   phase 6's (informational).  Both processes are stopped on every path.
 
 Tolerances (kernel vs plain version, max abs error), paged attention:
 fp32 1e-4 — the sums run in another order over up to 8192 keys, on O(1)
@@ -128,6 +142,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -774,17 +789,23 @@ class JobDispatcher:
             JobRequest(job_id=jid, topic=f"job.gpu.{payload['op']}", context_ptr=ptr)))
         return jid, fut
 
-    async def run(self, payloads, tag, *, timeout_s=600.0):
-        """Submit ``payloads`` together and wait for all; returns ``[(job
-        id, result doc)]`` and raises on any job that did not succeed."""
-        subs = [await self._submit(p, tag) for p in payloads]
-        res = await asyncio.wait_for(asyncio.gather(*(f for _, f in subs)), timeout_s)
-        out = []
-        for (jid, _), r in zip(subs, res):
+    async def run(self, payloads, tag, *, in_flight=None, timeout_s=600.0):
+        """Submit ``payloads`` (all together, or at most ``in_flight`` at a
+        time) and wait for all; returns ``[(job id, result doc)]`` and
+        raises on any job that did not succeed."""
+        window = asyncio.Semaphore(in_flight or len(payloads) or 1)
+
+        async def one(payload):
+            async with window:
+                jid, fut = await self._submit(payload, tag)
+                r = await fut
             if r.status != "SUCCEEDED":
                 raise AssertionError(f"{jid}: {r.status} {r.error_code} {r.error_message}")
-            out.append((jid, await self.store.get_result(jid)))
-        return out
+            return jid
+
+        jids = await asyncio.wait_for(asyncio.gather(*(one(p) for p in payloads)), timeout_s)
+        docs = await asyncio.gather(*(self.store.get_result(j) for j in jids))
+        return list(zip(jids, docs))
 
     def p50_ms(self, jids):
         return statistics.median((self.done[j] - self.sent[j]) * 1e3 for j in jids)
@@ -997,7 +1018,15 @@ async def drive_bf16_worker(torch, dev, card, cfg, params, *, n_new=16):
         f"embed_attention {launches['embed_attention']}, dense_attention_fwd "
         f"{launches['dense_attention_fwd']} (= {cfg.n_layers} layers x "
         f"{launches['dense_attention_fwd'] // cfg.n_layers} infer calls)  [{card}]")
-    return launches
+    numbers = worker_numbers(echo_rate, n_single / single_wall, n_batched / batched_wall, ttft, p50)
+    return launches, numbers
+
+
+def worker_numbers(echo_rate, single_rate, coalesced_rate, ttft_ms, p50):
+    """The worker's end-to-end numbers, as phases 6 and 8 print them."""
+    return {"echo jobs/s": echo_rate, "embeds/s one at a time": single_rate,
+            "embeds/s coalesced": coalesced_rate, "TTFT p50 ms": ttft_ms,
+            **{f"p50 ms {op}": ms for op, ms in p50.items()}}
 
 
 async def profile_embeds(torch, card, sched, texts):
@@ -1033,13 +1062,13 @@ async def profile_embeds(torch, card, sched, texts):
 
 def phase_worker(torch, dev, card, *, fp32, bf16, n_new=16):
     """``fp32`` = (cfg, params, prompts, oracle) of phase 3; ``bf16`` =
-    (cfg, params) of phase 4.  Returns each dtype's main-path launches."""
+    (cfg, params) of phase 4.  Returns each dtype's main-path launches and
+    the bf16 worker's end-to-end numbers."""
     cfg32, params32, prompts, oracle = fp32
-    return {
-        "float32": asyncio.run(drive_fp32_worker(torch, dev, card, cfg32, params32, prompts,
-                                                 oracle, n_new=n_new)),
-        "bfloat16": asyncio.run(drive_bf16_worker(torch, dev, card, *bf16, n_new=n_new)),
-    }
+    launches32 = asyncio.run(drive_fp32_worker(torch, dev, card, cfg32, params32, prompts,
+                                               oracle, n_new=n_new))
+    launches16, numbers = asyncio.run(drive_bf16_worker(torch, dev, card, *bf16, n_new=n_new))
+    return {"float32": launches32, "bfloat16": launches16}, numbers
 
 
 # ---------------------------------------------------------------------------
@@ -1099,8 +1128,8 @@ def dense_work_of(b, t, h, kvh, hd, el, positions):
     the backward also dO, dq, dk, dv); QK and PV, 4 hd a live (query, key)
     pair, forward; QK again, dP, dV, dK and dQ, 10 hd a pair, backward —
     over the pairs these positions make live (a row at a negative position
-    attends to all T keys).  The bf16 kernels' ``out_lo`` is a means of
-    theirs, not the function's, and is not counted."""
+    attends to all T keys).  The bf16 kernels' D pass (S and dP once more) is
+    a means of theirs, not the function's, and is not counted."""
     pos = positions.long().cpu()
     live = (pos + 1).clamp(max=t)
     live[pos < 0] = t
@@ -1120,6 +1149,28 @@ def worst_row(got, exact, scale):
     big = exact.abs().amax(-1)
     diff = (got.float() - exact).abs().amax(-1)
     return (diff / big.clamp(min=max(DENSE_ROW_FLOOR * scale, 1e-30))).max().item()
+
+
+#: upper ends of the live-key buckets of :func:`dq_fails_by_live_keys`
+LIVE_KEY_BUCKETS = (1, 2, 3, 7, 63, 511)
+
+
+def dq_fails_by_live_keys(dq, exact_dq, scale, limit, pos):
+    """How many dq rows (a query position of one head) are each beyond the
+    bf16 row gate's ``limit`` on their own (their error measured as
+    :func:`worst_row` measures a row), counted by the row's number of live
+    keys: ``{"1": n, "2": n, "3": n, "4-7": n, .., "512+": n}``."""
+    exact = exact_dq.float()
+    big = exact.abs().amax(-1).clamp(min=max(DENSE_ROW_FLOOR * scale, 1e-30))
+    bad = ((dq.float() - exact).abs().amax(-1) / big > limit).cpu()  # [B, T, H]
+    live = (pos.long().cpu() + 1).clamp(min=0, max=pos.shape[1])  # [B, T]
+    counts, lo = {}, 1
+    for hi in LIVE_KEY_BUCKETS + (None,):
+        sel = live >= lo if hi is None else (live >= lo) & (live <= hi)
+        label = f"{lo}+" if hi is None else (str(lo) if lo == hi else f"{lo}-{hi}")
+        counts[label] = int(bad[sel].sum())
+        lo = None if hi is None else hi + 1
+    return counts
 
 
 def dense_grads(torch, fn, q, k, v, pos, do):
@@ -1210,9 +1261,10 @@ def measure_dense(torch, dev, card, shape, dtype, flush):
     tag, b, t, h, kvh, hd = shape
     name = str(dtype).split(".")[-1]
     q, k, v, do, pos = dense_case(torch, dev, b, t, h, kvh, hd, dtype)
-    out, lse, out_lo = da.dense_attention_fwd(q, k, v, pos)
-    grads = da.dense_attention_bwd(q, k, v, pos, out, lse, out_lo, do)
-    again = da.dense_attention_bwd(q, k, v, pos, out, lse, out_lo, do)
+    fwd = da.dense_attention_fwd(q, k, v, pos)  # an older tree's (chip_ab.py) returns three
+    out = fwd[0]
+    grads = da.dense_attention_bwd(q, k, v, pos, *fwd, do)
+    again = da.dense_attention_bwd(q, k, v, pos, *fwd, do)
     torch.cuda.synchronize()
     same_bits = all(torch.equal(a, b) for a, b in zip(grads, again))
     if not same_bits:
@@ -1244,6 +1296,10 @@ def measure_dense(torch, dev, card, shape, dtype, flush):
         exact = dense_grads(torch, da.dense_attention_reference,
                             *(x.float() for x in (q, k, v)), pos, do.float())
         gate = bf16_row_gate((out, *grads), plain, exact)
+        fails = dq_fails_by_live_keys(grads[0], exact[1], exact[1].abs().max().item(),
+                                      gate["dq"]["limit"], pos)
+        log(f"[dense-gate] {tag} {name}: dq rows beyond the row gate's limit "
+            f"({gate['dq']['limit']:.3e}) each, by live keys: {fails}  [{card}]")
         if not all(g["ok"] for g in gate.values()):
             raise AssertionError(f"dense_attention {name} ({tag}): bf16 row gate {gate}")
         dense_gate_controls(torch, q, k, v, pos, do, plain, exact)
@@ -1266,8 +1322,7 @@ def measure_dense(torch, dev, card, shape, dtype, flush):
     lib_err = (lib.detach().transpose(1, 2).float() - ref.detach().float()).abs().max().item()
     kernel_fwd = time_ms(torch, lambda: da.dense_attention_fwd(q, k, v, pos), iters=20,
                          flush=flush)
-    kernel_bwd = time_ms(torch, lambda: da.dense_attention_bwd(q, k, v, pos, out, lse, out_lo,
-                                                               do),
+    kernel_bwd = time_ms(torch, lambda: da.dense_attention_bwd(q, k, v, pos, *fwd, do),
                          iters=20, flush=flush)
     with torch.no_grad():
         plain_fwd = time_ms(torch, lambda: da.dense_attention_reference(q, k, v, pos), iters=5,
@@ -1281,11 +1336,9 @@ def measure_dense(torch, dev, card, shape, dtype, flush):
     lib_bwd = time_ms(torch, lambda: torch.autograd.grad(lib, (qh, kh, vh), doh,
                                                          retain_graph=True),
                       iters=10, flush=flush)
-    split = device_split(torch, lambda: da.dense_attention_bwd(q, k, v, pos, out, lse, out_lo,
-                                                               do),
-                         flush)
+    split = device_split(torch, lambda: da.dense_attention_bwd(q, k, v, pos, *fwd, do), flush)
     fwd_work, bwd_work = dense_work_of(b, t, h, kvh, hd, q.element_size(), pos)
-    res = {}
+    res = {"dq_fails": fails} if dtype == torch.bfloat16 else {}
     for kind, ms, plain_ms, lib_ms, (nbytes, ops), err in (
             ("fwd", kernel_fwd, plain_fwd, lib_fwd, fwd_work, errs["out"]),
             ("bwd", kernel_bwd, plain_bwd, lib_bwd, bwd_work, grad_abs)):
@@ -1301,7 +1354,7 @@ def measure_dense(torch, dev, card, shape, dtype, flush):
     log(f"[dense-kernel] {tag} {name} (B {b}, T {t}, H {h}, KVH {kvh}, hd {hd}): {gate_msg}; "
         f"sdpa vs plain {lib_err:.3e}; backward bits equal on two calls: {same_bits}; "
         f"backward device us per call: {split}")
-    del q, k, v, do, out, lse, out_lo, grads, qr, kr, vr, ref, ref_grads, qh, kh, vh, doh, lib
+    del q, k, v, do, fwd, out, grads, qr, kr, vr, ref, ref_grads, qh, kh, vh, doh, lib
     torch.cuda.empty_cache()
     return res
 
@@ -1627,6 +1680,225 @@ def phase_train(torch, dev, card, cfg8b, dense_log=""):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the worker as its own process over the TCP statebus
+# ---------------------------------------------------------------------------
+
+#: the backlog a fleet worker sees: echo jobs and how many ride at once,
+#: texts of the coalesced embed run, llm.generate prompts
+PROC_ECHO_JOBS, PROC_IN_FLIGHT, PROC_EMBED_TEXTS, PROC_PROMPTS = 2000, 200, 512, 8
+#: the seed the worker binary's GPUCompute draws its weights with
+WORKER_SEED = 0
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_process(args, env, log_path):
+    """``python -m <args>`` from the repo root, its stderr into
+    ``log_path``."""
+    log = open(log_path, "w")
+    try:
+        return subprocess.Popen([sys.executable, "-m", *args], env=env, stdout=log,
+                                stderr=subprocess.STDOUT, cwd=os.path.dirname(
+                                    os.path.abspath(__file__)))
+    finally:
+        log.close()
+
+
+def stop_process(proc, sig=None, timeout_s=60.0):
+    """Signal ``proc`` (SIGTERM by default) and wait; kill it if it
+    outlives ``timeout_s``.  Returns its exit code."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(sig or signal.SIGTERM)
+        try:
+            proc.wait(timeout_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return proc.returncode
+
+
+async def connect_when_up(statebus, url, proc, timeout_s=60.0):
+    """The port's statebus client, once the server process accepts."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            return await statebus.connect(url)
+        except OSError:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise
+            await asyncio.sleep(0.2)
+
+
+def worker_exit_line(log_path):
+    """The worker's ``worker stopped`` record (JSON log lines)."""
+    for line in reversed(open(log_path).read().splitlines()):
+        if line.startswith("{") and '"worker stopped"' in line:
+            return json.loads(line)
+    raise AssertionError(f"the worker process logged no exit line: see {log_path}")
+
+
+async def drive_worker_process(torch, dev, card, workdir, *, n_new=16):
+    """A port statebus process and a port worker process; this script plays
+    the dispatcher over TCP with the port's client.  Every op of the table;
+    generate against the dense oracle on the worker's own weights, embeds
+    against the plain-version embedder; the heartbeat names the card, a
+    telemetry beacon arrives; SIGTERM drains the worker to exit 0 with no
+    cancelled session.  Returns the worker process's kernel launches and
+    the end-to-end numbers."""
+    from cordum_tpu_torch.infra import statebus
+    from cordum_tpu_torch.infra.memstore import MemoryStore
+    from cordum_tpu_torch.models import llama
+    from cordum_tpu_torch.models.embedder import Embedder, EmbedderConfig
+    from cordum_tpu_torch.protocol import subjects as subj
+
+    port = free_port()
+    url = f"statebus://127.0.0.1:{port}"
+    worker_id = "w-proc"
+    env = {**os.environ, "STATEBUS_PORT": str(port), "CORDUM_STATEBUS_URL": url,
+           "WORKER_ID": worker_id, "WORKER_LLAMA_DTYPE": "float32",
+           "WORKER_MAX_BATCH_SIZE": "256", "CORDUM_LOG_FORMAT": "json",
+           "PYTHONDONTWRITEBYTECODE": "1"}
+    # the worker runs where this script does (the CPU only in a rehearsal)
+    env.pop("CORDUM_FORCE_CPU", None)
+    if torch.device(dev).type == "cpu":
+        env["CORDUM_FORCE_CPU"] = "1"
+    bus_log, worker_log = os.path.join(workdir, "statebus.log"), os.path.join(workdir, "worker.log")
+    server = start_process(["cordum_tpu_torch.cmd.statebus"], env, bus_log)
+    procs = [server]
+    conn = None
+    try:
+        kv, bus, conn = await connect_when_up(statebus, url, server)
+        sched = JobDispatcher(bus, MemoryStore(kv), worker_id)
+        await sched.start()
+        beacons = []
+
+        async def on_beacon(subject, pkt):
+            beacons.append(pkt)
+
+        await bus.subscribe(subj.telemetry_subject("worker"), on_beacon)
+        t0 = time.monotonic()
+        procs.append(start_process(["cordum_tpu_torch.cmd.worker"], env, worker_log))
+        while not any(hb.worker_id == worker_id for hb in sched.heartbeats):
+            if procs[1].poll() is not None or time.monotonic() - t0 > 600:
+                raise AssertionError(f"the worker process never beat (rc {procs[1].poll()}); "
+                                     f"see {worker_log}")
+            await asyncio.sleep(0.1)
+        boot_s = time.monotonic() - t0
+        cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32)
+        rng = np.random.default_rng(SEED + 10)
+        t0 = time.monotonic()
+        echo = await sched.run([{"op": "echo", "i": i} for i in range(PROC_ECHO_JOBS)], "echo",
+                               in_flight=PROC_IN_FLIGHT)
+        echo_rate = len(echo) / (time.monotonic() - t0)
+        mm = [j for _ in range(4) for j in await sched.run(
+            [{"op": "matmul", "b": 8, "n": 512, "k": 512, "m": 512, "iters": 4}], "matmul")]
+        infer = await sched.run([{"op": "infer", "tokens": [
+            rng.integers(0, cfg.vocab_size, 32).tolist(),
+            rng.integers(0, cfg.vocab_size, 20).tolist()]} for _ in range(4)], "infer")
+        single, single_texts, single_wall = await embed_jobs(
+            sched, make_texts(rng, 16, 1, 126), 1, "embed1", one_at_a_time=True)
+        batched, batched_texts, batched_wall = await embed_jobs(
+            sched, make_texts(rng, PROC_EMBED_TEXTS, 70, 126), 4, "embedB", one_at_a_time=False)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in np.linspace(4, 100, PROC_PROMPTS).astype(int)]
+        gens = await sched.run([{"op": "llm.generate", "tokens": p, "max_new_tokens": n_new}
+                                for p in prompts], "gen")
+        deadline = time.monotonic() + 30
+        while not beacons and time.monotonic() < deadline:
+            await asyncio.sleep(0.1)
+        rc = stop_process(procs[1])
+    finally:
+        if conn is not None:
+            await conn.close()
+        for proc in procs:
+            stop_process(proc)
+    exit_doc = worker_exit_line(worker_log)
+    if rc != 0 or exit_doc.get("cancelled_sessions") != 0 or not exit_doc.get("drained"):
+        raise AssertionError(f"SIGTERM: the worker exited {rc}, {exit_doc}")
+    if not beacons or beacons[0].telemetry is None:
+        raise AssertionError("no telemetry beacon arrived on sys.telemetry.worker")
+    hb = next(h for h in sched.heartbeats if h.worker_id == worker_id)
+    on_card = torch.device(dev).type == "cuda"
+    if hb.device_kind != (torch.cuda.get_device_name(dev) if on_card else "cpu") \
+            or hb.type != ("gpu" if on_card else "cpu"):
+        raise AssertionError(f"the worker process's heartbeat does not name the card: {hb}")
+    for jid, doc in echo:
+        if doc["echo"]["op"] != "echo" or doc["worker"] != worker_id:
+            raise AssertionError(f"{jid}: bad echo {doc}")
+    for jid, doc in mm:
+        if doc["shape"] != [8, 512, 512] or not math.isfinite(doc["checksum"]):
+            raise AssertionError(f"{jid}: bad matmul {doc}")
+    for jid, doc in infer:
+        if len(doc["next_tokens"]) != 2 or not all(0 <= t < cfg.vocab_size
+                                                   for t in doc["next_tokens"]):
+            raise AssertionError(f"{jid}: bad infer {doc}")
+    # the oracle on the worker's own weights: init_params from a generator
+    # on the card seeded as GPUCompute seeds its own
+    params = llama.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(WORKER_SEED),
+                               device=dev)
+    ties_n = 0
+    for p, (jid, doc) in zip(prompts, gens):
+        want, ties = dense_greedy(torch, llama, params, cfg, p, n_new, dev)
+        upto = ties[0] if ties else n_new
+        ties_n += len(ties)
+        if doc["tokens"][:upto] != want[:upto] or len(doc["tokens"]) != n_new:
+            raise AssertionError(f"worker process generate of a {len(p)}-token prompt gave "
+                                 f"{doc['tokens']}, oracle {want} (compared up to {upto})")
+        if sched.streams.get(jid) != doc["tokens"]:
+            raise AssertionError(f"{jid}: streamed tokens differ from the result")
+    # the worker's embedder: the same config and seed
+    same = types.SimpleNamespace(embedder=Embedder(EmbedderConfig(), seed=WORKER_SEED, device=dev))
+    err = max(check_embeddings(torch, same, single, single_texts, "bfloat16"),
+              check_embeddings(torch, same, batched, batched_texts, "bfloat16"))
+    launches = exit_doc["kernel_launches"]
+    steps = exit_doc["serving_steps"]
+    ecfg = EmbedderConfig()
+    if not (launches["paged_attention"] == cfg.n_layers * steps > 0
+            and launches["embed_attention"] > 0 and launches["embed_attention"] % ecfg.n_layers == 0
+            and launches["dense_attention_fwd"] > 0
+            and launches["dense_attention_fwd"] % cfg.n_layers == 0
+            and launches["dense_attention_bwd"] == 0):
+        raise AssertionError(f"worker process launches {launches} ({steps} serving steps)")
+    ttft = statistics.median((sched.first_token[j] - sched.sent[j]) * 1e3 for j, _ in gens)
+    p50 = {op: sched.p50_ms([j for j, _ in jobs]) for op, jobs in (
+        ("echo", echo), ("matmul", mm), ("infer", infer), ("embed (one at a time)", single),
+        ("embed (coalesced)", batched), ("llm.generate", gens))}
+    n_single = sum(len(t) for t in single_texts.values())
+    n_batched = sum(len(t) for t in batched_texts.values())
+    numbers = worker_numbers(echo_rate, n_single / single_wall, n_batched / batched_wall, ttft, p50)
+    log(f"[worker-proc] statebus and worker processes over TCP; worker up in {boot_s:.1f} s "
+        f"(first heartbeat), heartbeat device_kind {hb.device_kind!r}; {len(beacons)} telemetry "
+        f"beacon(s); SIGTERM: exit {rc}, drained {exit_doc['drained']}, cancelled sessions "
+        f"{exit_doc['cancelled_sessions']}  [{card}]")
+    log(f"[worker-proc] {len(gens)} llm.generate jobs (LlamaConfig.tiny() fp32) token-identical "
+        f"to the dense oracle ({ties_n} near-tie positions); {n_single + n_batched} embeddings "
+        f"within {err:.3e} of the plain version; launches {launches} ({steps} serving steps)  "
+        f"[{card}]")
+    return launches, numbers
+
+
+def phase_worker_process(torch, dev, card, numbers6):
+    """Phase 8, then its numbers beside phase 6's (in-process; phase 6
+    serves Llama-3-8B bf16, phase 8 LlamaConfig.tiny() fp32)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="cordum-proc-") as workdir:
+        launches, numbers = asyncio.run(drive_worker_process(torch, dev, card, workdir))
+    for key, value in numbers.items():
+        log(f"[worker-proc] {key}: process over TCP {value:.2f}, in-process (phase 6) "
+            f"{numbers6.get(key, float('nan')):.2f}  [{card}]")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_kernels():
@@ -1686,8 +1958,8 @@ def main() -> int:
     bf16_launches, params8b = phase_serve(torch, dev, smi, cfg8b)
     torch.cuda.empty_cache()
     kernel["embed_attention"] = phase_embed_kernel(torch, dev, smi)
-    worker = phase_worker(torch, dev, smi, fp32=(cfg32, params32, prompts, oracle),
-                          bf16=(cfg8b, params8b))
+    worker, numbers6 = phase_worker(torch, dev, smi, fp32=(cfg32, params32, prompts, oracle),
+                                    bf16=(cfg8b, params8b))
     del params32, params8b  # phase 7 needs the room
     gc.collect()  # whatever of the stopped workers sits in reference cycles
     torch.cuda.empty_cache()
@@ -1695,13 +1967,21 @@ def main() -> int:
         f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
     dense, train = phase_train(torch, dev, smi, cfg8b, build_logs["dense_attention"])
     kernel.update(dense)
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = phase_worker_process(torch, dev, smi, numbers6)
 
+    # phase 8's worker process serves an fp32 Llama and the bf16 embedder
     launches = {
-        "paged_attention": {"float32": fp32_launches, "bfloat16": bf16_launches},
-        "embed_attention": {d: worker[d]["embed_attention"] for d in worker},
-        # the bf16 forward also ran in phase 6's infer jobs
+        "paged_attention": {"float32": fp32_launches + proc["paged_attention"],
+                            "bfloat16": bf16_launches},
+        "embed_attention": {"float32": worker["float32"]["embed_attention"],
+                            "bfloat16": worker["bfloat16"]["embed_attention"]
+                            + proc["embed_attention"]},
+        # the bf16 forward also ran in phase 6's infer jobs, the fp32 one in
+        # phase 8's
         "dense_attention_fwd": {
-            "float32": train["dense_attention_fwd"]["float32"],
+            "float32": train["dense_attention_fwd"]["float32"] + proc["dense_attention_fwd"],
             "bfloat16": train["dense_attention_fwd"]["bfloat16"]
             + worker["bfloat16"]["dense_attention_fwd"]},
         "dense_attention_bwd": train["dense_attention_bwd"],

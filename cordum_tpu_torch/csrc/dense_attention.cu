@@ -25,16 +25,19 @@
 //     exp(s - max) are rounded to the input dtype before the PV product and
 //     the sum is divided out at the end (the reference rounds the
 //     normalised probabilities: a few bf16 ulps apart);
-//   * the backward: D = rowsum(dO * O) in fp32 (a pre-pass), P = exp(s -
-//     lse), dS = P * (dP - D) / sqrt(head_dim) rounded to the input dtype
-//     before the dQ = dS K and dK = dS^T Q products.  dP - D cancels where a
-//     row's weight sits on few keys (one live key: dS is 0), so both stay
-//     near fp32: dP = dO V^T is not rounded (the reference rounds its
-//     einsum output, but its D sums that same rounded dP, which rowsum(dO *
-//     O) cannot), and in bf16 the forward also writes the output's rounding
-//     residual, out_lo = bf16(O - bf16(O)), which the pre-pass adds back:
-//     D from the bf16 output alone is off by a bf16 ulp of |dO| |O|, which
-//     on such a row is the size of dQ itself.
+//   * the backward: P = exp(s - lse) in fp32, dP = dO V^T accumulated in
+//     fp32 and not rounded, dS = P * (dP - D) / sqrt(head_dim) rounded to
+//     the input dtype before the dQ = dS K and dK = dS^T Q products.  dP - D
+//     cancels where a row's weight sits on few keys (one live key: dS is 0),
+//     so D must be the sum of that same row's own P dP, as the reference's
+//     softmax gradient takes it from its probabilities: in bf16, D = sum_k P
+//     dP over the row's live keys, from the P and dP the backward forms (a D
+//     pass: the dQ sweep without its product, before dK/dV and dQ).  D =
+//     rowsum(dO * O) equals it only in exact arithmetic: the bf16 output is
+//     built from weights rounded to bf16, and on a three-key row the dq it
+//     gives is twice the plain version's worst row from exact.  fp32 keeps
+//     D = rowsum(dO * O) (a pre-pass, one warp a row), where O carries the
+//     fp32 weights.
 //
 // Bound: at the training shapes (T 256 .. 2048, head_dim 64 / 128) the
 // operations (4 * head_dim per live (query, key) pair forward, 10 * head_dim
@@ -43,10 +46,11 @@
 // CUDA cores in fp32.  Key tiles past a block's largest position (wholly
 // above the causal diagonal) are neither loaded nor multiplied, which halves
 // the work; only tiles that cross a row's position (or T) are masked.  The
-// backward recomputes P in both of its passes (14 * head_dim a pair).  In
-// bf16 two more costs rival the products: the softmax's exponentials (the
-// special-function units run at a few percent of the tensor cores' rate),
-// and the K/V tiles each 128-row block reads again from L2.
+// backward recomputes P in both of its passes (14 * head_dim a pair; bf16's
+// D pass forms S and dP once more, 18 * head_dim).  In bf16 two more costs
+// rival the products: the softmax's exponentials (the special-function units
+// run at a few percent of the tensor cores' rate), and the K/V tiles each
+// 128-row block reads again from L2.
 //
 // Design.  The first design (four warps of mma.sync, 64-row blocks, cp.async,
 // fp32 emulating the bf16 fragments from shared memory) left the tensor cores
@@ -114,12 +118,13 @@
 //     feeds 8 to 16 FMAs.  The weights pass to the second product through a
 //     transposed tile in shared memory.  Forward, dK/dV and dQ as above
 //     (dK/dV summed over the group in registers).
-//   * pre-pass: one warp per (batch, position, head) row for D.
+//   * D: in bf16 the dQ kernels with their product compiled out (kD), over
+//     the same blocks and key tiles, a row's sum reduced across its quad;
+//     in fp32 a pre-pass, one warp per (batch, position, head) row.
 //
 // Layouts: q [B, T, H, hd], k and v [B, T, KVH, hd], contiguous; positions
-// [B, T] int32; out, out_lo (bf16 only; null in fp32), dO and dq [B, T, H,
-// hd]; dk, dv [B, T, KVH, hd]; lse and D [B, H, T] fp32.  head_dim 16, 64 or
-// 128; any T >= 1.  The TMA maps are encoded on the host at every call
+// [B, T] int32; out, dO and dq [B, T, H, hd]; dk, dv [B, T, KVH, hd]; lse
+// and D [B, H, T] fp32.  head_dim 16, 64 or 128; any T >= 1.  The TMA maps are encoded on the host at every call
 // (cuTensorMapEncodeTiled found through the CUDA runtime: no libcuda link).
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -127,8 +132,6 @@
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -189,25 +192,9 @@ __device__ __forceinline__ void round2_bf16(float& a, float& b) {
   a = __uint_as_float(p << 16);
   b = __uint_as_float(p & 0xFFFF0000u);
 }
-template <typename T>
-__device__ __forceinline__ float to_f32(T x) {
-  if constexpr (std::is_same_v<T, bf16>) {
-    return __bfloat162float(x);
-  } else {
-    return x;
-  }
-}
 // two adjacent bf16 outputs of one row
 __device__ __forceinline__ void store2(bf16* dst, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-}
-// the same, and (lo not null) what rounding left out, rounded into lo
-__device__ __forceinline__ void store2_split(bf16* dst, bf16* lo, float a, float b) {
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
-  *reinterpret_cast<__nv_bfloat162*>(dst) = hi;
-  if (lo != nullptr)
-    *reinterpret_cast<__nv_bfloat162*>(lo) =
-        __floats2bfloat162_rn(a - __low2float(hi), b - __high2float(hi));
 }
 
 // Rows g0 .. g0 + n of one head of a [.., T, heads, HD] tensor into padded
@@ -348,8 +335,7 @@ template <int HD>
 __global__ void __launch_bounds__(kMmaThreads)
 dense_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const int* __restrict__ pos, bf16* __restrict__ out,
-               bf16* __restrict__ out_lo, float* __restrict__ lse, int T_len, int H, int KVH,
-               float scale) {
+               float* __restrict__ lse, int T_len, int H, int KVH, float scale) {
   constexpr int S = kSrow<bf16, HD>;
   constexpr int NT = kFwdKeys / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -454,8 +440,7 @@ dense_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
     const long long at = qbase + (long long)row * qstride + (lane % 4) * 2;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
-      store2_split(out + at + n * 8, out_lo == nullptr ? nullptr : out_lo + at + n * 8,
-                   acc[n][2 * half] * inv, acc[n][2 * half + 1] * inv);
+      store2(out + at + n * 8, acc[n][2 * half] * inv, acc[n][2 * half + 1] * inv);
     if (lane % 4 == 0) lse[((long long)b * H + h) * T_len + row] = m[half] + logf(l[half]);
   }
 }
@@ -592,12 +577,14 @@ constexpr size_t mma_dq_smem() {
   return sizeof(bf16) * (2 * kRows + 4 * kBwdTile) * kSrow<bf16, HD>;
 }
 
-template <int HD>
+// kD: the D pass — the same sweep without the dQ product, D = sum_k P dP per
+// row written into D (the dQ pass then reads it)
+template <int HD, bool kD>
 __global__ void __launch_bounds__(kMmaThreads)
 dense_attention_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const int* __restrict__ pos,
               const bf16* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ D, bf16* __restrict__ dq, int T_len, int H, int KVH,
+              float* __restrict__ D, bf16* __restrict__ dq, int T_len, int H, int KVH,
               float scale) {
   constexpr int S = kSrow<bf16, HD>;
   constexpr int KT = kBwdTile;
@@ -638,8 +625,9 @@ dense_attention_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
     prow[i] = s_pos[ra + 8 * i];
     const long long at = ((long long)b * H + h) * T_len + row;
     lrow[i] = vrow[i] ? lse[at] : 0.f;
-    drow[i] = vrow[i] ? D[at] : 0.f;
+    drow[i] = vrow[i] && !kD ? D[at] : 0.f;
   }
+  float dsum[2] = {0.f, 0.f};  // kD: sum_k P dP of this lane's keys
   float acc[HD / 8][4];
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
@@ -672,10 +660,21 @@ dense_attention_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
         const int i = e / 2;
         const bool live = vrow[i] && kj < T_len && prow[i] >= 0 && kj <= prow[i];
         const float prob = live ? __expf(round_bf16(s[n][e]) * scale - lrow[i]) : 0.f;
+        if constexpr (kD) dsum[i] = fmaf(prob, dp[n][e], dsum[i]);
         s[n][e] = live ? prob * (dp[n][e] - drow[i]) * scale : 0.f;
       }
-    warp_nn<NT, HD>(acc, s, ks + buf * KT * S, lane);  // dQ += dS K
+    if constexpr (!kD) warp_nn<NT, HD>(acc, s, ks + buf * KT * S, lane);  // dQ += dS K
     __syncthreads();
+  }
+  if constexpr (kD) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      dsum[i] += __shfl_xor_sync(~0u, dsum[i], 1);
+      dsum[i] += __shfl_xor_sync(~0u, dsum[i], 2);
+      const int row = q0 + ra + 8 * i;
+      if (vrow[i] && lane % 4 == 0) D[((long long)b * H + h) * T_len + row] = dsum[i];
+    }
+    return;
   }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -1506,8 +1505,8 @@ template <int HD>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 dense_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const int* __restrict__ pos,
-                  bf16* __restrict__ out, bf16* __restrict__ out_lo, float* __restrict__ lse,
-                  int T_len, int H, int KVH, int g, float scale) {
+                  bf16* __restrict__ out, float* __restrict__ lse, int T_len, int H, int KVH,
+                  int g, float scale) {
   using C = HopperFwd<HD>;
   constexpr int BN = C::BN;
   extern __shared__ unsigned char smem_raw[];
@@ -1675,8 +1674,7 @@ dense_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const _
     const long long at = (((long long)b * T_len + t) * H + head) * HD + (lane % 4) * 2;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
-      store2_split(out + at + n * 8, out_lo == nullptr ? nullptr : out_lo + at + n * 8,
-                   o[4 * n + 2 * half] * inv, o[4 * n + 2 * half + 1] * inv);
+      store2(out + at + n * 8, o[4 * n + 2 * half] * inv, o[4 * n + 2 * half + 1] * inv);
     if (lane % 4 == 0) lse[((long long)b * H + head) * T_len + t] = m[half] + logf(l[half]);
   }
 }
@@ -1919,6 +1917,28 @@ dense_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const _
   }
 }
 
+// The D pass's share of one dQ tile: sum_k P dP of this thread's two rows
+// over the tile's live keys, added into dsum, from the same P as tile_ds.
+template <int BK>
+__device__ __forceinline__ void tile_dsum(float (&dsum)[2], float (&sc)[BK / 2],
+                                          const float (&dp)[BK / 2], int key0, int T_len, int lo,
+                                          const int (&prow)[2], const float (&lrow)[2], int lane,
+                                          float sl2) {
+#pragma unroll
+  for (int i = 0; i < BK / 4; ++i) round2_bf16(sc[2 * i], sc[2 * i + 1]);
+  const bool open = key0 + BK <= T_len && key0 + BK - 1 <= lo;
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * n + e, h = e / 2;
+      const int kj = key0 + n * 8 + (lane % 4) * 2 + (e & 1);
+      const bool live = open || (kj < T_len && prow[h] >= 0 && kj <= prow[h]);
+      const float pdp = ex2(fmaf(sc[i], sl2, -lrow[h])) * dp[i];
+      dsum[h] += live ? pdp : 0.f;
+    }
+}
+
 template <int HD>
 struct HopperDq {
   static constexpr int BK = 64;  // keys a tile
@@ -1930,12 +1950,14 @@ struct HopperDq {
   }
 };
 
-template <int HD>
+// kD: the D pass — the same sweep of S and dP without the dQ product, D =
+// sum_k P dP per row written into D (the dK/dV and dQ passes then read it)
+template <int HD, bool kD>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 dense_attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                  const int* __restrict__ pos, const float* __restrict__ lse,
-                 const float* __restrict__ D, bf16* __restrict__ dq, int T_len, int H, int KVH,
+                 float* __restrict__ D, bf16* __restrict__ dq, int T_len, int H, int KVH,
                  int g, float scale) {
   using C = HopperDq<HD>;
   constexpr int BK = C::BK;
@@ -2011,17 +2033,78 @@ dense_attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __
     const long long at = ((long long)b * H + hrow[i]) * T_len + trow[i];
     prow[i] = ok ? pos_b[trow[i]] : -1;  // a row past T takes no key
     lrow[i] = ok ? lse[at] * kLog2e : 0.f;
-    drow[i] = ok ? D[at] : 0.f;
+    drow[i] = ok && !kD ? D[at] : 0.f;
   }
   const bf16* qc = qs + c * C::Q_EL;
   const bf16* doc = dos + c * C::Q_EL;  // this consumer's dO rows
+  mbar_wait(&q_full[c], 0);
+  float sc[BK / 2], dp[BK / 2];
+  if constexpr (kD) {
+    // tile j + 1's S and dP run while tile j's P dP is summed into the rows
+    // (two register sets, the loop unrolled by two so that each stays put)
+    float dsum[2] = {0.f, 0.f};
+    float sc2[BK / 2], dp2[BK / 2];
+    auto issue = [&](float (&s_)[BK / 2], float (&d_)[BK / 2], int j) {
+      const int s = j % C::STAGES;
+      mbar_wait(&full[s], (j / C::STAGES) & 1);
+      keep(s_);  // pinned before the fence; read again only after the wait
+      keep(d_);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        wgmma_ss<BK>(s_, kmajor(qc, 64 * kBoxRowBytes, kk),
+                     kmajor(ks + s * C::KV_EL, BK * kBoxRowBytes, kk), kk > 0);
+        wgmma_ss<BK>(d_, kmajor(doc, 64 * kBoxRowBytes, kk),
+                     kmajor(vs + s * C::KV_EL, BK * kBoxRowBytes, kk), kk > 0);
+      }
+      wg_commit();
+    };
+    auto sum = [&](float (&s_)[BK / 2], float (&d_)[BK / 2], int j) {  // its products done
+      keep(s_);
+      keep(d_);
+      release(&empty[j % C::STAGES], lane);
+      tile_dsum<BK>(dsum, s_, d_, j * BK, T_len, lo, prow, lrow, lane, sl2);
+    };
+    if (n_mine > 0) {
+      issue(sc, dp, 0);
+      int j = 0;
+      for (; j + 2 < n_mine; j += 2) {  // no branch around a product in here
+        issue(sc2, dp2, j + 1);
+        wg_wait<1>();
+        sum(sc, dp, j);
+        issue(sc, dp, j + 2);
+        wg_wait<1>();
+        sum(sc2, dp2, j + 1);
+      }
+      if (j + 1 < n_mine) {  // the last one or two tiles, peeled
+        issue(sc2, dp2, j + 1);
+        wg_wait<1>();
+        sum(sc, dp, j);
+        wg_wait<0>();
+        sum(sc2, dp2, j + 1);
+      } else {
+        wg_wait<0>();
+        sum(sc, dp, j);
+      }
+    }
+    for (int j = n_mine; j < n_tiles; ++j) {
+      mbar_wait(&full[j % C::STAGES], (j / C::STAGES) & 1);
+      release(&empty[j % C::STAGES], lane);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      dsum[i] += __shfl_xor_sync(~0u, dsum[i], 1);
+      dsum[i] += __shfl_xor_sync(~0u, dsum[i], 2);
+      if (trow[i] < T_len && lane % 4 == 0)
+        D[((long long)b * H + hrow[i]) * T_len + trow[i]] = dsum[i];
+    }
+    return;
+  }
   float acc[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
-  mbar_wait(&q_full[c], 0);
   // as the forward: tile j's S and dP, then tile j - 1's dQ += dS K (a stage
   // each); tile j's dS is formed while that runs
-  float sc[BK / 2], dp[BK / 2];
   uint32_t dc[BK / 16][4];
   if (n_mine > 0) {
     mbar_wait(&full[0], 0);
@@ -2099,22 +2182,16 @@ dense_attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __
 
 constexpr int kPreWarps = 8;
 
-// D[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d], one warp a row; O is
-// out + out_lo where out_lo is given
-template <typename T, int HD>
+// fp32: D[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d], one warp a row
+template <int HD>
 __global__ void __launch_bounds__(kPreWarps * kWarp)
-dense_attention_pre_kernel(const T* __restrict__ out, const T* __restrict__ out_lo,
-                           const T* __restrict__ dout, float* __restrict__ D, long long rows,
-                           int T_len, int H) {
+dense_attention_pre_kernel(const float* __restrict__ out, const float* __restrict__ dout,
+                           float* __restrict__ D, long long rows, int T_len, int H) {
   const long long row = (long long)blockIdx.x * kPreWarps + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (row >= rows) return;
   float acc = 0.f;
-  for (int d = lane; d < HD; d += kWarp) {
-    const float o = to_f32(out[row * HD + d]) +
-                    (out_lo == nullptr ? 0.f : to_f32(out_lo[row * HD + d]));
-    acc = fmaf(o, to_f32(dout[row * HD + d]), acc);
-  }
+  for (int d = lane; d < HD; d += kWarp) acc = fmaf(out[row * HD + d], dout[row * HD + d], acc);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(~0u, acc, o);
   if (lane == 0) {
@@ -2176,15 +2253,14 @@ int group_of(int H, int KVH) {
 
 template <int HD>
 int launch_fwd_bf16(const void* q, const void* k, const void* v, const int* pos, void* out,
-                    void* out_lo, float* lse, int B, int T_len, int H, int KVH, float scale,
-                    cudaStream_t s) {
+                    float* lse, int B, int T_len, int H, int KVH, float scale, cudaStream_t s) {
   if constexpr (HD == 16) {
     constexpr size_t smem = mma_fwd_smem<HD>();
     cudaError_t e = set_smem((const void*)dense_attention_fwd_mma_kernel<HD>, smem);
     if (e != cudaSuccess) return (int)e;
     dense_attention_fwd_mma_kernel<HD><<<dim3((T_len + kRows - 1) / kRows, H, B), kMmaThreads, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        pos, static_cast<bf16*>(out), static_cast<bf16*>(out_lo), lse, T_len, H, KVH, scale);
+        pos, static_cast<bf16*>(out), lse, T_len, H, KVH, scale);
   } else {
     using C = HopperFwd<HD>;
     const int g = group_of(H, KVH);
@@ -2197,9 +2273,8 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, const int* pos,
     if (e != cudaSuccess) return (int)e;
     const int rows_t = 128 / g;  // positions a block covers
     dense_attention_fwd_wgmma_kernel<HD><<<dim3((T_len + rows_t - 1) / rows_t, H / g, B), kHopperThreads,
-                            C::smem(), s>>>(tq, tk, tv, pos, static_cast<bf16*>(out),
-                                            static_cast<bf16*>(out_lo), lse, T_len, H, KVH, g,
-                                            scale);
+                            C::smem(), s>>>(tq, tk, tv, pos, static_cast<bf16*>(out), lse,
+                                            T_len, H, KVH, g, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -2216,25 +2291,22 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, const int* pos, 
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_pre(const void* out, const void* out_lo, const void* dout, float* D, int B,
-                       int T_len, int H, cudaStream_t s) {
-  const long long rows = (long long)B * T_len * H;
-  dense_attention_pre_kernel<T, HD><<<(unsigned)((rows + kPreWarps - 1) / kPreWarps),
-                                       kPreWarps * kWarp, 0, s>>>(
-      static_cast<const T*>(out), static_cast<const T*>(out_lo), static_cast<const T*>(dout), D,
-      rows, T_len, H);
-  return cudaGetLastError();
-}
-
+// bf16: the D pass (the dQ kernel without its product), then dK/dV, then dQ
 template <int HD>
-int launch_bwd_bf16(const void* q, const void* k, const void* v, const int* pos, const void* out,
-                    const void* out_lo, const void* dout, const float* lse, float* D, void* dq,
-                    void* dk, void* dv, int B, int T_len, int H, int KVH, float scale,
-                    cudaStream_t s) {
-  cudaError_t e = launch_pre<bf16, HD>(out, out_lo, dout, D, B, T_len, H, s);
-  if (e != cudaSuccess) return (int)e;
+int launch_bwd_bf16(const void* q, const void* k, const void* v, const int* pos,
+                    const void* dout, const float* lse, float* D, void* dq, void* dk, void* dv,
+                    int B, int T_len, int H, int KVH, float scale, cudaStream_t s) {
+  cudaError_t e;
   if constexpr (HD == 16) {
+    constexpr size_t dqs = mma_dq_smem<HD>();
+    const dim3 dq_grid((T_len + kRows - 1) / kRows, H, B);
+    e = set_smem((const void*)dense_attention_dq_mma_kernel<HD, true>, dqs);
+    if (e != cudaSuccess) return (int)e;
+    dense_attention_dq_mma_kernel<HD, true><<<dq_grid, kMmaThreads, dqs, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        pos, static_cast<const bf16*>(dout), lse, D, nullptr, T_len, H, KVH, scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
     const int n_qt = (T_len + kBwdTile - 1) / kBwdTile;
     const size_t dkv = mma_dkv_smem_fixed<HD>() + sizeof(unsigned) * ((n_qt + 31) / 32);
     e = set_smem((const void*)dense_attention_dkv_mma_kernel<HD>, dkv);
@@ -2245,10 +2317,9 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v, const int* pos,
         static_cast<bf16*>(dv), T_len, H, KVH, scale);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    constexpr size_t dqs = mma_dq_smem<HD>();
-    e = set_smem((const void*)dense_attention_dq_mma_kernel<HD>, dqs);
+    e = set_smem((const void*)dense_attention_dq_mma_kernel<HD, false>, dqs);
     if (e != cudaSuccess) return (int)e;
-    dense_attention_dq_mma_kernel<HD><<<dim3((T_len + kRows - 1) / kRows, H, B), kMmaThreads, dqs, s>>>(
+    dense_attention_dq_mma_kernel<HD, false><<<dq_grid, kMmaThreads, dqs, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         pos, static_cast<const bf16*>(dout), lse, D, static_cast<bf16*>(dq), T_len, H, KVH,
         scale);
@@ -2266,6 +2337,14 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v, const int* pos,
         !make_map(&tkt, k, HD, KVH, T_len, B, 1, Q::BK) ||
         !make_map(&tvt, v, HD, KVH, T_len, B, 1, Q::BK))
       return (int)cudaErrorInvalidValue;
+    const int rows_t = 128 / g;
+    const dim3 dq_grid((T_len + rows_t - 1) / rows_t, H / g, B);
+    e = set_smem((const void*)dense_attention_dq_wgmma_kernel<HD, true>, Q::smem());
+    if (e != cudaSuccess) return (int)e;
+    dense_attention_dq_wgmma_kernel<HD, true><<<dq_grid, kHopperThreads, Q::smem(), s>>>(
+        tqg, tkt, tvt, tdog, pos, lse, D, nullptr, T_len, H, KVH, g, scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
     const int n_qt = (T_len + K::BQ - 1) / K::BQ;
     const size_t dkv = K::fixed() + sizeof(unsigned) * ((n_qt + 31) / 32);
     e = set_smem((const void*)dense_attention_dkv_wgmma_kernel<HD>, dkv);
@@ -2275,12 +2354,10 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v, const int* pos,
         H, KVH, scale);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    e = set_smem((const void*)dense_attention_dq_wgmma_kernel<HD>, Q::smem());
+    e = set_smem((const void*)dense_attention_dq_wgmma_kernel<HD, false>, Q::smem());
     if (e != cudaSuccess) return (int)e;
-    const int rows_t = 128 / g;
-    dense_attention_dq_wgmma_kernel<HD><<<dim3((T_len + rows_t - 1) / rows_t, H / g, B), kHopperThreads,
-                           Q::smem(), s>>>(tqg, tkt, tvt, tdog, pos, lse, D,
-                                           static_cast<bf16*>(dq), T_len, H, KVH, g, scale);
+    dense_attention_dq_wgmma_kernel<HD, false><<<dq_grid, kHopperThreads, Q::smem(), s>>>(
+        tqg, tkt, tvt, tdog, pos, lse, D, static_cast<bf16*>(dq), T_len, H, KVH, g, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -2289,7 +2366,11 @@ template <int HD>
 int launch_bwd_f32(const void* q, const void* k, const void* v, const int* pos, const void* out,
                    const void* dout, const float* lse, float* D, void* dq, void* dk, void* dv,
                    int B, int T_len, int H, int KVH, float scale, cudaStream_t s) {
-  cudaError_t e = launch_pre<float, HD>(out, nullptr, dout, D, B, T_len, H, s);
+  const long long rows = (long long)B * T_len * H;
+  dense_attention_pre_kernel<HD><<<(unsigned)((rows + kPreWarps - 1) / kPreWarps),
+                                   kPreWarps * kWarp, 0, s>>>(
+      static_cast<const float*>(out), static_cast<const float*>(dout), D, rows, T_len, H);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int n_qt = (T_len + kF32DkvRows<HD> - 1) / kF32DkvRows<HD>;
   const size_t dkv = f32_dkv_smem_fixed<HD>() + sizeof(unsigned) * ((n_qt + 31) / 32);
@@ -2320,14 +2401,13 @@ bool args_ok(int dtype, int head_dim, int B, int T_len, int H, int KVH) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; head_dim 16, 64 or 128.  Every pointer is
-// a contiguous tensor of the layouts above on the stream's device (out_lo
-// may be null: no residual is written); scale is 1/sqrt(head_dim).  Returns
+// a contiguous tensor of the layouts above on the stream's device; scale is
+// 1/sqrt(head_dim).  Returns
 // the launch's cudaGetLastError() (0 = cudaSuccess), or cudaErrorInvalidValue
 // when a TMA map cannot be made; the caller checks every argument.
 extern "C" int dense_attention_fwd(int dtype, int head_dim, const void* q, const void* k,
-                                   const void* v, const void* pos, void* out, void* out_lo,
-                                   void* lse, int B, int T_len, int H, int KVH, float scale,
-                                   void* stream) {
+                                   const void* v, const void* pos, void* out, void* lse, int B,
+                                   int T_len, int H, int KVH, float scale, void* stream) {
   if (!args_ok(dtype, head_dim, B, T_len, H, KVH)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
@@ -2340,21 +2420,21 @@ extern "C" int dense_attention_fwd(int dtype, int head_dim, const void* q, const
 #undef CORDUM_FWD
   }
 #define CORDUM_FWD(HD) \
-  return launch_fwd_bf16<HD>(q, k, v, p, out, out_lo, l, B, T_len, H, KVH, scale, s)
+  return launch_fwd_bf16<HD>(q, k, v, p, out, l, B, T_len, H, KVH, scale, s)
   if (head_dim == 16) CORDUM_FWD(16);
   if (head_dim == 64) CORDUM_FWD(64);
   CORDUM_FWD(128);
 #undef CORDUM_FWD
 }
 
-// The backward: the pre-pass into D (fp32 [B, H, T] scratch the caller
-// allocates; out_lo as the forward wrote it, or null), then dK/dV and dQ, all
-// on `stream`.
+// The backward: D into an fp32 [B, H, T] scratch the caller allocates (fp32:
+// the pre-pass from out; bf16: the D pass, which does not read out), then
+// dK/dV and dQ, all on `stream`.
 extern "C" int dense_attention_bwd(int dtype, int head_dim, const void* q, const void* k,
                                    const void* v, const void* pos, const void* out,
-                                   const void* out_lo, const void* dout, const void* lse,
-                                   void* D, void* dq, void* dk, void* dv, int B, int T_len,
-                                   int H, int KVH, float scale, void* stream) {
+                                   const void* dout, const void* lse, void* D, void* dq,
+                                   void* dk, void* dv, int B, int T_len, int H, int KVH,
+                                   float scale, void* stream) {
   if (!args_ok(dtype, head_dim, B, T_len, H, KVH)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
@@ -2369,8 +2449,7 @@ extern "C" int dense_attention_bwd(int dtype, int head_dim, const void* q, const
 #undef CORDUM_BWD
   }
 #define CORDUM_BWD(HD)                                                                       \
-  return launch_bwd_bf16<HD>(q, k, v, p, out, out_lo, dout, l, d, dq, dk, dv, B, T_len, H, \
-                             KVH, scale, s)
+  return launch_bwd_bf16<HD>(q, k, v, p, dout, l, d, dq, dk, dv, B, T_len, H, KVH, scale, s)
   if (head_dim == 16) CORDUM_BWD(16);
   if (head_dim == 64) CORDUM_BWD(64);
   CORDUM_BWD(128);

@@ -1,9 +1,8 @@
 """Statebus wire-frame primitives (``[4-byte BE length][msgpack array]`` —
-docs/PROTOCOL.md §Statebus wire format), used here by the serving session
-migration link (``serving/migration.py``).
-
-``msgpack`` is imported inside the two functions that encode and decode a
-frame, so a worker that never migrates a session runs without it.
+docs/PROTOCOL.md §Statebus wire format), shared by the statebus server and
+client (``infra/statebus.py``) and the serving session migration link
+(``serving/migration.py``); the msgpack is the port's own codec
+(``infra/codec.py``).
 """
 from __future__ import annotations
 
@@ -11,13 +10,13 @@ import asyncio
 import struct
 from typing import Any, Optional
 
+from .codec import packb, unpackb
+
 LEN = struct.Struct(">I")
 
 
 def encode_frame(obj: Any) -> bytes:
-    import msgpack
-
-    b = msgpack.packb(obj, use_bin_type=True)
+    b = packb(obj)
     return LEN.pack(len(b)) + b
 
 
@@ -28,9 +27,7 @@ async def read_frame(reader: asyncio.StreamReader) -> Optional[list]:
         body = await reader.readexactly(n)
     except (asyncio.IncompleteReadError, ConnectionResetError):
         return None
-    import msgpack
-
-    return msgpack.unpackb(body, raw=False, strict_map_key=False)
+    return unpackb(body)
 
 
 class FrameWriter:

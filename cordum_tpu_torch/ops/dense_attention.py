@@ -12,18 +12,18 @@ The functions of one computation live here:
     the gradient; the paged serving step's plain version calls it too;
   * :func:`dense_attention_fwd` and :func:`dense_attention_bwd` — the
     wrappers of the hand-written Hopper kernels in
-    ``csrc/dense_attention.cu``: the forward returns the output, the
-    per-row ``lse`` (fp32 ``[B, H, T]``) and, in bf16, the output's rounding
-    residual ``out_lo``; the backward recomputes the probabilities from
-    ``lse`` (a pre-pass for ``rowsum(dO * O)`` with ``O = out + out_lo``, a
-    dK/dV kernel that sums a KV head's query heads in registers, a dQ
-    kernel; deterministic).  bf16 at head_dim 64 and 128 runs on ``wgmma``
+    ``csrc/dense_attention.cu``: the forward returns the output and the
+    per-row ``lse`` (fp32 ``[B, H, T]``); the backward recomputes the
+    probabilities from ``lse`` (first the softmax gradient's ``D``: in bf16
+    ``sum_k P dP`` from the fp32 weights, by a pass of the dQ kernel without
+    its product; in fp32 ``rowsum(dO * out)``; then a dK/dV kernel that sums
+    a KV head's query heads in registers, and a dQ kernel; deterministic).  bf16 at head_dim 64 and 128 runs on ``wgmma``
     with TMA (warp-specialised blocks; forward and dQ rows pack the query
     heads of a KV head), bf16 at head_dim 16 on ``mma.sync``, fp32 on CUDA
     cores with register tiles;
   * :class:`DenseAttention` — the ``torch.autograd.Function`` joining them:
-    it saves q, k, v, the positions, the output, ``out_lo`` and ``lse``,
-    never the probabilities;
+    it saves q, k, v, the positions, the output and ``lse``, never the
+    probabilities;
   * :func:`dense_attention` — the entry the model calls.  For CPU tensors
     it is the plain version (and autograd of it); for CUDA tensors it runs
     the kernels through :class:`DenseAttention` or raises.  There is no
@@ -89,20 +89,16 @@ def dense_attention_reference(
     return gqa_attention(q, k, v, q_offset=positions)
 
 
-def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
-    return None if x is None else x.data_ptr()
-
-
 def _bind(lib: ctypes.CDLL) -> None:
     fwd = lib.dense_attention_fwd
     fwd.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_void_p]
     )
     fwd.restype = ctypes.c_int
     bwd = lib.dense_attention_bwd
     bwd.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_void_p]
     )
     bwd.restype = ctypes.c_int
@@ -154,28 +150,25 @@ def check_kernel_args(
 
 def dense_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """The forward kernel: ``(out [B, T, H, hd], lse [B, H, T] fp32,
-    out_lo)``; ``out_lo`` (bf16 only, ``None`` in fp32) is what rounding the
-    output to bf16 left out, for the backward's ``rowsum(dO * O)``.
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel: ``(out [B, T, H, hd], lse [B, H, T] fp32)``.
     Counted in ``dense_attention_fwd.launches``."""
     check_kernel_args(q, k, v, positions)
     fn = _build.load(SOURCE, _bind).dense_attention_fwd
     b, t, h, hd = q.shape
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
-        out_lo = torch.empty_like(q) if q.dtype == torch.bfloat16 else None
         lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            positions.data_ptr(), out.data_ptr(), _ptr(out_lo), lse.data_ptr(), b, t, h,
+            positions.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, h,
             k.shape[2], 1.0 / math.sqrt(hd), stream,
         )
     if err != 0:
         raise RuntimeError(f"dense_attention forward kernel launch failed: CUDA error {err}")
     dense_attention_fwd.launches += 1
-    return out, lse, out_lo
+    return out, lse
 
 
 dense_attention_fwd.launches = 0  # type: ignore[attr-defined]
@@ -183,17 +176,13 @@ dense_attention_fwd.launches = 0  # type: ignore[attr-defined]
 
 def dense_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
-    out: torch.Tensor, lse: torch.Tensor, out_lo: Optional[torch.Tensor], dout: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernels (pre-pass, dK/dV, dQ, in that order on one
+    """The backward kernels (``D``, dK/dV, dQ, in that order on one
     stream): ``(dq, dk, dv)`` in the inputs' dtype, from what
-    :func:`dense_attention_fwd` returned (``out_lo`` is required in bf16 and
-    ``None`` in fp32).  One call counts one in
+    :func:`dense_attention_fwd` returned.  One call counts one in
     ``dense_attention_bwd.launches``."""
-    bf16 = q.dtype == torch.bfloat16
-    if (out_lo is None) == bf16:
-        raise ValueError("dense_attention kernel: out_lo goes with bf16 and only bf16")
-    check_kernel_args(q, k, v, positions, out, dout, *([out_lo] if bf16 else []))
+    check_kernel_args(q, k, v, positions, out, dout)
     b, t, h, hd = q.shape
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, t) or not lse.is_contiguous() \
             or lse.device != q.device:
@@ -205,7 +194,7 @@ def dense_attention_bwd(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            positions.data_ptr(), out.data_ptr(), _ptr(out_lo), dout.data_ptr(), lse.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             d_scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h,
             k.shape[2], 1.0 / math.sqrt(hd), stream,
         )
@@ -220,21 +209,19 @@ dense_attention_bwd.launches = 0  # type: ignore[attr-defined]
 
 class DenseAttention(torch.autograd.Function):
     """The kernels under autograd: the forward saves q, k, v, the
-    positions, the output, ``lse`` and ``out_lo`` (never the ``[B, H, T,
-    T]`` probabilities); the backward returns dq, dk, dv in the inputs'
-    dtype."""
+    positions, the output and ``lse`` (never the ``[B, H, T, T]``
+    probabilities); the backward returns dq, dk, dv in the inputs' dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, positions):  # type: ignore[override]
-        out, lse, out_lo = dense_attention_fwd(q, k, v, positions)
-        ctx.save_for_backward(q, k, v, positions, out, lse, out_lo)
+        out, lse = dense_attention_fwd(q, k, v, positions)
+        ctx.save_for_backward(q, k, v, positions, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):  # type: ignore[override]
-        q, k, v, positions, out, lse, out_lo = ctx.saved_tensors
-        dq, dk, dv = dense_attention_bwd(q, k, v, positions, out, lse, out_lo,
-                                         dout.contiguous())
+        q, k, v, positions, out, lse = ctx.saved_tensors
+        dq, dk, dv = dense_attention_bwd(q, k, v, positions, out, lse, dout.contiguous())
         return dq, dk, dv, None
 
 

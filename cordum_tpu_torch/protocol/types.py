@@ -24,6 +24,7 @@ from typing import Any, Optional, TypeVar
 
 _W = TypeVar("_W", bound="WireModel")
 
+from ..infra import codec
 from ..utils.ids import new_id, now_us
 
 PROTOCOL_VERSION = 1
@@ -214,15 +215,11 @@ class WireModel:
         return cls(**kwargs)  # type: ignore[call-arg]
 
     def to_wire(self) -> bytes:
-        import msgpack  # only the serialising buses need it
-
-        return msgpack.packb(self.to_dict(), use_bin_type=True)
+        return codec.packb(self.to_dict())
 
     @classmethod
     def from_wire(cls: type[_W], b: bytes) -> Optional[_W]:
-        import msgpack
-
-        return cls.from_dict(msgpack.unpackb(b, raw=False))
+        return cls.from_dict(codec.unpackb(b))
 
 
 # ---------------------------------------------------------------------------
@@ -770,17 +767,13 @@ class BusPacket(WireModel):
     def to_wire(self) -> bytes:
         w = self._wire
         if w is None:
-            import msgpack  # only the serialising buses need it
-
-            w = msgpack.packb(self.to_dict(), use_bin_type=True)
+            w = codec.packb(self.to_dict())
             self._wire = w
         return w
 
     @classmethod
     def from_wire(cls, b: bytes) -> Optional["BusPacket"]:
-        import msgpack
-
-        pkt = cls.from_dict(msgpack.unpackb(b, raw=False))
+        pkt = cls.from_dict(codec.unpackb(b))
         if pkt is not None:
             pkt._wire = bytes(b)
         return pkt

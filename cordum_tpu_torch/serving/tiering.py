@@ -33,10 +33,12 @@ device arena; cold = at least one page tiered out).
 """
 from __future__ import annotations
 
+import asyncio
 import time
 from dataclasses import dataclass
 from typing import Awaitable, Callable, Optional
 
+from ..infra import codec
 from ..infra import logging as logx
 from .prefixcache import PrefixCache
 
@@ -79,6 +81,109 @@ class ColdArena:
 
     def __len__(self) -> int:
         return len(self._store)
+
+
+COLD_TIER_PREFIX = "serving:cold:"
+
+
+class StatebusColdTier(ColdArena):
+    """Cold arena mirrored through the statebus KV so hibernated sessions
+    survive a worker restart (``serving_cold_tier: statebus``,
+    docs/SERVING.md §Session tiering).
+
+    The RAM copy stays authoritative on the hot path — ``put``/``pop``/
+    ``get`` cost exactly what :class:`ColdArena` costs — while every
+    mutation is journaled to ``serving:cold:<worker_id>:<key>`` by a
+    fire-and-forget drain task (hibernation must never block on the bus;
+    a persist failure only narrows restart durability, counted in
+    ``persist_errors``).  On boot the worker calls :meth:`load` after
+    ``start()``: surviving keys re-populate the mirror, and the live copy
+    always wins over a stale journal.  Docs are msgpack (the port's codec,
+    the same bytes the reference journals): the migration record format
+    is bytes and scalars, so page payloads round-trip without
+    re-encoding."""
+
+    def __init__(self, kv, *, prefix: str = COLD_TIER_PREFIX,
+                 worker_id: str = "") -> None:
+        super().__init__()
+        self.kv = kv
+        scope = f"{worker_id}:" if worker_id else ""
+        self.prefix = f"{prefix}{scope}"
+        # key -> doc (persist) or None (delete); insertion order preserved
+        self._dirty: dict[str, Optional[dict]] = {}
+        self._drain_task: Optional[asyncio.Task] = None
+        self.persist_errors = 0
+        self.loaded = 0
+
+    # -- hot path (sync, mirrors ColdArena) ----------------------------
+    def put(self, key: str, doc: dict) -> None:
+        super().put(key, doc)
+        self._mark(key, doc)
+
+    def pop(self, key: str) -> Optional[dict]:
+        doc = super().pop(key)
+        if doc is not None:
+            self._mark(key, None)
+        return doc
+
+    def _mark(self, key: str, doc: Optional[dict]) -> None:
+        self._dirty[key] = doc
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            return  # no loop (sync tests): flush() persists later
+        if self._drain_task is None or self._drain_task.done():
+            self._drain_task = loop.create_task(self._drain())
+
+    # -- bus side ------------------------------------------------------
+    async def _drain(self) -> None:
+        while self._dirty:
+            key, doc = next(iter(self._dirty.items()))
+            del self._dirty[key]
+            try:
+                if doc is None:
+                    await self.kv.delete(self.prefix + key)
+                else:
+                    await self.kv.set(self.prefix + key, codec.packb(doc))
+            except Exception as e:  # noqa: BLE001 - durability is best-effort
+                self.persist_errors += 1
+                logx.warn("cold-tier persist failed", key=key, err=str(e))
+
+    async def flush(self) -> None:
+        """Await every pending persist — the deterministic hook tests and
+        the drain path use before asserting on the bus copy."""
+        while self._dirty or (
+            self._drain_task is not None and not self._drain_task.done()
+        ):
+            if self._drain_task is not None and not self._drain_task.done():
+                await self._drain_task
+            elif self._dirty:
+                await self._drain()
+
+    async def load(self) -> int:
+        """Re-populate the RAM mirror from the journal (worker boot, after
+        the bus is up).  A key already live in RAM wins over the journal;
+        an unreadable doc is dropped and counted.  Returns docs loaded."""
+        n = 0
+        for full in await self.kv.keys(self.prefix):
+            key = full[len(self.prefix):]
+            if key in self:
+                continue
+            raw = await self.kv.get(full)
+            if raw is None:
+                continue
+            try:
+                doc = codec.unpackb(raw)
+            except Exception as e:  # noqa: BLE001 - a bad doc must not block boot
+                self.persist_errors += 1
+                logx.warn("cold-tier doc unreadable", key=key, err=str(e))
+                continue
+            ColdArena.put(self, key, doc)  # mirror only: no re-persist
+            n += 1
+        self.loaded += n
+        if n:
+            logx.info("cold tier restored", docs=n, bytes=self.bytes)
+        return n
 
 
 @dataclass

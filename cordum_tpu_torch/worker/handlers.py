@@ -40,6 +40,7 @@ from ..models import llama as llama_mod
 from ..models.embedder import Embedder, EmbedderConfig, batch_tokenize, token_count
 from ..serving.backend import LlamaServingBackend
 from ..serving.engine import ServingEngine
+from ..serving.tiering import StatebusColdTier
 from .runtime import JobContext, Worker
 from .training import TrainRunner, model_config
 
@@ -421,6 +422,7 @@ def make_serving_engine(
     hibernate_after_s: float = 0.0,
     speculative: bool = True,
     draft_k: int = 0,
+    cold_tier: str = "",
     metrics: Any = None,
 ) -> ServingEngine:
     """Build a continuous-batching serving engine over a paged Llama
@@ -439,7 +441,10 @@ def make_serving_engine(
     The backend's static ragged-step shapes are sized here: ``max_sessions``
     sequence rows over a flat token buffer of ``max_sessions +
     prefill_budget`` slots, so a full decode set always fits and prefill
-    chunks ride the remaining ``prefill_budget`` tokens per step."""
+    chunks ride the remaining ``prefill_budget`` tokens per step.
+    ``cold_tier="statebus"`` (the worker form only) journals hibernated
+    sessions through the worker's store KV (:class:`StatebusColdTier`);
+    the worker binary awaits its ``load()`` after ``start()``."""
     tracer = capacity = None
     if isinstance(compute_or_cfg, GPUCompute):
         compute, worker = compute_or_cfg, worker_or_params
@@ -459,7 +464,7 @@ def make_serving_engine(
         metrics=metrics,
         device=device,
     )
-    return ServingEngine(
+    engine = ServingEngine(
         backend,
         run_blocking=run_blocking or _run_in_default_executor,
         max_sessions=max_sessions,
@@ -475,6 +480,13 @@ def make_serving_engine(
         tracer=tracer,
         capacity=capacity,
     )
+    if cold_tier == "statebus" and engine.tiering is not None:
+        if tracer is None:
+            raise ValueError("cold_tier='statebus' needs the worker form "
+                             "make_serving_engine(compute, worker)")
+        engine.tiering.arena = StatebusColdTier(
+            worker_or_params.store.kv, worker_id=worker_or_params.worker_id)
+    return engine
 
 
 def attach_default_gpu_worker(
@@ -494,6 +506,7 @@ def attach_default_gpu_worker(
     serving_hibernate_after_s: float = 0.0,
     serving_speculative: bool = True,
     serving_draft_k: int = 0,
+    serving_cold_tier: str = "",
     metrics=None,
     **kw,
 ) -> GPUCompute:
@@ -521,6 +534,7 @@ def attach_default_gpu_worker(
             hibernate_after_s=serving_hibernate_after_s,
             speculative=serving_speculative,
             draft_k=serving_draft_k,
+            cold_tier=serving_cold_tier,
             metrics=metrics,
         ))
     return compute

@@ -27,12 +27,7 @@ their largest value (the kernels sum over up to 2048 keys, and dK/dV over 4
 query heads, in another order).  Further ``gpu`` cases: T at the edges of
 the Hopper kernels' tiles (1 .. 2048) with 1, 4 and 8 query heads a KV head,
 positions of two packed sequences with a row at -1, and two backward calls
-that must give the same bits.  These bf16 cases also pass a tensor
-within twice the worst row of the kernels' specified numerics
-(``_spec_numerics``): at hd 64, 4 heads a KV head, T 64, a row whose
-weight sits on three keys has a dq beyond the plain version's gate under
-the specified numerics themselves (a CPU test shows it), in the first
-design's kernels as in these.  bf16 is held row by row by
+that must give the same bits.  bf16 is held row by row by
 ``chip_smoke.py``'s gate (``bf16_row_gate``): a long row's output and a
 late key's dk and dv are small beside their tensor's largest value, so a
 gate on that largest value would pass a wrong row.  For each query row of
@@ -152,16 +147,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         da.dense_attention_fwd(q, k, v, pos)
 
 
-def test_backward_wrapper_takes_out_lo_with_bf16_only():
-    q, k, v, do, pos = (torch.from_numpy(x) for x in _case(1, 5, 1, 2, 16))
-    lse = torch.zeros(1, 2, 5)
-    bq, bk, bv, bdo = (x.to(torch.bfloat16) for x in (q, k, v, do))
-    with pytest.raises(ValueError, match="out_lo goes with bf16"):
-        da.dense_attention_bwd(bq, bk, bv, pos, bq, lse, None, bdo)
-    with pytest.raises(ValueError, match="out_lo goes with bf16"):
-        da.dense_attention_bwd(q, k, v, pos, q, lse, q, do)
-
-
 # ---------------------------------------------------------------------------
 # the kernels on the card
 # ---------------------------------------------------------------------------
@@ -175,13 +160,9 @@ def _row_gate(got, plain, exact):
                                       for xs in (got, plain, exact)))
 
 
-def _kernel_vs_plain(b, t, kvh, rep, hd, dtype, *, seed=0, positions=None, spec=False):
+def _kernel_vs_plain(b, t, kvh, rep, hd, dtype, *, seed=0, positions=None):
     """The kernels against the plain version on the card (see the module
-    note).  ``spec``: in bf16, a tensor also passes within twice the worst
-    row of the kernels' specified numerics (:func:`_spec_numerics`) plus
-    2^-9: where a row's weight sits on a few keys, D = rowsum(dO * O) from
-    an output built with bf16-rounded weights is off by a bf16 ulp of
-    |dO| |V| against dP, and dq is that size itself."""
+    note)."""
     q, k, v, do, pos = _case(b, t, kvh, rep, hd, seed=seed, positions=positions)
     before = (da.dense_attention_fwd.launches, da.dense_attention_bwd.launches)
     got = _torch_grads(q, k, v, do, pos, dtype, device="cuda")
@@ -204,34 +185,24 @@ def _kernel_vs_plain(b, t, kvh, rep, hd, dtype, *, seed=0, positions=None, spec=
         return
     exact = _plain_on_card(*rounded, pos, torch.float32)
     gate = _row_gate(got, want, exact)
-    if spec:
-        import chip_smoke
-
-        own = _spec_numerics(*rounded, pos)
-        dv_scale = float(np.abs(exact[3]).max())
-        for name, o, e in zip(("out", "dq", "dk", "dv"), own, exact):
-            g = gate[name]
-            scale = float(np.abs(e).max()) or dv_scale
-            worst = chip_smoke.worst_row(torch.from_numpy(o), torch.from_numpy(e), scale)
-            g["spec"] = worst
-            g["ok"] = g["ok"] or g["kernel"] <= (chip_smoke.DENSE_ROW_FACTOR * worst
-                                                 + chip_smoke.DENSE_ROW_SLACK)
     assert all(g["ok"] for g in gate.values()), gate
 
 
-def _spec_numerics(q, k, v, do, pos, device="cuda"):
+def _spec_numerics(q, k, v, do, pos, *, d_from="weights"):
     """Out, dq, dk, dv as the head comment of ``csrc/dense_attention.cu``
-    specifies the bf16 kernels, in plain torch on ``device`` (fp32 numpy in,
+    specifies the bf16 kernels, in plain torch on the CPU (fp32 numpy in,
     the values bf16-exact; fp32 numpy out): scores rounded to bf16 then
     scaled; weights exp(s - max) rounded to bf16 for PV, their fp32 sum
-    divided out; out and its rounding residual; P = exp(s - lse) in fp32,
-    dP unrounded, D = rowsum(dO * (out + out_lo)); dS = P (dP - D) scale
-    rounded to bf16; dV from the bf16 weights P.  A row at a negative
-    position attends uniformly and sends no dS; one softmax over all keys
-    (the kernels' online softmax rounds at the running max of a tile)."""
+    divided out; P = exp(s - lse) in fp32, dP unrounded, D = sum_k P dP
+    over the row's live keys; dS = P (dP - D) scale rounded to bf16; dV
+    from the bf16 weights P.  ``d_from="output"`` takes D as the earlier
+    kernels did instead, rowsum(dO * (out + out_lo)) with out_lo the
+    output's rounding residual.  A row at a negative position attends
+    uniformly and sends no dS; one softmax over all keys (the kernels'
+    online softmax rounds at the running max of a tile)."""
     bf = torch.bfloat16
-    q, k, v, do = (torch.from_numpy(x).to(device) for x in (q, k, v, do))
-    pos_t = torch.from_numpy(pos).to(device).long()
+    q, k, v, do = (torch.from_numpy(x) for x in (q, k, v, do))
+    pos_t = torch.from_numpy(pos).long()
     t, h, hd = q.shape[1], q.shape[2], q.shape[3]
     rep = h // k.shape[2]
     kh, vh = (x.repeat_interleave(rep, 2) for x in (k, v))
@@ -247,10 +218,13 @@ def _spec_numerics(q, k, v, do, pos, device="cuda"):
     l = w.sum(-1, keepdim=True)
     o32 = torch.einsum("bhqk,bkhd->bqhd", w.to(bf).float(), vh) / l.squeeze(-1).transpose(1, 2)[..., None]
     out = o32.to(bf).float()
-    out_lo = (o32 - out).to(bf).float()
     prob = torch.exp(s - (m + torch.log(l)))
     dp = torch.einsum("bqhd,bkhd->bhqk", do, vh)
-    d = (do * (out + out_lo)).sum(-1).transpose(1, 2)[..., None]
+    if d_from == "weights":
+        d = torch.where(live, prob * dp, 0.0).sum(-1, keepdim=True)
+    else:
+        out_lo = (o32 - out).to(bf).float()
+        d = (do * (out + out_lo)).sum(-1).transpose(1, 2)[..., None]
     ds = torch.where(live, prob * (dp - d) * scale, 0.0).to(bf).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh).to(bf).float()
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
@@ -258,7 +232,7 @@ def _spec_numerics(q, k, v, do, pos, device="cuda"):
     b, kvh = k.shape[0], k.shape[2]
     dk = dk.reshape(b, t, kvh, rep, hd).sum(3).to(bf).float()
     dv = dv.reshape(b, t, kvh, rep, hd).sum(3).to(bf).float()
-    return [x.cpu().numpy() for x in (out, dq, dk, dv)]
+    return [x.numpy() for x in (out, dq, dk, dv)]
 
 
 def _plain_on_card(q, k, v, do, pos, dtype):
@@ -302,11 +276,15 @@ def test_row_gate_refuses_a_wrong_row_the_max_gate_passes(fault, caught):
     assert {name for name, g in gate.items() if not g["ok"]} == caught
 
 
-def _kernel_dq_emulation(q, k, v, do, *, residual):
+def _kernel_dq_emulation(q, k, v, do, *, d_from):
     """dq as the bf16 kernels compute it, in plain torch (causal, positions
-    ``arange``): scores rounded to bf16, fp32 softmax, dP unrounded, D =
-    rowsum(dO * O) with O the bf16 output plus, if ``residual``, its
-    rounding residual ``out_lo``, dS rounded to bf16 before dS K."""
+    ``arange``): scores rounded to bf16, fp32 softmax, dP unrounded, dS
+    rounded to bf16 before dS K, and the softmax gradient's D from
+    ``d_from``: ``"weights"``, sum_k P dP (the kernels' D pass);
+    ``"output"``, rowsum(dO * O) with O the bf16 output, built as the
+    forward builds it (weights exp(s - max) rounded to bf16 for PV, their
+    fp32 sum divided out); ``"output+lo"``, the same with O plus its
+    rounding residual (the earlier kernels)."""
     t, hd = q.shape[1], q.shape[3]
     rep = q.shape[2] // k.shape[2]
     kf, vf = (x.repeat_interleave(rep, 2).float() for x in (k, v))
@@ -315,48 +293,79 @@ def _kernel_dq_emulation(q, k, v, do, *, residual):
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf).to(torch.bfloat16).float() * scale
     s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), float("-inf"))
     p = torch.softmax(s, -1)
-    o32 = torch.einsum("bhqk,bkhd->bqhd", p, vf)
-    o = o32.to(torch.bfloat16).float()
-    if residual:
-        o = o + (o32 - o).to(torch.bfloat16).float()
-    d = (dof * o).sum(-1).transpose(1, 2)[..., None]
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    if d_from == "weights":
+        d = (p * dp).sum(-1, keepdim=True)
+    else:
+        w = torch.exp(s - s.amax(-1, keepdim=True))
+        o32 = torch.einsum("bhqk,bkhd->bqhd", w.to(torch.bfloat16).float(), vf)
+        o32 = o32 / w.sum(-1).transpose(1, 2)[..., None]
+        o = o32.to(torch.bfloat16).float()
+        if d_from == "output+lo":
+            o = o + (o32 - o).to(torch.bfloat16).float()
+        d = (dof * o).sum(-1).transpose(1, 2)[..., None]
     ds = (p * (dp - d) * scale).to(torch.bfloat16).float()
     return torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("residual", [True, False], ids=["with-out-lo", "without"])
-def test_backward_d_needs_the_output_residual(residual):
-    """Where a row's weight sits on few keys, dP - D cancels, and D =
-    rowsum(dO * O) from the bf16 output alone is off by a bf16 ulp of
-    |dO| |O|, the size of such a row's dq: the row gate refuses that dq.
-    With the residual the forward writes (``out_lo``) added back, dq is as
-    near the exact result as the bf16 plain version's."""
-    q, k, v, do, pos = _case(1, 512, 1, 2, 128, seed=0)
+#: (b, t, kvh, rep, hd, seed): long rows (T 512, hd 128), and the tile-edge
+#: case whose three-key row the earlier kernels' D failed (hd 64, 4 query
+#: heads a KV head, T 64)
+D_CASES = {"long-rows": (1, 512, 1, 2, 128, 0), "short-row": (1, 64, 1, 4, 64, 3 * 64 + 4 + 64)}
+
+
+def _dq_gate(case, d_from):
+    b, t, kvh, rep, hd, seed = D_CASES[case]
+    q, k, v, do, pos = _case(b, t, kvh, rep, hd, seed=seed)
     bf = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do)]
     rounded = [x.float().numpy() for x in bf]
     exact = _torch_grads(*rounded, pos, torch.float32)
     plain = _torch_grads(*rounded, pos, torch.bfloat16)
-    got = [plain[0], _kernel_dq_emulation(*bf, residual=residual).float().numpy(), *plain[2:]]
-    assert _row_gate(got, plain, exact)["dq"]["ok"] == residual
+    got = [plain[0], _kernel_dq_emulation(*bf, d_from=d_from).float().numpy(), *plain[2:]]
+    return _row_gate(got, plain, exact)["dq"]
+
+
+@pytest.mark.parametrize("case", sorted(D_CASES))
+def test_backward_d_from_the_weights_passes_the_row_gate(case):
+    """D = sum_k P dP from the weights the backward forms, as the plain
+    version's autograd takes it from its own probabilities: dq is within
+    the row gate on long rows and on a row whose weight sits on few keys,
+    where dP - D cancels down to any mismatch in D."""
+    gate = _dq_gate(case, "weights")
+    assert gate["ok"], gate
+
+
+@pytest.mark.parametrize("case, d_from", [("long-rows", "output"), ("short-row", "output+lo")])
+def test_backward_d_from_the_output_fails_the_row_gate(case, d_from):
+    """D = rowsum(dO * O) from the bf16 output alone is off by a bf16 ulp of
+    |dO| |O|, the size of a short row's dq, and the row gate refuses it at
+    T 512; with the output's rounding residual added back it passes there,
+    but the output was built from weights rounded to bf16, and the
+    three-key row of the short case still fails."""
+    gate = _dq_gate(case, d_from)
+    assert not gate["ok"], gate
+    if d_from == "output+lo":
+        assert _dq_gate("long-rows", d_from)["ok"]
 
 
 def test_specified_numerics_fail_the_plain_row_gate_on_a_short_row():
-    """Why the tile-edge ``gpu`` tests also accept twice the error of the
-    kernels' specified numerics: emulated on the CPU at hd 64, 4 query heads
-    a KV head, T 64 (that test's case), the row at position 2 (three keys)
-    has a dq beyond the plain version's row gate, while out, dk and dv
-    pass.  D = rowsum(dO * O) comes from an output built with bf16-rounded
-    weights, and on a row whose weight sits on few keys dP - D cancels down
-    to that mismatch; the plain version's autograd takes D from its own
-    probabilities."""
-    q, k, v, do, pos = _case(1, 64, 1, 4, 64, seed=3 * 64 + 4 + 64)
+    """The earlier specified numerics (D = rowsum(dO * (out + out_lo))) fail
+    the plain version's row gate on a short row, and the kernels' specified
+    numerics now pass it: emulated on the CPU at hd 64, 4 query heads a KV
+    head, T 64 (a tile-edge case), the row at position 2 (three keys) had a
+    dq beyond the gate, because dP - D cancels down to the mismatch between
+    D and that row's own sum of P dP.  With D = sum_k P dP every tensor
+    passes."""
+    b, t, kvh, rep, hd, seed = D_CASES["short-row"]
+    q, k, v, do, pos = _case(b, t, kvh, rep, hd, seed=seed)
     rounded = [torch.from_numpy(x).to(torch.bfloat16).float().numpy() for x in (q, k, v, do)]
     exact = _torch_grads(*rounded, pos, torch.float32)
     plain = _torch_grads(*rounded, pos, torch.bfloat16)
-    gate = _row_gate(_spec_numerics(*rounded, pos, device="cpu"), plain, exact)
-    assert not gate["dq"]["ok"], gate["dq"]
-    assert all(gate[name]["ok"] for name in ("out", "dk", "dv")), gate
+    old = _row_gate(_spec_numerics(*rounded, pos, d_from="output"), plain, exact)
+    assert not old["dq"]["ok"], old["dq"]
+    assert all(old[name]["ok"] for name in ("out", "dk", "dv")), old
+    new = _row_gate(_spec_numerics(*rounded, pos), plain, exact)
+    assert all(g["ok"] for g in new.values()), new
 
 
 def _need_card():
@@ -414,7 +423,7 @@ def test_kernel_at_tile_edges_on_card(hd, rep, t, dtype):
     """T at the tile edges, with 1, 4 and 8 query heads a KV head (the
     forward and dQ rows pack that many heads a position)."""
     _need_card()
-    _kernel_vs_plain(1, t, 1, rep, hd, dtype, seed=3 * hd + rep + t, spec=True)
+    _kernel_vs_plain(1, t, 1, rep, hd, dtype, seed=3 * hd + rep + t)
 
 
 @pytest.mark.gpu
@@ -429,7 +438,7 @@ def test_kernel_with_packed_sequences_on_card(hd, rep, dtype):
     row = np.concatenate([np.arange(100), np.arange(t - 100)]).astype(np.int32)
     pos = np.stack([row, np.roll(row, 37)])
     pos[1, 150] = -1
-    _kernel_vs_plain(2, t, 2, rep, hd, dtype, seed=hd + rep, positions=pos, spec=True)
+    _kernel_vs_plain(2, t, 2, rep, hd, dtype, seed=hd + rep, positions=pos)
 
 
 @pytest.mark.gpu

@@ -21,7 +21,8 @@ The tile sizes are read from the CUDA source, so the emulation follows it.
 Checks: on random T, group sizes and positions (negative ones and ones past
 T included), every contributing (query, key) pair is visited exactly once,
 a skipped tile holds none and an open tile holds only live pairs; and a
-tiled fp32 emulation of the forward and backward over exactly the visited
+tiled fp32 emulation of the forward and backward (with bf16's D pass:
+sum_k P dP a row over the dQ schedule) over exactly the visited
 tiles, masking only the tiles the kernel masks, equals the plain version at
 1e-5 of each tensor's largest value (the sums run in another order).
 """
@@ -229,35 +230,46 @@ def tiled_forward(q, k, v, pos):
     return out, lse
 
 
-def tiled_backward(q, k, v, pos, out, lse, do):
-    """(dq, dk, dv) over the dQ and dK/dV schedules, from the saved lse."""
+def tiled_backward(q, k, v, pos, lse, do):
+    """(dq, dk, dv) over the D, dQ and dK/dV schedules, from the saved lse:
+    the D pass (sum_k P dP a row, bf16's D) sweeps the dQ schedule without
+    its product, so a key tile it skipped would leave D short."""
     b_, t_len, h, hd = q.shape
     kvh = k.shape[2]
     rep = h // kvh
     scale = 1 / math.sqrt(hd)
-    dmat = (do * out).sum(-1).transpose(1, 2)  # D [B, H, T]
+    dmat = torch.zeros(b_, h, t_len)  # D [B, H, T]
     dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for d_pass in (True, False):
+        for b in range(b_):
+            for t0, t1, h0, g in consumers(t_len, h, kvh):
+                rows = pos[b, t0:t1]
+                visited, open_ = key_tiles(rows.numpy(), t_len, DQ_KEYS, dq=True)
+                kv = h0 // rep
+                qr = q[b, t0:t1, h0:h0 + g].reshape(-1, hd)
+                dor = do[b, t0:t1, h0:h0 + g].reshape(-1, hd)
+                pr = rows.repeat_interleave(g)
+                lr = lse[b, h0:h0 + g, t0:t1].T.reshape(-1)
+                dr = dmat[b, h0:h0 + g, t0:t1].T.reshape(-1)
+                acc = torch.zeros(len(pr), hd)
+                dsum = torch.zeros(len(pr))
+                for j in visited:
+                    keys = torch.arange(j * DQ_KEYS, (j + 1) * DQ_KEYS)
+                    kt = k[b, keys.clamp(max=t_len - 1), kv] * (keys < t_len)[:, None]
+                    vt = v[b, keys.clamp(max=t_len - 1), kv] * (keys < t_len)[:, None]
+                    prob = torch.exp(qr @ kt.T * scale - lr[:, None])
+                    if j not in open_:
+                        live = _mask(pr, keys, t_len) & (pr[:, None] >= 0)
+                        prob = torch.where(live, prob, 0.0)
+                    if d_pass:
+                        dsum += (prob * (dor @ vt.T)).sum(1)
+                    else:
+                        acc += prob * (dor @ vt.T - dr[:, None]) * scale @ kt
+                if d_pass:
+                    dmat[b, h0:h0 + g, t0:t1] = dsum.reshape(t1 - t0, g).T
+                else:
+                    dq[b, t0:t1, h0:h0 + g] = acc.reshape(t1 - t0, g, hd)
     for b in range(b_):
-        for t0, t1, h0, g in consumers(t_len, h, kvh):
-            rows = pos[b, t0:t1]
-            visited, open_ = key_tiles(rows.numpy(), t_len, DQ_KEYS, dq=True)
-            kv = h0 // rep
-            qr = q[b, t0:t1, h0:h0 + g].reshape(-1, hd)
-            dor = do[b, t0:t1, h0:h0 + g].reshape(-1, hd)
-            pr = rows.repeat_interleave(g)
-            lr = lse[b, h0:h0 + g, t0:t1].T.reshape(-1)
-            dr = dmat[b, h0:h0 + g, t0:t1].T.reshape(-1)
-            acc = torch.zeros(len(pr), hd)
-            for j in visited:
-                keys = torch.arange(j * DQ_KEYS, (j + 1) * DQ_KEYS)
-                kt = k[b, keys.clamp(max=t_len - 1), kv] * (keys < t_len)[:, None]
-                vt = v[b, keys.clamp(max=t_len - 1), kv] * (keys < t_len)[:, None]
-                prob = torch.exp(qr @ kt.T * scale - lr[:, None])
-                ds = prob * (dor @ vt.T - dr[:, None]) * scale
-                if j not in open_:
-                    ds = torch.where(_mask(pr, keys, t_len) & (pr[:, None] >= 0), ds, 0.0)
-                acc += ds @ kt
-            dq[b, t0:t1, h0:h0 + g] = acc.reshape(t1 - t0, g, hd)
         for kv in range(kvh):
             for kc, items in dkv_items(pos[b].numpy(), t_len, rep):
                 keys = torch.arange(kc, min(kc + 64, t_len))
@@ -316,7 +328,7 @@ def test_tiled_emulation_matches_plain_version(hd, rep, kind):
     pos = _positions(kind, b, t_len, seed=hd + rep)
     q, k, v, do, pos_t = _case(b, t_len, kvh, rep, hd, pos, seed=7 * hd + rep)
     out, lse = tiled_forward(q, k, v, pos_t)
-    grads = tiled_backward(q, k, v, pos_t, out, lse, do)
+    grads = tiled_backward(q, k, v, pos_t, lse, do)
     qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
     ref = da.dense_attention_reference(qr, kr, vr, pos_t)
     ref_grads = torch.autograd.grad(ref, (qr, kr, vr), do)

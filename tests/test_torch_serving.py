@@ -201,12 +201,16 @@ def _imports(path: Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted((REPO / "cordum_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """Every import statement of the port, ``chip_smoke.py`` and
+    ``chip_ab.py``, lazy ones inside functions included: no JAX, nothing of
+    the JAX package and no ``msgpack`` (the port carries its own codec)."""
+    files = sorted((REPO / "cordum_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "chip_ab.py"]
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "cordum_tpu", "flax", "optax"), (f, mod)
+            assert top not in ("jax", "jaxlib", "cordum_tpu", "flax", "optax", "msgpack"), (f, mod)
 
 
 def test_port_imports_with_jax_blocked():
@@ -221,7 +225,7 @@ import cordum_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(cordum_tpu_torch.__path__, 'cordum_tpu_torch.')]
 for m in mods:
     importlib.import_module(m)
-import chip_smoke
+import chip_smoke, chip_ab
 assert not any(k.split('.')[0] in ('jax', 'cordum_tpu', 'msgpack') for k in sys.modules)
 print(len(mods))
 """
