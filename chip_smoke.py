@@ -80,6 +80,30 @@ Every phase raises on failure.  Phases:
    kernel launches are the worker process's own (its exit line).  Prints
    echo jobs/s, p50 dispatch→result per op, embeds/s and TTFT p50 beside
    phase 6's (informational).  Both processes are stopped on every path.
+9. The MoE family, once phase 8 is done.  (1) The MoE kernels (B7: the
+   route, the slot gather plain and scaled, the token gather weighted,
+   unweighted and as a dot; a kernel row each) against the plain versions
+   (the reference's sort, cumsum and dense one-hot einsums, and autograd
+   of them) at Mixtral-8x7B's layer widths on the Llama-3-8B base (N 8192
+   = B 4 x T 2048, D 4096, 8 experts, top 2, capacity 2560), bf16 and
+   fp32, forward
+   and backward, each backward twice (the same bits); then a capacity-drop
+   case (capacity factor 0.25, three quarters of the tokens routed to one
+   expert) and an exact-tie case; times against the bounds, the plain
+   versions and the library calls (``index_select`` for the dispatch,
+   ``embedding_bag`` for d_out, the combine and the dispatch backward; no
+   one call computes the route or d_w).  (2) An fp32 oracle at those
+   widths, depth cut to 2 layers, B 2, T 256: ``moe.loss_fn`` and every
+   gradient on the kernel path (B7 + B9) against the plain path, one copy
+   of the params, no optimizer step; at capacity factor 1.25 and again at
+   0.5, where layer 0 drops slots to the residual path.  (3)
+   A bf16 run at the same widths and cut, B 4, T 2048, 10 steps on one
+   batch: the loss falls; step p50, tokens/s, peak memory, then two steps
+   under ``torch.profiler`` with B7's and B9's shares of device time.  (4)
+   ``train`` jobs through a port worker: ``moe-tiny`` (B 8, T 128, 6 steps,
+   a checkpoint every 2) cancelled after step 2 and resumed, then ``moe``;
+   result keys as the reference's, the mesh's ``ep`` 1.  B7 and B9 launches
+   equal layers x steps in (2)-(4).
 
 Tolerances (kernel vs plain version, max abs error), paged attention:
 fp32 1e-4 — the sums run in another order over up to 8192 keys, on O(1)
@@ -121,6 +145,17 @@ steps (Adam moves an element by about lr * sign(g), so a gradient within
 fp32 noise of 0 flips an update by 2 lr a step), and at most a 1e-4 share
 of the elements further apart than 1e-6.
 
+MoE kernels (phase 9): the route, the dispatch and the combine backward's
+d_out equal to the plain version's (indices; a gather; one fp32 product
+rounded once); the combine and the dispatch backward, fp32 sums of k terms
+in another order rounded once to the dtype, within 2^-22 of the sum of the
+terms' magnitudes plus one ulp of the dtype (2^-7 bf16, 2^-23 fp32,
+relative to the plain value); d_w, a D-long fp32 dot in another order,
+within 1e-4 of the sum of its products' magnitudes (two orders' worst case
+2 D 2^-24 = 4.9e-4 at D 4096, typical sqrt(D) 2^-24 = 3.8e-6).  fp32 MoE
+oracle: the loss within 1e-5 relative, each gradient within 1e-4 of its
+largest |value| (B9's fp32 gate).
+
 Near-tie rule of phase 3, fixed before any run: tokens are compared up to
 the first generated position where the oracle's top-2 logits differ by
 less than 1e-4 (fp32 sums in another order may flip such a tie); the
@@ -157,12 +192,23 @@ EMBED_KERNEL_ATOL = {"float32": 1e-5, "bfloat16": 6e-2}
 EMBED_ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 NEAR_TIE = 1e-4
 SEED = 0
+#: B7's launch modes, a kernel row each: wrapper → what it computes on the
+#: MoE path, where each is launched once a layer a step
+MOE_KERNELS = {
+    "moe_route": "route",
+    "moe_slot_gather": "dispatch forward",
+    "moe_slot_gather_scaled": "combine backward d_out",
+    "moe_token_gather": "combine forward",
+    "moe_token_sum": "dispatch backward",
+    "moe_token_dot": "combine backward d_w",
+}
 #: kernel row → (its module under cordum_tpu_torch.ops, the JAX-side function it replaces)
 KERNELS = {
     "paged_attention": ("paged_attention", "cordum_tpu/models/llama.py:467"),
     "embed_attention": ("embed_attention", "cordum_tpu/models/embedder.py:123"),
     "dense_attention_fwd": ("dense_attention", "cordum_tpu/models/llama.py:179-197"),
     "dense_attention_bwd": ("dense_attention", "cordum_tpu/models/llama.py:179-197"),
+    **{name: ("moe_dispatch", "cordum_tpu/models/moe.py:73-113") for name in MOE_KERNELS},
 }
 
 
@@ -347,7 +393,8 @@ def measure_paged(torch, dev, card, case, name, tag, flush):
 def device_split(torch, fn, flush, *, calls=10):
     """Device time per call of each CUDA kernel ``fn`` launches, from
     ``torch.profiler`` over ``calls`` calls (the L2 flushes left out):
-    what a kernel's time is made of.  Informational."""
+    what a kernel's time is made of.  Informational: "not measured" when
+    the profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -362,7 +409,8 @@ def device_split(torch, fn, flush, *, calls=10):
             key = e.key.replace("(anonymous namespace)::", "")
             name = key.split("(")[0].split("<")[0].split()[-1].split("::")[-1]
             per[name] = per.get(name, 0.0) + us / calls
-    return ", ".join(f"{k} {v:.1f}" for k, v in sorted(per.items(), key=lambda kv: -kv[1]))
+    return ", ".join(f"{k} {v:.1f}" for k, v in sorted(per.items(), key=lambda kv: -kv[1])) \
+        or "not measured (the profiler recorded no device time)"
 
 
 def kernel_rows(prof):
@@ -875,11 +923,16 @@ def launch_counters():
     """Each kernel row's launch counter (the wrapper's ``launches``)."""
     from cordum_tpu_torch.ops import dense_attention as da
     from cordum_tpu_torch.ops import embed_attention as ea
+    from cordum_tpu_torch.ops import moe_dispatch as md
     from cordum_tpu_torch.ops import paged_attention as pa
 
     return {"paged_attention": pa.paged_attention, "embed_attention": ea.embed_attention,
             "dense_attention_fwd": da.dense_attention_fwd,
-            "dense_attention_bwd": da.dense_attention_bwd}
+            "dense_attention_bwd": da.dense_attention_bwd,
+            "moe_route": md.moe_route_kernel, "moe_slot_gather": md.moe_slot_gather,
+            "moe_slot_gather_scaled": md.moe_slot_gather_scaled,
+            "moe_token_gather": md.moe_token_gather, "moe_token_sum": md.moe_token_sum,
+            "moe_token_dot": md.moe_token_dot}
 
 
 def zero_launches():
@@ -1550,10 +1603,11 @@ def phase_train_bf16(torch, dev, card, cfg, *, batch=4, seq=2048, steps=10):
     return launches
 
 
-def profile_train(torch, card, one_step, *, steps=2):
+def profile_train(torch, card, one_step, *, steps=2, families=("dense_attention",)):
     """Where a train step's device time goes: ``steps`` steps under
-    ``torch.profiler``; the device's busy share of the window, the dense
-    kernels' share of device time and the top kernels.  Informational."""
+    ``torch.profiler``; the device's busy share of the window, the share of
+    device time of the kernels whose names hold each of ``families`` and
+    the top kernels.  Informational."""
     from torch.profiler import ProfilerActivity, profile
 
     saved = read_launches()
@@ -1571,21 +1625,26 @@ def profile_train(torch, card, one_step, *, steps=2):
         log("[profile-train] the profiler recorded no device time")
         return
     rows.sort(key=lambda r: -r[1])
-    attn = sum(r[1] for r in rows if "dense_attention" in r[0])
+    shares = []
+    for family in families:
+        us = sum(r[1] for r in rows if family in r[0])
+        shares.append(f"{family} kernels {us / 1e3:.2f} ms ({100 * us / total:.1f}% of device "
+                      f"time)")
     log(f"[profile-train] {steps} steps: wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{total / 1e3:.1f} ms ({100 * total / wall_us:.1f}% of wall), dense_attention kernels "
-        f"{attn / 1e3:.2f} ms ({100 * attn / total:.1f}% of device time)  [{card}]")
+        f"{total / 1e3:.1f} ms ({100 * total / wall_us:.1f}% of wall), {', '.join(shares)}  "
+        f"[{card}]")
     for key, us, count in rows[:8]:
         log(f"[profile-train]   {us / 1e3:9.2f} ms {100 * us / total:5.1f}%  x{count:<6d} {key[:90]}")
 
 
-async def drive_train_worker(torch, dev, card, ckpt_root, *, batch=8, seq=2048):
-    """``train`` jobs through a port worker: a ``llama`` run of 6 steps
-    checkpointed every 2, cancelled after step 2 (the cancel is sent when
-    step 2 reports, and the runner waits for it before step 3, so it lands
-    there whatever the timing), re-dispatched to resume from step 2 and
-    finish; then a ``llama-tiny`` run without checkpoints."""
-    from cordum_tpu_torch.models import llama
+async def run_train_jobs(torch, dev, ckpt_root, worker_id, payload, other_payload):
+    """``train`` jobs through a port worker: ``payload`` (checkpointed
+    every 2 steps) cancelled after step 2 (the cancel is sent when step 2
+    reports, and the runner waits for it before step 3, so it lands there
+    whatever the timing), re-dispatched to resume from step 2 and finish;
+    then ``other_payload``.  Returns the three results, the launches of the
+    whole run and the checkpointed steps; raises unless the results have the
+    reference's keys and the cut and the resume happened as described."""
     from cordum_tpu_torch.worker import handlers
     from cordum_tpu_torch.worker.training import CheckpointDir, TrainRunner
 
@@ -1604,12 +1663,9 @@ async def drive_train_worker(torch, dev, card, ckpt_root, *, batch=8, seq=2048):
 
             return super().train(payload, cancelled=cancelled, progress=report_then_wait)
 
-    w, _, sched = make_port_worker(torch, dev, "w-train", ckpt_root=ckpt_root)
+    w, _, sched = make_port_worker(torch, dev, worker_id, ckpt_root=ckpt_root)
     await sched.start()
     await w.start()
-    payload = {"op": "train", "model": "llama", "steps": 6, "batch": batch, "seq": seq,
-               "checkpoint_every": 2, "run_name": "phase7"}
-    tiny_payload = {"op": "train", "model": "llama-tiny", "steps": 3, "batch": 4, "seq": 64}
 
     async def cancel_at_step_2(pr):
         if pr.message.startswith("step 2/"):
@@ -1625,23 +1681,40 @@ async def drive_train_worker(torch, dev, card, ckpt_root, *, batch=8, seq=2048):
             handlers.TrainRunner = TrainRunner
         sched.on_progress = None
         [(_, second)] = await sched.run([payload], "train")
-        [(_, tiny)] = await sched.run([tiny_payload], "train-tiny")
+        [(_, other)] = await sched.run([other_payload], "train-other")
         torch.cuda.synchronize()
         n = read_launches()
     finally:
         await w.stop()
-    for doc in (first, second, tiny):
+    for doc in (first, second, other):
         if set(doc) != TRAIN_RESULT_KEYS:
             raise AssertionError(f"train result keys {sorted(doc)} != the reference's")
+    steps = payload["steps"]
     if first["completed"] or first["steps_done"] != 2 or first["resumed_from"] != 0:
         raise AssertionError(f"the cancelled train job: {first}")
-    if second["resumed_from"] != 2 or second["steps_done"] != 6 or not second["completed"]:
+    if second["resumed_from"] != 2 or second["steps_done"] != steps or not second["completed"]:
         raise AssertionError(f"the re-dispatched train job: {second}")
-    if not tiny["completed"] or tiny["checkpointed"] or not math.isfinite(tiny["final_loss"]):
+    if not other["completed"] or not math.isfinite(other["final_loss"]):
+        raise AssertionError(f"the {other_payload['model']} train job: {other}")
+    saved = CheckpointDir(os.path.join(ckpt_root, payload["run_name"])).steps()
+    if saved != list(range(2, steps + 1, 2))[-3:]:
+        raise AssertionError(f"checkpoints {saved} of a {steps}-step run every 2 steps")
+    return first, second, other, n, saved
+
+
+async def drive_train_worker(torch, dev, card, ckpt_root, *, batch=8, seq=2048):
+    """Phase 7.4: a ``llama`` run of 6 steps checkpointed every 2, cancelled
+    after step 2 and resumed (:func:`run_train_jobs`); then a ``llama-tiny``
+    run without checkpoints."""
+    from cordum_tpu_torch.models import llama
+
+    payload = {"op": "train", "model": "llama", "steps": 6, "batch": batch, "seq": seq,
+               "checkpoint_every": 2, "run_name": "phase7"}
+    tiny_payload = {"op": "train", "model": "llama-tiny", "steps": 3, "batch": 4, "seq": 64}
+    first, second, tiny, n, steps = await run_train_jobs(
+        torch, dev, ckpt_root, "w-train", payload, tiny_payload)
+    if tiny["checkpointed"]:
         raise AssertionError(f"the llama-tiny train job: {tiny}")
-    steps = CheckpointDir(os.path.join(ckpt_root, "phase7")).steps()
-    if steps != [2, 4, 6]:
-        raise AssertionError(f"checkpoints {steps}, [2, 4, 6] expected")
     layers = llama.LlamaConfig().n_layers
     run_steps = first["steps_done"] + second["steps_done"] - second["resumed_from"]
     want = layers * run_steps + llama.LlamaConfig.tiny().n_layers * tiny["steps_done"]
@@ -1899,6 +1972,496 @@ def phase_worker_process(torch, dev, card, numbers6):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the MoE family (B7)
+# ---------------------------------------------------------------------------
+
+#: phase 9's tokens a step at the main shape: B 4 x T 2048 (capacity 2560
+#: at Mixtral-8x7B's 8 experts, top 2, capacity factor 1.25)
+MOE_BATCH, MOE_SEQ = 4, 2048
+#: B7 vs its plain version on the same inputs.  The route, the dispatch and
+#: the combine backward's d_out must be equal (indices; a gather; one fp32
+#: product rounded once).  The combine forward and the dispatch backward are
+#: fp32 sums of k terms in another order, each rounded once to the dtype:
+#: within MOE_SUM_ROUNDING of the sum of the terms' magnitudes, plus one ulp
+#: of the dtype (MOE_ULP, relative to the plain value).  d_w is a D-long fp32
+#: dot in another order: within MOE_DW_REL of the sum of its products'
+#: magnitudes (two orders' worst case is 2 D 2^-24 = 4.9e-4 at D 4096, the
+#: typical error sqrt(D) 2^-24 = 3.8e-6).
+MOE_SUM_ROUNDING = 2.0**-22
+MOE_ULP = {"float32": 2.0**-23, "bfloat16": 2.0**-7}
+MOE_DW_REL = 1e-4
+#: phase 9.2, the B7 + B9 path against the plain path in fp32: the loss
+#: (relative), and each gradient's max abs difference over its largest
+#: |value| (B9's fp32 gate: sums over up to 256 keys and over the tokens in
+#: another order, carried through two layers)
+MOE_LOSS_REL = 1e-5
+MOE_GRAD_REL = 1e-4
+
+
+def moe_config():
+    """Mixtral-8x7B's layer widths on the Llama-3-8B base: D 4096, d_ff
+    14336, 8 experts, top 2, capacity factor 1.25."""
+    from cordum_tpu_torch.models import llama, moe
+
+    return moe.MoEConfig(base=llama.LlamaConfig.llama3_8b(), n_experts=8, top_k=2)
+
+
+def moe_case(torch, dev, dtype, *, n=MOE_BATCH * MOE_SEQ, d=4096, e=8, k=2, cf=1.25,
+             kind="random", seed=SEED):
+    """Seeded B7 operands: tokens ``[N, D]``, the fp32 probabilities of a
+    random router over them (``kind`` "drop": three quarters of the tokens
+    pushed to expert 0; "one": all of them; "ties": every other row uniform
+    and every fourth row's top two equal), the capacity, expert outputs
+    ``[E, C, D]`` and the upstream gradients of the combine (``dy``) and of
+    the dispatch (``d_ei``)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randn((n, d), generator=g, device=dev).to(dtype)
+    router = torch.randn((d, e), generator=g, device=dev) / math.sqrt(d)
+    logits = tokens.float() @ router
+    if kind in ("drop", "one"):
+        logits[: n if kind == "one" else 3 * n // 4, 0] += 30.0
+    probs = torch.softmax(logits, dim=-1)
+    if kind == "ties":
+        probs[::2] = 1.0 / e
+        probs[1::4, :2] = probs[1::4].amax(-1, keepdim=True)
+    cap = max(1, int(cf * n * k / e))
+    expert_out = torch.randn((e, cap, d), generator=g, device=dev).to(dtype)
+    dy = torch.randn((n, d), generator=g, device=dev).to(dtype)
+    d_ei = torch.randn((e, cap, d), generator=g, device=dev).to(dtype)
+    return {"tokens": tokens, "probs": probs.contiguous(), "k": k, "cap": cap,
+            "expert_out": expert_out, "dy": dy, "d_ei": d_ei}
+
+
+def routing_weights(torch, probs, route):
+    """``moe_ffn``'s weights: the top-k probabilities renormalised."""
+    w = torch.gather(probs, 1, route.idx.long())
+    return w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+
+
+def kept_rows(torch, rows, route):
+    """``[N, k, D]`` fp32: each slot's row of ``rows [E, C, D]`` (zeros where
+    the slot was dropped)."""
+    pos = torch.where(route.keep, route.pos, 0).long()
+    return rows.float()[route.idx.long(), pos] * route.keep[..., None]
+
+
+def check_moe(torch, case, tag):
+    """The B7 kernels (through their autograd Functions, then each backward
+    kernel once more) against the plain versions (autograd of the
+    reference's einsums) on one case, gated as ``MOE_*`` says; empty
+    capacity rows must be zeros and two calls must give the same bits.
+    Returns the route, the weights and each launch mode's max abs error
+    (``MOE_KERNELS``' names)."""
+    from cordum_tpu_torch.ops import moe_dispatch as md
+
+    probs, k, cap = case["probs"], case["k"], case["cap"]
+    tokens, expert_out, dy, d_ei = (case[x] for x in ("tokens", "expert_out", "dy", "d_ei"))
+    name = str(tokens.dtype).split(".")[-1]
+    route = md.moe_route_kernel(probs, k, cap)
+    again = md.moe_route_kernel(probs, k, cap)
+    plain_route = md.moe_route_reference(probs, k, cap)
+    torch.cuda.synchronize()
+    for field in md.MoERoute._fields:
+        got, want = getattr(route, field), getattr(plain_route, field)
+        if not torch.equal(got, want) or not torch.equal(got, getattr(again, field)):
+            raise AssertionError(f"moe_route ({tag}): {field} differs from the plain version's "
+                                 "or between two calls")
+    w = routing_weights(torch, probs, route)
+    tok, out, wk = (x.clone().requires_grad_() for x in (tokens, expert_out, w))
+    expert_in = md.moe_dispatch(tok, route)
+    y = md.moe_combine(out, wk, route)
+    (d_tokens,) = torch.autograd.grad(expert_in, tok, d_ei)
+    d_out, d_w = torch.autograd.grad(y, (out, wk), dy)
+    twice = (md.moe_token_sum(d_ei, route), md.moe_slot_gather_scaled(dy, route, w),
+             md.moe_token_dot(dy, expert_out, route))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((d_tokens, d_out, d_w), twice)):
+        raise AssertionError(f"moe backward ({tag}): two calls differ")
+    tok_p, out_p, w_p = (x.clone().requires_grad_() for x in (tokens, expert_out, w))
+    ei_p = md.moe_dispatch_reference(tok_p, plain_route)
+    y_p = md.moe_combine_reference(out_p, w_p, plain_route)
+    (d_tokens_p,) = torch.autograd.grad(ei_p, tok_p, d_ei)
+    d_out_p, d_w_p = torch.autograd.grad(y_p, (out_p, w_p), dy)
+    outs = (expert_in, y, d_tokens, d_out, d_w)
+    if not all(torch.isfinite(x).all().item() for x in outs):
+        raise AssertionError(f"moe ({tag}): a value is not finite")
+    errs = {"moe_route": 0.0}
+    for mode, got, want in (("moe_slot_gather", expert_in, ei_p),
+                            ("moe_slot_gather_scaled", d_out, d_out_p)):
+        errs[mode] = (got.float() - want.float()).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"moe {MOE_KERNELS[mode]} ({tag}): not equal to the plain "
+                                 f"version, max abs err {errs[mode]:.3e}")
+        if (got[route.slot_token < 0] != 0).any():
+            raise AssertionError(f"moe {MOE_KERNELS[mode]} ({tag}): an empty capacity row is "
+                                 "not zero")
+    for mode, got, want, mag in (
+            ("moe_token_gather", y, y_p, (kept_rows(torch, expert_out, route).abs()
+                                          * w.abs()[..., None]).sum(1)),
+            ("moe_token_sum", d_tokens, d_tokens_p,
+             kept_rows(torch, d_ei, route).abs().sum(1))):
+        diff = (got.float() - want.float()).abs()
+        limit = MOE_ULP[name] * want.float().abs() + MOE_SUM_ROUNDING * mag
+        if not (diff <= limit).all():
+            worst = (diff - limit).argmax()
+            raise AssertionError(f"moe {MOE_KERNELS[mode]} ({tag}): error "
+                                 f"{diff.flatten()[worst].item():.3e} beyond one rounding "
+                                 f"({limit.flatten()[worst].item():.3e})")
+        errs[mode] = diff.max().item()
+    mag_w = (kept_rows(torch, expert_out, route).abs() * dy.float().abs()[:, None, :]).sum(-1)
+    diff_w = (d_w - d_w_p).abs()
+    if not (diff_w <= MOE_DW_REL * mag_w).all() or (d_w[~route.keep] != 0).any():
+        raise AssertionError(f"moe d_w ({tag}): max err {diff_w.max().item():.3e}, limit "
+                             f"{MOE_DW_REL:g} of the products' magnitudes")
+    errs["moe_token_dot"] = diff_w.max().item()
+    kept = int(route.keep.sum())
+    log(f"[moe-kernel] {tag}: N {tokens.shape[0]}, D {tokens.shape[1]}, E {probs.shape[1]}, "
+        f"k {k}, C {cap}: {kept} of {route.keep.numel()} slots kept, counts "
+        f"{route.counts.tolist()}; route, dispatch and d_out equal to the plain version's; max "
+        f"abs err " + ", ".join(f"{MOE_KERNELS[m]} {errs[m]:.3e}" for m in (
+            "moe_token_gather", "moe_token_sum", "moe_token_dot"))
+        + "; backward bits equal on two calls")
+    del tok, out, wk, tok_p, out_p, w_p, ei_p, y_p, d_tokens_p, d_out_p, d_w_p, outs
+    return route, w, errs
+
+
+def moe_work_of(route, n, d, e, cap, k, el):
+    """(bytes, operations) of each B7 launch mode on this route: each input
+    read once and each output written once, counting only the rows this
+    run's route touches (the tokens with a kept slot, the kept slots'
+    rows); a multiply-add is two operations."""
+    kept = int(route.keep.sum())
+    read_tokens = int(route.keep.any(1).sum())
+    slots, rows_out, tokens_out = n * k, e * cap * d * el, n * d * el
+    return {
+        # probs in; idx, pos, keep, counts, slot_token, slot_k out; E
+        # comparisons a (token, expert)
+        "moe_route": (n * e * 4 + slots * 9 + e * 4 + 2 * e * cap * 4, n * e * e),
+        # slot_token and the routed tokens in, the capacity buffer out
+        "moe_slot_gather": (e * cap * 4 + read_tokens * d * el + rows_out, 0),
+        # slot_token, slot_k, the kept slots' weights and the routed rows of
+        # dy in, the capacity buffer out; a multiply a kept element
+        "moe_slot_gather_scaled": (2 * e * cap * 4 + kept * 4 + read_tokens * d * el
+                                   + rows_out, kept * d),
+        # idx, pos, keep, w and the kept rows in, the tokens out; a
+        # multiply-add a kept element
+        "moe_token_gather": (slots * 13 + kept * d * el + tokens_out, 2 * kept * d),
+        # idx, pos, keep and the kept rows in, the tokens out; an add a kept
+        # element
+        "moe_token_sum": (slots * 9 + kept * d * el + tokens_out, kept * d),
+        # idx, pos, keep, the routed rows of dy and the kept rows in, d_w
+        # out; a multiply-add a kept element
+        "moe_token_dot": (slots * 9 + read_tokens * d * el + kept * d * el + slots * 4,
+                          2 * kept * d),
+    }
+
+
+def measure_moe(torch, dev, card, dtype, flush):
+    """Phase 9.1 for one dtype: the gates on the main shape and on the
+    capacity-drop and exact-tie cases, then each launch mode's time beside
+    its bound, its plain version's (the reference's einsum, or autograd of
+    it for a backward mode) and the library call's.  A mode's error is its
+    worst over the three cases."""
+    import torch.nn.functional as F
+
+    from cordum_tpu_torch.ops import moe_dispatch as md
+
+    name = str(dtype).split(".")[-1]
+    worst = dict.fromkeys(MOE_KERNELS, 0.0)
+    for kind, cf in (("drop", 0.25), ("ties", 1.25), ("main", 1.25)):
+        case = moe_case(torch, dev, dtype, kind="random" if kind == "main" else kind, cf=cf)
+        route, w, errs = check_moe(torch, case, f"{name} {kind}")
+        worst = {mode: max(worst[mode], errs[mode]) for mode in worst}
+        torch.cuda.empty_cache()
+    tokens, probs, k, cap = case["tokens"], case["probs"], case["k"], case["cap"]
+    expert_out, dy, d_ei = case["expert_out"], case["dy"], case["d_ei"]
+    (n, d), e = tokens.shape, probs.shape[1]
+    # the plain backward modes: autograd of the reference's einsums, the
+    # graph built once
+    tok_p, out_p, w_p = (x.clone().requires_grad_() for x in (tokens, expert_out, w))
+    ei_p = md.moe_dispatch_reference(tok_p, route)
+    y_p = md.moe_combine_reference(out_p, w_p, route)
+    # the library yardsticks: index_select over the tokens with a zero row
+    # appended; embedding_bag over bags of one row scaled by its weight
+    # (d_out), and summing each token's kept rows weighted by w or by keep
+    # (in the dtype: embedding_bag takes weights of the table's dtype)
+    rows = torch.where(route.slot_token >= 0, route.slot_token, n).reshape(-1).long()
+    padded = torch.cat([tokens, tokens.new_zeros((1, d))])
+    padded_dy = torch.cat([dy, dy.new_zeros((1, d))])
+    row_w = torch.where(route.slot_token >= 0, w[route.slot_token.clamp_min(0).long(),
+                                                 route.slot_k.clamp_min(0).long()], 0.0)
+    row_w = row_w.reshape(-1, 1).to(dtype)
+    flat = route.idx.long() * cap + torch.where(route.keep, route.pos, 0).long()
+    psw, ones = (w * route.keep).to(dtype), route.keep.to(dtype)
+    table, d_table = expert_out.reshape(e * cap, d), d_ei.reshape(e * cap, d)
+    timed = {
+        "moe_route": (lambda: md.moe_route_kernel(probs, k, cap),
+                      lambda: md.moe_route_reference(probs, k, cap), None),
+        "moe_slot_gather": (lambda: md.moe_slot_gather(tokens, route),
+                            lambda: md.moe_dispatch_reference(tokens, route),
+                            lambda: torch.index_select(padded, 0, rows)),
+        "moe_slot_gather_scaled": (
+            lambda: md.moe_slot_gather_scaled(dy, route, w),
+            lambda: torch.autograd.grad(y_p, out_p, dy, retain_graph=True),
+            lambda: F.embedding_bag(rows[:, None], padded_dy, per_sample_weights=row_w,
+                                    mode="sum")),
+        "moe_token_gather": (lambda: md.moe_token_gather(expert_out, route, w),
+                             lambda: md.moe_combine_reference(expert_out, w, route),
+                             lambda: F.embedding_bag(flat, table, per_sample_weights=psw,
+                                                     mode="sum")),
+        "moe_token_sum": (lambda: md.moe_token_sum(d_ei, route),
+                          lambda: torch.autograd.grad(ei_p, tok_p, d_ei, retain_graph=True),
+                          lambda: F.embedding_bag(flat, d_table, per_sample_weights=ones,
+                                                  mode="sum")),
+        "moe_token_dot": (lambda: md.moe_token_dot(dy, expert_out, route),
+                          lambda: torch.autograd.grad(y_p, w_p, dy, retain_graph=True), None),
+    }
+    with torch.no_grad():
+        lib_in = timed["moe_slot_gather"][2]()
+        if not torch.equal(lib_in.reshape(e, cap, d), md.moe_slot_gather(tokens, route)):
+            raise AssertionError("index_select yardstick differs from the dispatch")
+        lib_err = {mode: (timed[mode][2]().float() - timed[mode][0]().reshape(-1, d).float())
+                   .abs().max().item()
+                   for mode in ("moe_slot_gather_scaled", "moe_token_gather", "moe_token_sum")}
+        del lib_in
+        work = moe_work_of(route, n, d, e, cap, k, tokens.element_size())
+        res = {}
+        for mode, (fn, plain, lib) in timed.items():
+            ms = time_ms(torch, fn, iters=20, flush=flush)
+            with torch.enable_grad():
+                plain_ms = time_ms(torch, plain, iters=5, flush=flush)
+            lib_ms = time_ms(torch, lib, iters=20, flush=flush) if lib else None
+            nbytes, ops = work[mode]
+            mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / PEAK_OPS["float32" if mode == "moe_route" else name] * 1e3
+            res[mode] = dict(max_abs_err=worst[mode], ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=max(mem_ms, ops_ms),
+                             bound_by="bytes" if mem_ms >= ops_ms else "operations")
+            lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none (no one call)"
+            log(f"[moe-kernel] {name} {mode} ({MOE_KERNELS[mode]}): kernel_ms {ms:.4f}  "
+                f"plain_ms {plain_ms:.4f}  library_ms {lib_txt}  bound_ms "
+                f"{res[mode]['bound_ms']:.4f} ({res[mode]['bound_by']}: {nbytes} bytes, {ops} "
+                f"ops), share of bound {res[mode]['bound_ms'] / ms:.3f}, max abs err "
+                f"{worst[mode]:.3e} (worst of the three cases)  [{card}]")
+    log(f"[moe-kernel] {name} library calls vs the kernels, max abs: " + ", ".join(
+        f"{mode} {err:.3e}" for mode, err in lib_err.items())
+        + "; device us per call (the forward's three kernels): "
+        + device_split(torch, lambda: (md.moe_route_kernel(probs, k, cap),
+                                       md.moe_slot_gather(tokens, route),
+                                       md.moe_token_gather(expert_out, route, w)), flush)
+        + f"  [{card}]")
+    del case, route, w, timed, tok_p, out_p, w_p, ei_p, y_p, padded, padded_dy, rows, row_w
+    del flat, psw, ones, table, d_table
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_moe_kernel(torch, dev, card):
+    """9.1 in both dtypes; returns each kernel row's numbers by dtype."""
+    flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for kernel, res in measure_moe(torch, dev, card, dtype, flush).items():
+            rows.setdefault(kernel, {})[name] = res
+    del flush_buf
+    return rows
+
+
+def moe_launches(n_layers, steps, *, dense=True):
+    """The B7 (and B9) launches of the run just driven: a layer's forward
+    and backward launch each B7 mode once, B9 once each way."""
+    n = read_launches()
+    want = dict.fromkeys(MOE_KERNELS, 1)
+    if dense:
+        want.update(dense_attention_fwd=1, dense_attention_bwd=1)
+    want = {key: per * n_layers * steps for key, per in want.items()}
+    got = {key: n[key] for key in want}
+    if got != want or not steps:
+        raise AssertionError(f"MoE path launches {got}; {n_layers} layers x {steps} steps give "
+                             f"{want}")
+    return got
+
+
+def layer0_kept(torch, params, toks, cfg):
+    """The kept slots of layer 0's route on ``toks`` (the plain path's
+    arithmetic), out of N k."""
+    from cordum_tpu_torch.models import llama, moe
+    from cordum_tpu_torch.ops import moe_dispatch as md
+
+    b, t = toks.shape
+    layer = params["layers"][0]
+    positions = torch.arange(t, dtype=torch.int32, device=toks.device).expand(b, t)
+    with torch.no_grad():
+        x = llama._attention_residual(params["embed"][toks.long()], layer, cfg.base, positions,
+                                      plain_attention)
+        x = llama.rms_norm(x, layer["mlp_norm"], cfg.base.norm_eps).reshape(b * t, -1)
+        probs = torch.softmax(x.float() @ layer["moe"]["router"], dim=-1)
+        route = md.moe_route_reference(probs, cfg.top_k, moe.capacity(cfg, b * t))
+    return int(route.keep.sum()), route.keep.numel()
+
+
+def phase_moe_oracle(torch, dev, card, cfg, *, batch=2, seq=256, drop_cf=0.5):
+    """9.2: ``moe.loss_fn`` and every gradient on the kernel path (B7 + B9)
+    against the plain path (the plain route, dispatch and combine, the plain
+    attention) on one copy of the fp32 params, at ``cfg``'s capacity factor
+    and at ``drop_cf``, where layer 0 must drop slots to the residual path;
+    no optimizer step (its moments would not fit beside two gradient sets).
+    Returns the kernel path's launches."""
+    from cordum_tpu_torch import optim
+    from cordum_tpu_torch.models import moe
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = moe.init_params(cfg, generator=gen, device=dev)
+    leaves = optim.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    rng = np.random.default_rng(SEED + 10)
+    toks = torch.from_numpy(rng.integers(0, cfg.base.vocab_size, (batch, seq))
+                            .astype(np.int32)).to(dev)
+    n_params = sum(p.numel() for p in leaves)
+    total = {}
+    for run_cfg in (cfg, dataclasses.replace(cfg, capacity_factor=drop_cf)):
+        kept, slots = layer0_kept(torch, params, toks, run_cfg)
+        drops = run_cfg.capacity_factor < cfg.capacity_factor
+        if drops and kept == slots:
+            raise AssertionError(f"fp32 MoE oracle: capacity factor {drop_cf} dropped no slot")
+        zero_launches()
+        loss = moe.loss_fn(params, toks, run_cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        launches = moe_launches(cfg.base.n_layers, 1)
+        zero_launches()
+        plain_loss = moe.loss_fn(params, toks, run_cfg, attention=plain_attention,
+                                 kernels=False)
+        plain_grads = torch.autograd.grad(plain_loss, leaves)
+        torch.cuda.synchronize()
+        if any(read_launches().values()):
+            raise AssertionError(f"the plain MoE path launched kernels: {read_launches()}")
+        loss_rel = abs(loss.item() - plain_loss.item()) / abs(plain_loss.item())
+        worst, worst_at = 0.0, None
+        for i, (g, p) in enumerate(zip(grads, plain_grads)):
+            rel = (g - p).abs().max().item() / max(p.abs().max().item(), 1e-30)
+            if not math.isfinite(rel) or rel > worst:
+                worst, worst_at = rel, i
+        if not (math.isfinite(loss.item()) and loss_rel <= MOE_LOSS_REL
+                and worst <= MOE_GRAD_REL):
+            raise AssertionError(
+                f"fp32 MoE oracle (capacity factor {run_cfg.capacity_factor}): loss "
+                f"{loss.item()} (B7 + B9) vs {plain_loss.item()} (plain), rel {loss_rel:.3e} "
+                f"(tolerance {MOE_LOSS_REL:g}); worst gradient (leaf {worst_at}) {worst:.3e} of "
+                f"its max (tolerance {MOE_GRAD_REL:g})")
+        log(f"[moe-oracle] fp32 {cfg.base.n_layers}-layer Mixtral-8x7B widths ({n_params} "
+            f"params), B {batch}, T {seq}, capacity factor {run_cfg.capacity_factor} (C "
+            f"{moe.capacity(run_cfg, batch * seq)}; layer 0 kept {kept} of {slots} slots): loss "
+            f"B7 + B9 {loss.item():.6f}, plain {plain_loss.item():.6f} (rel {loss_rel:.3e}); "
+            f"{len(grads)} gradients, worst max abs diff over its max {worst:.3e} (leaf "
+            f"{worst_at}); launches {launches}; peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB  [{card}]")
+        total = {key: total.get(key, 0) + n for key, n in launches.items()}
+        del grads, plain_grads, loss, plain_loss
+        gc.collect()
+    del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_moe_bf16(torch, dev, card, cfg, *, batch=MOE_BATCH, seq=MOE_SEQ, steps=10):
+    """9.3: bf16 train steps on one fixed batch through ``make_train_step``;
+    the loss must be finite and fall.  Step p50, tokens/s, peak memory, then
+    two steps more under ``torch.profiler`` (not counted).  Returns the
+    launches."""
+    from cordum_tpu_torch.models import moe
+
+    init, step = moe.make_train_step(cfg, device=dev)
+    params, state = init(SEED)
+    rng = np.random.default_rng(SEED + 11)
+    toks = torch.from_numpy(rng.integers(0, cfg.base.vocab_size, (batch, seq))
+                            .astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    state_gib = torch.cuda.memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, state, loss = step(params, state, toks)
+        losses.append(loss.item())
+        secs.append(time.perf_counter() - t0)
+    launches = moe_launches(cfg.base.n_layers, steps)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bf16 MoE train run: losses {losses} (finite, falling expected)")
+    p50 = statistics.median(secs[1:])
+    log(f"[moe-train] bf16 {cfg.base.n_layers}-layer Mixtral-8x7B widths, B {batch}, T {seq}, "
+        f"{steps} steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"({', '.join(f'{x:.4f}' for x in losses)}); step p50 {p50 * 1e3:.2f} ms (steps "
+        f"2-{steps}), first step {secs[0] * 1e3:.2f} ms, {batch * seq / p50:.1f} tokens/s, peak "
+        f"memory {peak_gib:.2f} GiB ({state_gib:.2f} GiB allocated before the first step); "
+        f"launches {launches}  [{card}]")
+    profile_train(torch, card, lambda: step(params, state, toks),
+                  families=("moe_", "dense_attention"))
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+async def drive_moe_train_worker(torch, dev, card, ckpt_root, *, batch=8, seq=128):
+    """9.4: a ``moe-tiny`` run of 6 steps checkpointed every 2, cancelled
+    after step 2 and resumed; then a ``moe`` run (both ``MoEConfig.tiny()``,
+    as the reference builds them).  Result keys and the mesh as the
+    reference's, with ``ep`` 1."""
+    from cordum_tpu_torch.models import moe
+
+    payload = {"op": "train", "model": "moe-tiny", "steps": 6, "batch": batch, "seq": seq,
+               "checkpoint_every": 2, "run_name": "phase9", "mesh": {"ep": 2}}
+    other_payload = {"op": "train", "model": "moe", "steps": 3, "batch": batch, "seq": seq}
+    first, second, other, _, saved = await run_train_jobs(
+        torch, dev, ckpt_root, "w-moe", payload, other_payload)
+    mesh = {"dp": 1, "tp": 1, "sp": 1, "ep": 1, "pp": 1}
+    if any(doc["mesh"] != mesh for doc in (first, second, other)):
+        raise AssertionError(f"MoE train job meshes {[d['mesh'] for d in (first, second, other)]}")
+    run_steps = first["steps_done"] + second["steps_done"] - second["resumed_from"] \
+        + other["steps_done"]
+    launches = moe_launches(moe.MoEConfig.tiny().base.n_layers, run_steps)
+    log(f"[moe-worker] moe-tiny (MoEConfig.tiny(): 2 layers, d 64, 4 experts, top 2, bf16), B "
+        f"{batch}, T {seq}: cancelled after {first['steps_done']} steps (loss "
+        f"{first['loss_first']:.4f} -> {first['final_loss']:.4f}); re-dispatched: resumed from "
+        f"{second['resumed_from']}, {second['steps_done']} steps done, loss "
+        f"{second['final_loss']:.4f}; checkpoints {saved}; moe: {other['steps_done']} steps, loss "
+        f"{other['loss_first']:.4f} -> {other['final_loss']:.4f}; mesh {mesh} (ep 2 asked, one "
+        f"card); launches {launches}  [{card}]")
+    return launches
+
+
+def phase_moe(torch, dev, card):
+    """9.1 B7 vs its plain version and its times; 9.2 the fp32 gradient
+    oracle; 9.3 the bf16 train run; 9.4 ``train`` jobs through a worker.
+    Returns the B7 rows' numbers and each dtype's main-path launches of
+    B7 and B9."""
+    import tempfile
+
+    rows = phase_moe_kernel(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = moe_config()
+    cfg2 = dataclasses.replace(cfg, base=dataclasses.replace(cfg.base, n_layers=2))
+    fp32 = phase_moe_oracle(torch, dev, card, dataclasses.replace(
+        cfg2, base=dataclasses.replace(cfg2.base, dtype=torch.float32)))
+    bf16 = phase_moe_bf16(torch, dev, card, cfg2)
+    with tempfile.TemporaryDirectory(prefix="cordum-ckpt-") as ckpt_root:
+        jobs = asyncio.run(drive_moe_train_worker(torch, dev, card, ckpt_root))
+    launches = {key: {"float32": fp32[key], "bfloat16": bf16[key] + jobs[key]} for key in fp32}
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_kernels():
@@ -1970,6 +2533,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     proc = phase_worker_process(torch, dev, smi, numbers6)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_rows, moe = phase_moe(torch, dev, smi)
+    kernel.update(moe_rows)
 
     # phase 8's worker process serves an fp32 Llama and the bf16 embedder
     launches = {
@@ -1985,7 +2552,12 @@ def main() -> int:
             "bfloat16": train["dense_attention_fwd"]["bfloat16"]
             + worker["bfloat16"]["dense_attention_fwd"]},
         "dense_attention_bwd": train["dense_attention_bwd"],
+        **{name: moe[name] for name in MOE_KERNELS},
     }
+    # phase 9's MoE runs launch B9 too
+    for name in ("dense_attention_fwd", "dense_attention_bwd"):
+        for dtype in ("float32", "bfloat16"):
+            launches[name][dtype] += moe[name][dtype]
     line = {"kernels": [
         {"name": f"{name}_{dtype}", "route": "cuda", "source": sources[name],
          "replaces": KERNELS[name][1], "launches": launches[name][dtype],

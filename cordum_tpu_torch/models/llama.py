@@ -192,7 +192,9 @@ def _mlp(x: torch.Tensor, layer: dict, cfg: LlamaConfig) -> torch.Tensor:
     return x + ((gate * up) @ layer["w_down"])
 
 
-def _block(x, layer, cfg: LlamaConfig, positions, attention=_attention):
+def _attention_residual(x, layer, cfg: LlamaConfig, positions, attention=_attention):
+    """``x`` plus the block's self-attention of ``rms_norm(x)``: the first
+    half of :func:`_block`, which the MoE blocks share."""
     b, t, d = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -203,8 +205,11 @@ def _block(x, layer, cfg: LlamaConfig, positions, attention=_attention):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     attn = attention(q, k, v, cfg, q_offset=positions)
-    x = x + (attn.reshape(b, t, h * hd) @ layer["wo"])
-    return _mlp(x, layer, cfg)
+    return x + (attn.reshape(b, t, h * hd) @ layer["wo"])
+
+
+def _block(x, layer, cfg: LlamaConfig, positions, attention=_attention):
+    return _mlp(_attention_residual(x, layer, cfg, positions, attention), layer, cfg)
 
 
 def forward(
@@ -243,7 +248,13 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
     ``[B, T-1]`` (``cross_entropy`` is that sequence in one call; the last
     position is cut before the cast, which changes no value and saves an
     fp32 copy of the logits)."""
-    logits = forward(params, tokens, cfg, attention=attention)[:, :-1].float()
+    return next_token_loss(forward(params, tokens, cfg, attention=attention), tokens)
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """:func:`loss_fn`'s cross entropy of ``logits [B, T, V]`` against the
+    next tokens."""
+    logits = logits[:, :-1].float()
     vocab = logits.shape[-1]
     return torch.nn.functional.cross_entropy(
         logits.reshape(-1, vocab), tokens[:, 1:].reshape(-1).long())
@@ -264,23 +275,35 @@ def make_train_step(cfg: LlamaConfig, optimizer: Optional[tuple[Callable, Callab
     of the JAX step's buffer donation (``donated_train_step``), so one copy
     of the params and the moments lives on the card.  There is no mesh:
     one card (ROADMAP A6/A11 for more)."""
+    return train_step_of(
+        lambda gen, dev: init_params(cfg, generator=gen, device=dev),
+        lambda params, tokens: loss_fn(params, tokens, cfg, attention=attention),
+        optimizer, device)
+
+
+def train_step_of(init_fn: Callable, loss: Callable,
+                  optimizer: Optional[tuple[Callable, Callable]] = None,
+                  device: DeviceLike = None):
+    """The ``(init, step)`` pair of :func:`make_train_step` for any model:
+    ``init_fn(generator, device)`` draws the params, ``loss(params,
+    tokens)`` is the scalar the step differentiates."""
     opt_init, opt_update = optimizer or (optim.adamw_init, optim.adamw_update)
     dev = resolve_device(device)
 
     def init(seed: int):
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-        params = init_params(cfg, generator=gen, device=dev)
+        params = init_fn(gen, dev)
         for p in optim.tree_leaves(params):
             p.requires_grad_(True)
         return params, opt_init(params)
 
     def step(params: Params, opt_state: dict, tokens: torch.Tensor):
         leaves = optim.tree_leaves(params)
-        loss = loss_fn(params, tokens.to(dev), cfg, attention=attention)
-        grads = torch.autograd.grad(loss, leaves)
+        value = loss(params, tokens.to(dev))
+        grads = torch.autograd.grad(value, leaves)
         with torch.no_grad():
             opt_update(grads, opt_state, params)
-        return params, opt_state, loss.detach()
+        return params, opt_state, value.detach()
 
     return init, step
 

@@ -280,7 +280,8 @@ def make_gpu_handlers(compute: GPUCompute):
                 model_config(str(payload.get("model", "llama-tiny")))
             except ValueError as e:
                 raise HandlerError(
-                    f"train: {e}; this worker trains the llama families (ROADMAP A7)"
+                    f"train: {e}; this worker trains the llama and moe families "
+                    "(ROADMAP A7, A8)"
                 ) from None
             # the runner's loop runs on the worker's executor (threads pinned
             # to the worker's device); progress goes back to the loop, and

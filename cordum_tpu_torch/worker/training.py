@@ -15,9 +15,11 @@ Job payload (the reference's keys)::
      "mesh": {"tp": 1, "sp": 1}, "microbatches": 2}
 
 Families: ``llama-tiny`` is ``LlamaConfig.tiny()``, ``llama`` is
-``LlamaConfig()``; ``moe*`` and ``pipeline*`` are not ported yet (ROADMAP
-A8, A9) and raise ``ValueError``, as an unknown family does.  One card, so
-every mesh axis resolves to 1.
+``LlamaConfig()``, ``moe`` and ``moe-tiny`` are both ``MoEConfig.tiny()``
+(as the reference builds them); ``pipeline*`` is not ported yet (ROADMAP
+A9) and raises ``ValueError``, as an unknown family does.  One card, so
+every mesh axis resolves to 1 (``tp``, ``sp`` and, for MoE, ``ep`` through
+the reference's ``safe``).
 
 Where the port departs from the reference on purpose:
 
@@ -46,7 +48,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..infra import logging as logx
-from ..models import llama
+from ..models import llama, moe
 from ..optim import tree_map
 from ..parallel.mesh import MeshSpec
 
@@ -119,14 +121,13 @@ def _restored_like(template: Any, value: Any) -> Any:
     return [_restored_like(t, v) for t, v in zip(template, value)]
 
 
-def model_config(model: str) -> llama.LlamaConfig:
+def model_config(model: str) -> "llama.LlamaConfig | moe.MoEConfig":
     """The configuration of a ported model family; ``ValueError`` for the
     families still to port and for unknown ones."""
     if model.startswith("llama"):
         return llama.LlamaConfig.tiny() if "tiny" in model else llama.LlamaConfig()
     if model.startswith("moe"):
-        raise ValueError(f"model family {model!r} is not ported to this worker yet "
-                         "(ROADMAP A8: MoE)")
+        return moe.MoEConfig.tiny()
     if model.startswith("pipeline"):
         raise ValueError(f"model family {model!r} is not ported to this worker yet "
                          "(ROADMAP A9: pipeline and MPMD gangs)")
@@ -152,7 +153,11 @@ class TrainRunner:
             n = int(n)
             return n if n > 0 and n_dev % n == 0 else 1
 
-        tp, sp = (safe(mesh_req.get(k, 1)) for k in ("tp", "sp"))
+        tp, sp, ep = (safe(mesh_req.get(k, 1)) for k in ("tp", "sp", "ep"))
+        if isinstance(cfg, moe.MoEConfig):
+            mesh = MeshSpec(dp=-1, tp=tp, ep=ep).resolve(n_dev)
+            init, step = moe.make_train_step(cfg, device=self.device)
+            return init, step, mesh, cfg.base.vocab_size, model
         mesh = MeshSpec(dp=-1, tp=tp, sp=sp).resolve(n_dev)
         init, step = llama.make_train_step(cfg, device=self.device)
         return init, step, mesh, cfg.vocab_size, model

@@ -268,12 +268,67 @@ def test_corrupt_checkpoint_starts_fresh_with_a_warning(tmp_path, caplog, corrup
     assert ckpt.latest_step() == 4  # step 2 saved beside it; 4 is still the newest
 
 
-@pytest.mark.parametrize("model, roadmap", [("moe", "A8"), ("moe-tiny", "A8"),
-                                            ("pipeline", "A9"), ("gpt", "unknown")])
+@pytest.mark.parametrize("model, roadmap", [("pipeline", "A9"), ("gpt", "unknown")])
 def test_unported_families_raise(tmp_path, model, roadmap):
     runner = TrainRunner(ckpt_root=str(tmp_path), device=CPU)
     with pytest.raises(ValueError, match=roadmap):
         runner.train({"model": model, "steps": 1})
+
+
+@pytest.fixture(scope="module")
+def moe_reference_result(tmp_path_factory):
+    """The reference ``TrainRunner``'s result for a one-step ``moe-tiny``
+    job (its 8 CPU devices: dp 8)."""
+    from cordum_tpu.worker.training import TrainRunner as JTrainRunner
+
+    return JTrainRunner(ckpt_root=str(tmp_path_factory.mktemp("jmoe"))).train(
+        {"model": "moe-tiny", "steps": 1, "batch": 8, "seq": 8})
+
+
+@pytest.mark.parametrize("model", ["moe", "moe-tiny"])
+def test_moe_families_train_with_the_reference_keys(tmp_path, model, moe_reference_result):
+    """Both families are ``MoEConfig.tiny()``, as the reference builds them;
+    the loss falls on a fixed batch, the result and mesh keys are the
+    reference's, and ``ep`` resolves to 1 on one device."""
+    runner = TrainRunner(ckpt_root=str(tmp_path), device=CPU)
+    out = runner.train({"model": model, "steps": 4, "batch": 4, "seq": 16,
+                        "fixed_batch": True, "mesh": {"ep": 2}})
+    assert out["completed"] and out["steps_done"] == 4 and out["model"] == model
+    assert out["final_loss"] < out["loss_first"]
+    assert set(out) == set(moe_reference_result)
+    assert set(out["mesh"]) == set(moe_reference_result["mesh"])
+    assert out["mesh"] == {"dp": 1, "tp": 1, "sp": 1, "ep": 1, "pp": 1}
+    assert moe_reference_result["mesh"]["ep"] == 1
+
+
+@pytest.mark.parametrize("model", ["moe", "moe-tiny"])
+def test_moe_checkpoint_resume_restores_the_nested_tree(tmp_path, model):
+    """A MoE run cut after step 2 and resumed ends where an uncut run ends:
+    the nested ``"moe"`` params and their moments come back as saved."""
+    payload = {"model": model, "steps": 4, "batch": 2, "seq": 8, "checkpoint_every": 2}
+    whole = TrainRunner(ckpt_root=str(tmp_path / "a"), device=CPU).train(payload)
+    runner = TrainRunner(ckpt_root=str(tmp_path / "b"), device=CPU)
+    calls = {"n": 0}
+
+    def cancel_after_2():
+        calls["n"] += 1
+        return calls["n"] > 2
+
+    cut = runner.train(payload, cancelled=cancel_after_2)
+    assert cut["steps_done"] == 2 and not cut["completed"]
+    resumed = runner.train(payload)
+    assert resumed["resumed_from"] == 2 and resumed["completed"]
+    assert resumed["final_loss"] == whole["final_loss"]
+    a = CheckpointDir(str(tmp_path / "a" / "default")).restore(4, torch.device(CPU))
+    b = CheckpointDir(str(tmp_path / "b" / "default")).restore(4, torch.device(CPU))
+    assert set(a["params"]["layers"][0]["moe"]) == {"router", "w_gate", "w_up", "w_down"}
+    assert a["params"]["layers"][0]["moe"]["router"].dtype == torch.float32
+    assert set(a["opt_state"]["mu"]["layers"][1]["moe"]) == {"router", "w_gate", "w_up",
+                                                              "w_down"}
+    leaves_a, leaves_b = optim.tree_leaves(a), optim.tree_leaves(b)
+    assert len(leaves_a) == len(leaves_b) == 1 + 3 * (3 + 10 * 2)
+    for x, y in zip(leaves_a, leaves_b):
+        assert torch.equal(x, y)
 
 
 def test_result_keys_equal_the_reference(tmp_path):

@@ -118,7 +118,7 @@ async def test_op_table_matches_reference(computes, payload):
     ({"op": "llm.generate", "tokens": [1, 2]}, "requires the serving engine"),
     ({"op": "nope"}, "unknown op"),
     ({"op": "embed", "texts": "not a list"}, "requires texts"),
-    ({"op": "train", "model": "moe"}, "ROADMAP A7"),
+    ({"op": "train", "model": "pipeline"}, "ROADMAP A7"),
 ])
 async def test_op_table_errors(computes, payload, match):
     _, tc = computes
@@ -126,15 +126,45 @@ async def test_op_table_errors(computes, payload, match):
         await _call(th.make_gpu_handlers(tc), trt.JobContext, tt.JobRequest, payload)
 
 
-@pytest.mark.parametrize("model, item", [("moe", "ROADMAP A8"), ("moe-tiny", "ROADMAP A8"),
-                                         ("pipeline", "ROADMAP A9")])
+@pytest.mark.parametrize("model, item", [("pipeline", "ROADMAP A9")])
 async def test_train_op_names_the_roadmap_item_of_an_unported_family(computes, model, item):
     """A family the port cannot train yet fails at intake, naming the item
-    that will port it beside the llama families' (A7)."""
+    that will port it beside the families it trains (llama, A7; moe, A8)."""
     _, tc = computes
-    with pytest.raises(th.HandlerError, match=f"{item}.*ROADMAP A7"):
+    with pytest.raises(th.HandlerError, match=f"{item}.*ROADMAP A7, A8"):
         await _call(th.make_gpu_handlers(tc), trt.JobContext, tt.JobRequest,
                     {"op": "train", "model": model})
+
+
+@pytest.mark.parametrize("model", ["moe", "moe-tiny"])
+async def test_train_op_runs_the_moe_families(computes, tmp_path, monkeypatch, model):
+    """The ``train`` op trains both MoE families (``MoEConfig.tiny()``) on
+    the worker's device, with progress after each step and checkpoints
+    under the worker's ``ckpt_root``."""
+    _, tc = computes
+    monkeypatch.setattr(tc, "ckpt_root", str(tmp_path))
+    progress = []
+
+    class Ctx(trt.JobContext):
+        async def progress(self, percent, message=""):
+            progress.append((round(percent), message))
+
+    class ThreadWorker(_StubWorker):
+        async def run_in_executor(self, fn, *args):  # the loop stays free for progress
+            return await asyncio.to_thread(fn, *args)
+
+    payload = {"op": "train", "model": model, "steps": 2, "batch": 2, "seq": 8,
+               "checkpoint_every": 1, "run_name": model}
+    ctx = Ctx(request=tt.JobRequest(job_id="j"), payload=payload, worker=ThreadWorker())
+    res = await th.make_gpu_handlers(tc)(ctx)
+    for _ in range(100):
+        if len(progress) == 2:
+            break
+        await asyncio.sleep(0.01)
+    assert res["model"] == model and res["completed"] and res["steps_done"] == 2
+    assert res["mesh"]["ep"] == 1 and res["checkpointed"]
+    assert [p for p, _ in progress] == [50, 100]
+    assert sorted(p.name for p in (tmp_path / model).iterdir()) == ["1", "2"]
 
 
 @pytest.mark.parametrize("iters", [0, 1, 3])
