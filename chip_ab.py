@@ -4,7 +4,7 @@ card, by one method, each leg in a process of its own, in the order
 other, this, this, other.
 
     git archive <commit> | tar -x -C build/parent   # a git-ignored directory
-    python3 chip_ab.py --other build/parent [--legs kernels,serve,dense,train]
+    python3 chip_ab.py --other build/parent [--legs kernels,serve,dense,train,moe]
 
 Legs:
 
@@ -38,10 +38,21 @@ Legs:
 * ``train``: ``chip_smoke.py``'s phase 7.3 — bf16 train steps at
   Llama-3-8B widths, 2 layers, B 4, T 2048, on one seeded batch through
   ``make_train_step`` — 10 steps; the step p50 over steps 2-10.
+* ``moe``: the MoE kernels (B7) at ``chip_smoke.py``'s phase 9.1 shapes
+  (N 8192, D 4096, E 8, k 2, C 2560), bf16 and fp32, through this tree's
+  ``measure_moe``: each tree's six launch modes checked against that
+  tree's plain versions at phase 9.1's gates (the main, capacity-drop and
+  exact-tie cases), then timed with this tree's ``time_ms`` beside the
+  plain versions and the library calls; the route also at other widths
+  (``MOE_ROUTE_SHAPES``: 64 and 256 experts, 65536 tokens), equal to that
+  tree's plain route; then phase 9.3's bf16 MoE train steps
+  (Mixtral-8x7B widths on the Llama-3-8B base, 2 layers, B 4, T 2048, 10
+  steps on one seeded batch): the step p50 over steps 2-10.
 
 Prints each leg's numbers, then a summary (per measure: the two legs of
 each tree and this tree's median over the other's) and writes it all to
-``--out``.  Needs one CUDA card and ``nvcc``.
+``--out``, each leg process's own output beside it
+(``<out>.<leg>.<i>.<tree>.log``).  Needs one CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -252,7 +263,68 @@ def leg_train(torch, cs, dev, *, batch=4, seq=2048, steps=10):
             "loss_last": losses[-1]}
 
 
-LEGS = {"kernels": leg_kernels, "serve": leg_serve, "dense": leg_dense, "train": leg_train}
+#: (N, E, k) of the route's other widths: DeepSeek- and Qwen-style expert
+#: counts, and a larger batch of tokens
+MOE_ROUTE_SHAPES = ((8192, 64, 8), (8192, 256, 8), (65536, 8, 2))
+
+
+def leg_moe(torch, cs, dev, *, batch=4, seq=2048, steps=10):
+    """B7 through ``measure_moe`` (gates, then times), the route at
+    ``MOE_ROUTE_SHAPES``, then phase 9.3's bf16 MoE step p50 over steps 2
+    on."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from cordum_tpu_torch.models import moe
+
+    flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    card = torch.cuda.get_device_name(0)
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for mode, r in cs.measure_moe(torch, dev, card, dtype, flush).items():
+            res[f"{mode}_{name}"] = {key: r[key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+    from cordum_tpu_torch.ops import moe_dispatch as md
+
+    for n, e, k in MOE_ROUTE_SHAPES:
+        case = cs.moe_case(torch, dev, torch.float32, n=n, d=64, e=e, k=k)
+        probs, cap = case["probs"], case["cap"]
+        got, want = md.moe_route_kernel(probs, k, cap), md.moe_route_reference(probs, k, cap)
+        if not all(torch.equal(getattr(got, f), getattr(want, f)) for f in md.MoERoute._fields):
+            raise AssertionError(f"moe_route N {n} E {e} k {k}: differs from the plain route")
+        res[f"moe_route_N{n}_E{e}_k{k}"] = {"ms": cs.time_ms(
+            torch, lambda: md.moe_route_kernel(probs, k, cap), iters=20, flush=flush),
+            "library_ms": None}
+    del flush_buf
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = cs.moe_config()
+    cfg = dataclasses.replace(cfg, base=dataclasses.replace(cfg.base, n_layers=2))
+    init, step = moe.make_train_step(cfg, device=dev)
+    params, state = init(cs.SEED)
+    rng = np.random.default_rng(cs.SEED + 11)
+    toks = torch.from_numpy(rng.integers(0, cfg.base.vocab_size, (batch, seq))
+                            .astype(np.int32)).to(dev)
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, state, loss = step(params, state, toks)
+        losses.append(loss.item())  # waits for the step
+        secs.append(time.perf_counter() - t0)
+    res["train"] = {"step_p50_ms": statistics.median(secs[1:]) * 1e3,
+                    "loss_first": losses[0], "loss_last": losses[-1]}
+    return res
+
+
+LEGS = {"kernels": leg_kernels, "serve": leg_serve, "dense": leg_dense, "train": leg_train,
+        "moe": leg_moe}
 
 
 def run_leg(leg: str, root: str) -> int:
@@ -302,6 +374,13 @@ def summarise(leg, results):
     elif leg == "train":
         row("step_p50_ms", [r["step_p50_ms"] for r in by["this"]],
             [r["step_p50_ms"] for r in by["other"]])
+    elif leg == "moe":
+        for name in by["this"][0]:
+            keys = ("step_p50_ms",) if name == "train" else ("ms", "library_ms")
+            for key in keys:
+                if by["this"][0][name][key] is not None:
+                    row(f"{name} {key}", [r[name][key] for r in by["this"]],
+                        [r[name][key] for r in by["other"]])
     else:
         for key in ("step_p50_ms", "ttft_p50_ms", "wall_s"):
             row(key, [x[key] for r in by["this"] for x in r["runs"]],
@@ -338,14 +417,18 @@ def main() -> int:
     summary = []
     other = str(Path(a.other).resolve())
     order = [("other", other), ("this", str(HERE)), ("this", str(HERE)), ("other", other)]
+    Path(a.out).parent.mkdir(parents=True, exist_ok=True)
     for leg in a.legs.split(","):
         results = []
-        for tag, root in order:
+        for i, (tag, root) in enumerate(order):
             t0 = time.monotonic()
             proc = subprocess.run(
                 [sys.executable, str(Path(__file__).resolve()), "--leg", leg, "--root", root],
                 capture_output=True, text=True, timeout=900, cwd=root,
                 env={**os.environ, "PYTHONDONTWRITEBYTECODE": "1"})
+            # each process's own log (gates, device splits) beside the report
+            Path(a.out).with_suffix(f".{leg}.{i}.{tag}.log").write_text(proc.stdout
+                                                                      + proc.stderr)
             if proc.returncode:
                 print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
                 raise RuntimeError(f"leg {leg} on {tag} ({root}) exited {proc.returncode}")
@@ -359,7 +442,6 @@ def main() -> int:
     for line in summary:
         print(line, flush=True)
     report["summary"] = summary
-    Path(a.out).parent.mkdir(parents=True, exist_ok=True)
     Path(a.out).write_text(json.dumps(report, indent=1))
     return 0
 

@@ -92,7 +92,9 @@ Every phase raises on failure.  Phases:
    expert) and an exact-tie case; times against the bounds, the plain
    versions and the library calls (``index_select`` for the dispatch,
    ``embedding_bag`` for d_out, the combine and the dispatch backward; no
-   one call computes the route or d_w).  (2) An fp32 oracle at those
+   one call computes the route or d_w), and each row's device us per CUDA
+   kernel (the route's pick and place launches apart).  (2) An fp32
+   oracle at those
    widths, depth cut to 2 layers, B 2, T 256: ``moe.loss_fn`` and every
    gradient on the kernel path (B7 + B9) against the plain path, one copy
    of the params, no optimizer step; at capacity factor 1.25 and again at
@@ -2242,14 +2244,10 @@ def measure_moe(torch, dev, card, dtype, flush):
                 f"plain_ms {plain_ms:.4f}  library_ms {lib_txt}  bound_ms "
                 f"{res[mode]['bound_ms']:.4f} ({res[mode]['bound_by']}: {nbytes} bytes, {ops} "
                 f"ops), share of bound {res[mode]['bound_ms'] / ms:.3f}, max abs err "
-                f"{worst[mode]:.3e} (worst of the three cases)  [{card}]")
+                f"{worst[mode]:.3e} (worst of the three cases); device us per call: "
+                f"{device_split(torch, fn, flush)}  [{card}]")
     log(f"[moe-kernel] {name} library calls vs the kernels, max abs: " + ", ".join(
-        f"{mode} {err:.3e}" for mode, err in lib_err.items())
-        + "; device us per call (the forward's three kernels): "
-        + device_split(torch, lambda: (md.moe_route_kernel(probs, k, cap),
-                                       md.moe_slot_gather(tokens, route),
-                                       md.moe_token_gather(expert_out, route, w)), flush)
-        + f"  [{card}]")
+        f"{mode} {err:.3e}" for mode, err in lib_err.items()) + f"  [{card}]")
     del case, route, w, timed, tok_p, out_p, w_p, ei_p, y_p, padded, padded_dy, rows, row_w
     del flat, psw, ones, table, d_table
     torch.cuda.empty_cache()

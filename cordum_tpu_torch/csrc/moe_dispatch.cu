@@ -12,27 +12,39 @@
 // widths: N 8192, k 2, E 8, C 2560, D 4096) to move a few hundred MB of
 // rows.  Here they are what they compute: gathers.
 //
-// Three kernel bodies:
-//   * moe_route_kernel — one block per expert e walks the tokens in order,
-//     a chunk of blockDim tokens at a time.  A token picks e at slot s when
-//     e's rank in the token's row is s < k, the rank being the number of
-//     experts before e in descending order with ties to the lower index
-//     (lax.top_k's order; NaN counts as the largest value, as in
-//     torch.sort): so every (token, slot) is written by exactly one block.
-//     The chunk's picks are numbered by a ballot scan across the block, the
-//     count carried from chunk to chunk in registers: that is the
-//     reference's exclusive cumsum in (token, slot) order (a token holds an
-//     expert in at most one slot).  No atomics: two calls give the same
-//     bits.  Writes idx, pos (the queue position before capacity), keep =
-//     pos < C, counts[e] (hits before capacity), and slot_token / slot_k
-//     (the token and slot of each kept capacity row, -1 in the rows past
-//     the expert's kept count).
-//   * moe_slot_gather_kernel — one warp per capacity row (e, c): the row is
-//     scale * src[slot_token[e, c]] in fp32, rounded to the dtype, or zeros
-//     where the row is empty (the expert FFN runs over every row, and a NaN
-//     left in an empty row would reach the weights' gradients through
-//     NaN * 0).  Dispatch forward: scale 1, src the tokens.  Combine
-//     backward (d_out): scale w[n, slot_k[e, c]], src dy.
+// Four kernel bodies:
+//   * moe_route_pick_kernel and moe_route_place_kernel — the route, two
+//     launches over tiles of kRouteTile tokens, a thread a token.  Pick:
+//     the tile's rows go to shared memory ([E][kRouteTile], so a warp's
+//     reads are conflict-free); k passes over a row find the token's picks
+//     in lax.top_k's order (descending, ties to the lower index, NaN the
+//     largest, as in torch.sort), each the first expert after the last:
+//     idx.  The token picks e when e is not after its k-th pick; its
+//     position among its tile's picks of e is numbered in token order by a
+//     ballot a warp and the counts of the earlier warps (the tile's share
+//     of the reference's exclusive cumsum in (token, slot) order: a token
+//     holds an expert in at most one slot), stored at slot rank(e); the
+//     tile's count of each expert goes to a scratch table [n_tiles, E].
+//     Place: each tile adds the sum of the earlier tiles' counts to its
+//     positions and writes pos (the queue position before capacity), keep
+//     = pos < C, slot_token / slot_k (the token and slot of each kept
+//     capacity row); from the table's totals, counts[e] (hits before
+//     capacity) and -1 in the rows past the expert's kept count, spread
+//     over the grid.  The place launch is the pick's programmatic
+//     dependent (Hopper): its blocks start while the pick runs and wait at
+//     griddepcontrol.wait for its writes, so no launch gap sits between
+//     the two.  Experts are numbered 32 at a time; a row must fit in
+//     shared memory (kRouteMaxExperts).  No atomics, nothing depends on the
+//     order the blocks run in: two calls give the same bits.
+//   * moe_slot_gather_kernel — token-major: one block a token n reads
+//     src[n] once and writes it to each kept slot's capacity row
+//     (idx[n, s], pos[n, s]), times w[n, s] in fp32 rounded to the dtype in
+//     the scaled mode; a token with no kept slot is not read.  The grid's
+//     first blocks write the empty rows (c >= min(counts[e], C)) as zeros
+//     (the expert FFN runs over every row, and a NaN left in an empty row
+//     would reach the weights' gradients through NaN * 0).  Each row is
+//     written by one block.  Dispatch forward: w null, src the tokens.
+//     Combine backward (d_out): w the routing weights, src dy.
 //   * moe_token_gather_kernel — one warp per token n.  Mode 0: the fp32 sum
 //     over the token's kept slots s, in slot order, of w[n, s] *
 //     src[idx[n, s], pos[n, s]] (fmaf), rounded to the dtype.  Combine
@@ -43,27 +55,53 @@
 //
 // Bound: the bytes.  At the widths above each gather moves one capacity
 // buffer [E, C, D] and one token buffer [N, D] (bf16: 168 + 67 MB, about
-// 0.07 ms at 3.35 TB/s); the route reads N E fp32 probabilities (0.26 MB)
-// and is bound by its latency (one block per expert, N / blockDim chunks).
-// Design for a first version that is right: 16-byte vector loads and stores
-// along D (8 bf16 or 4 fp32 a lane; a scalar loop when D or a pointer does
-// not allow them), a warp per row, no TMA, no shared-memory staging.
+// 0.07 ms at 3.35 TB/s).  A capacity-major slot gather (a warp a capacity
+// row) reads a token once a kept slot: 134 MB where the bound counts 67.
+// Token-major, each routed token is read once; a token with more than 32
+// kept slots is read once a group of 32.  A block of kSlotThreads holds
+// kSlotUnroll 16-byte vectors a thread (a bf16 row of 4096 in one pass)
+// and stores them to every kept row: many short blocks, several waves of
+// them on the card.  A warp a token walking its row in the same chunk
+// order as every other warp ran twice as slow (bf16 at N 8192: all 1024
+// blocks resident at once, every warp at the same offset of its row at
+// the same time).  The zero-row blocks come first in the grid, so they
+// run beside the token blocks and not after them.  The route reads N E
+// fp32 probabilities (0.26 MB) and is bound by its latency: two launches
+// of N / kRouteTile blocks (64 at N 8192), each block one step deep,
+// against one block an expert walking every token; a thread's work is
+// O(k E) compares from shared memory.  The place pass sums
+// a column of the count table a block, so its reads grow as n_tiles^2 E
+// (2 KB a block at N 8192).  The token gathers: 16-byte vector loads and
+// stores along D (8 bf16 or 4 fp32 a lane; a scalar loop when D or a
+// pointer does not allow them), a warp a token.
 //
 // Layouts (all contiguous): probs [N, E] fp32; idx, pos [N, k] int32; keep
 // [N, k] uint8 (torch.bool); counts [E] int32; slot_token, slot_k [E, C]
-// int32; w [N, k] fp32; tokens, dy, y [N, D] and the capacity buffers
-// [E, C, D] in the dtype (0 fp32, 1 bf16).
+// int32; tile_counts [n_tiles, E] int32 scratch; w [N, k] fp32; tokens,
+// dy, y [N, D] and the capacity buffers [E, C, D] in the dtype (0 fp32, 1
+// bf16).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <climits>
+
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kRouteThreads = 1024;
-constexpr int kRowsPerBlock = 8;  // warps a gather block, one row each
+constexpr int kRouteTile = 128;  // tokens a route block, a thread each
+constexpr int kRouteWarps = kRouteTile / kWarp;
+constexpr int kExpertChunk = kWarp;  // experts numbered a pass over shared memory
+// a route block's rows in shared memory, E kRouteTile fp32, within the
+// 227 KB a block can have
+constexpr int kRouteMaxExperts = 448;
+constexpr int kRowsPerBlock = 8;  // warps a token-gather block, a token each
 constexpr int kGatherThreads = kRowsPerBlock * kWarp;
+constexpr int kSlotThreads = 128;  // a slot-gather block: one token
+constexpr int kSlotUnroll = 4;  // 16-byte vectors a thread a pass (a bf16 row of 4096: one)
+constexpr int kZeroBlocks = 256;  // slot-gather blocks writing the empty rows
 constexpr unsigned kFull = 0xffffffffu;
 
 // True when value a at index ia comes before value b at index ib in
@@ -74,59 +112,134 @@ __device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
   return a > b || (a == b && ia < ib);
 }
 
-__global__ void __launch_bounds__(kRouteThreads)
-moe_route_kernel(const float* __restrict__ probs, int N, int E, int k, int C,
-                 int* __restrict__ idx, int* __restrict__ pos,
-                 uint8_t* __restrict__ keep, int* __restrict__ counts,
-                 int* __restrict__ slot_token, int* __restrict__ slot_k) {
-  __shared__ int warp_incl[kRouteThreads / kWarp];
-  __shared__ int chunk_total;
-  const int e = blockIdx.x;
+// Expert e's place in its token's descending order (row[j] at stride
+// kRouteTile): the slot it takes when that is < k.
+__device__ __forceinline__ int rank_of(const float* row, int E, int e) {
+  const float pe = row[e * kRouteTile];
+  int rank = 0;
+  for (int j = 0; j < E; ++j) rank += before(row[j * kRouteTile], j, pe, e) ? 1 : 0;
+  return rank;
+}
+
+// Dynamic shared memory: each token's row, [E][kRouteTile] floats.
+__global__ void __launch_bounds__(kRouteTile)
+moe_route_pick_kernel(const float* __restrict__ probs, int N, int E, int k,
+                      int* __restrict__ idx, int* __restrict__ pos,
+                      int* __restrict__ tile_counts) {
+  // the place launch may start now; it waits for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  extern __shared__ float rows[];
+  __shared__ unsigned picks[kExpertChunk][kRouteWarps];  // a ballot an expert a warp
   const int tid = threadIdx.x, lane = tid & (kWarp - 1), warp = tid / kWarp;
-  const int n_warps = blockDim.x / kWarp;
-  int base = 0;  // picks of e by the tokens of earlier chunks
-  for (int start = 0; start < N; start += blockDim.x) {
-    const int n = start + tid;
-    int slot = -1;
-    if (n < N) {
-      const float* row = probs + (size_t)n * E;
-      const float pe = row[e];
-      int rank = 0;
-      for (int j = 0; j < E; ++j) rank += before(row[j], j, pe, e) ? 1 : 0;
-      if (rank < k) slot = rank;
-    }
-    const unsigned picks = __ballot_sync(kFull, slot >= 0);
-    const int in_warp = __popc(picks & ((1u << lane) - 1u));
-    if (lane == 0) warp_incl[warp] = __popc(picks);
-    __syncthreads();
-    if (warp == 0) {
-      int v = lane < n_warps ? warp_incl[lane] : 0;
-      for (int o = 1; o < kWarp; o <<= 1) {
-        const int u = __shfl_up_sync(kFull, v, o);
-        if (lane >= o) v += u;
+  const int n = blockIdx.x * kRouteTile + tid;
+  const bool valid = n < N;
+  const float* row = rows + tid;
+  // the k-th pick (kv, ki), k passes each taking the first expert after
+  // the last in lax.top_k's order; a token picks e when e is not after it
+  float kv = 0.f;
+  int ki = -1;
+  if (valid) {
+    for (int j = 0; j < E; ++j) rows[j * kRouteTile + tid] = probs[(size_t)n * E + j];
+    for (int s = 0; s < k; ++s) {
+      float bv = 0.f;
+      int bi = -1;
+      for (int j = 0; j < E; ++j) {
+        const float v = row[j * kRouteTile];
+        if ((ki < 0 || before(kv, ki, v, j)) && (bi < 0 || before(v, j, bv, bi))) {
+          bv = v;
+          bi = j;
+        }
       }
-      if (lane < n_warps) warp_incl[lane] = v;
-      if (lane == kWarp - 1) chunk_total = v;
+      idx[(size_t)n * k + s] = bi;
+      kv = bv;
+      ki = bi;
     }
-    __syncthreads();
-    if (slot >= 0) {
-      const int p = base + (warp ? warp_incl[warp - 1] : 0) + in_warp;
-      const size_t at = (size_t)n * k + slot;
-      idx[at] = e;
-      pos[at] = p;
-      keep[at] = p < C ? 1 : 0;
-      if (p < C) {
-        slot_token[(size_t)e * C + p] = n;
-        slot_k[(size_t)e * C + p] = slot;
-      }
-    }
-    base += chunk_total;
-    __syncthreads();  // warp_incl and chunk_total are rewritten next chunk
   }
-  if (tid == 0) counts[e] = base;
-  for (int c = min(base, C) + tid; c < C; c += blockDim.x) {
-    slot_token[(size_t)e * C + c] = -1;
-    slot_k[(size_t)e * C + c] = -1;
+  const unsigned lower = (1u << lane) - 1u;
+  for (int e0 = 0; e0 < E; e0 += kExpertChunk) {
+    const int ne = min(kExpertChunk, E - e0);
+    unsigned mine = 0;  // bit j: this token picks expert e0 + j
+    for (int j = 0; j < ne; ++j) {
+      const int e = e0 + j;
+      const bool hit = valid && (e == ki || before(row[e * kRouteTile], e, kv, ki));
+      const unsigned b = __ballot_sync(kFull, hit);
+      if (lane == 0) picks[j][warp] = b;
+      mine |= hit ? 1u << j : 0u;
+    }
+    __syncthreads();
+    if (tid < ne) {
+      int total = 0;
+      for (int w = 0; w < kRouteWarps; ++w) total += __popc(picks[tid][w]);
+      tile_counts[(size_t)blockIdx.x * E + e0 + tid] = total;
+    }
+    for (unsigned m = mine; m; m &= m - 1) {
+      const int j = __ffs(m) - 1;
+      int p = __popc(picks[j][warp] & lower);
+      for (int w = 0; w < warp; ++w) p += __popc(picks[j][w]);
+      // within the tile; the place pass adds the earlier tiles'
+      pos[(size_t)n * k + rank_of(row, E, e0 + j)] = p;
+    }
+    __syncthreads();  // picks is rewritten for the next experts
+  }
+}
+
+// Launched as the pick kernel's programmatic dependent: it may start
+// early and waits for the pick grid's writes before reading them.
+__global__ void __launch_bounds__(kRouteTile)
+moe_route_place_kernel(int N, int E, int k, int C, const int* __restrict__ tile_counts,
+                       int n_tiles, const int* __restrict__ idx, int* __restrict__ pos,
+                       uint8_t* __restrict__ keep, int* __restrict__ counts,
+                       int* __restrict__ slot_token, int* __restrict__ slot_k) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  __shared__ int base[kExpertChunk], total[kExpertChunk];
+  const int tid = threadIdx.x, lane = tid & (kWarp - 1), warp = tid / kWarp;
+  const int tile = blockIdx.x, n = tile * kRouteTile + tid;
+  for (int e0 = 0; e0 < E; e0 += kExpertChunk) {
+    const int ne = min(kExpertChunk, E - e0);
+    // a warp an expert: the counts of the tiles before this one, and of all
+    for (int j = warp; j < ne; j += kRouteWarps) {
+      int earlier = 0, all = 0;
+      for (int t = lane; t < n_tiles; t += kWarp) {
+        const int c = tile_counts[(size_t)t * E + e0 + j];
+        all += c;
+        earlier += t < tile ? c : 0;
+      }
+#pragma unroll
+      for (int o = kWarp / 2; o > 0; o >>= 1) {
+        earlier += __shfl_xor_sync(kFull, earlier, o);
+        all += __shfl_xor_sync(kFull, all, o);
+      }
+      if (lane == 0) {
+        base[j] = earlier;
+        total[j] = all;
+      }
+    }
+    __syncthreads();
+    if (n < N) {
+      for (int s = 0; s < k; ++s) {
+        const size_t at = (size_t)n * k + s;
+        const int j = idx[at] - e0;
+        if (j < 0 || j >= ne) continue;
+        const int p = base[j] + pos[at];
+        pos[at] = p;
+        keep[at] = p < C ? 1 : 0;
+        if (p < C) {
+          slot_token[(size_t)(e0 + j) * C + p] = n;
+          slot_k[(size_t)(e0 + j) * C + p] = s;
+        }
+      }
+    }
+    if (tile == 0 && tid < ne) counts[e0 + tid] = total[tid];
+    const int rows = ne * C;  // the empty rows: -1, over the grid (E C < 2^31)
+    for (long long f = (long long)tile * kRouteTile + tid; f < rows;
+         f += (long long)gridDim.x * kRouteTile) {
+      const int j = (int)f / C, c = (int)f - j * C;
+      if (c >= min(total[j], C)) {
+        slot_token[(size_t)(e0 + j) * C + c] = -1;
+        slot_k[(size_t)(e0 + j) * C + c] = -1;
+      }
+    }
+    __syncthreads();  // base and total are rewritten for the next experts
   }
 }
 
@@ -157,43 +270,96 @@ __device__ __forceinline__ void store_vec(T* p, const Vec<T>& x) {
   *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(x.v);
 }
 
-template <typename T, bool kScaled, bool kVectors>
-__global__ void __launch_bounds__(kGatherThreads)
-moe_slot_gather_kernel(const T* __restrict__ src, const int* __restrict__ slot_token,
-                       const int* __restrict__ slot_k, const float* __restrict__ w, int k,
-                       T* __restrict__ out, long long rows, int D) {
-  const int lane = threadIdx.x & (kWarp - 1);
-  const long long row = (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
-  if (row >= rows) return;
-  T* o = out + row * D;
-  const int n = slot_token[row];
-  constexpr int V = Vec<T>::kVec;
-  if (n < 0) {  // an empty capacity row: zeros, never what the allocator left
-    if (kVectors) {
-      Vec<T> z;
+template <typename T, bool kScaled>
+__device__ __forceinline__ Vec<T> times(Vec<T> x, float scale) {
+  if (kScaled) {
 #pragma unroll
-      for (int i = 0; i < V; ++i) z.v[i] = from_f32<T>(0.f);
-      for (int c = lane; c < D / V; c += kWarp) store_vec(o + c * V, z);
-    } else {
-      for (int c = lane; c < D; c += kWarp) o[c] = from_f32<T>(0.f);
+    for (int i = 0; i < Vec<T>::kVec; ++i) x.v[i] = from_f32<T>(to_f32(x.v[i]) * scale);
+  }
+  return x;
+}
+
+// Blocks [0, zero_blocks): the empty capacity rows, a warp a row over
+// those blocks, zeros.  The rest: a block a token, src[n] to each kept
+// slot's row (times w[n, s] when kScaled).
+template <typename T, bool kScaled, bool kVectors>
+__global__ void __launch_bounds__(kSlotThreads)
+moe_slot_gather_kernel(const T* __restrict__ src, const int* __restrict__ idx,
+                       const int* __restrict__ pos, const uint8_t* __restrict__ keep,
+                       const int* __restrict__ counts, const float* __restrict__ w, int k,
+                       int E, int C, int D, int zero_blocks, T* __restrict__ out) {
+  __shared__ long long rows[kWarp];  // the kept slots of a group of 32
+  __shared__ float scales[kWarp];
+  __shared__ int n_kept;
+  constexpr int V = Vec<T>::kVec;
+  const int tid = threadIdx.x;
+  if ((int)blockIdx.x < zero_blocks) {  // zeros, never what the allocator left
+    constexpr int kWarps = kSlotThreads / kWarp;
+    const int lane = tid & (kWarp - 1), warp = tid / kWarp;
+    for (long long r = (long long)blockIdx.x * kWarps + warp; r < (long long)E * C;
+         r += (long long)zero_blocks * kWarps) {
+      const int e = (int)r / C, c = (int)r - e * C;  // r < E C < 2^31
+      if (c < min(counts[e], C)) continue;  // a kept row
+      T* o = out + r * D;
+      if (kVectors) {
+        Vec<T> z;
+#pragma unroll
+        for (int i = 0; i < V; ++i) z.v[i] = from_f32<T>(0.f);
+        for (int i = lane; i < D / V; i += kWarp) store_vec(o + (size_t)i * V, z);
+      } else {
+        for (int i = lane; i < D; i += kWarp) o[i] = from_f32<T>(0.f);
+      }
     }
     return;
   }
-  const T* s = src + (size_t)n * D;
-  const float scale = kScaled ? w[(size_t)n * k + slot_k[row]] : 1.f;
-  if (kVectors) {
-    for (int c = lane; c < D / V; c += kWarp) {
-      Vec<T> x = load_vec(s + c * V);
-      if (kScaled) {
-#pragma unroll
-        for (int i = 0; i < V; ++i) x.v[i] = from_f32<T>(to_f32(x.v[i]) * scale);
+  const int n = blockIdx.x - zero_blocks;
+  const T* x = src + (size_t)n * D;
+  for (int s0 = 0; s0 < k; s0 += kWarp) {  // one pass unless k > 32
+    if (tid < kWarp) {  // the first warp lists the group's kept slots in slot order
+      const int s = s0 + tid;
+      long long row = -1;
+      float scale = 1.f;
+      if (s < k && keep[(size_t)n * k + s]) {
+        row = (long long)idx[(size_t)n * k + s] * C + pos[(size_t)n * k + s];
+        if (kScaled) scale = w[(size_t)n * k + s];
       }
-      store_vec(o + c * V, x);
+      const unsigned kept = __ballot_sync(kFull, row >= 0);
+      if (row >= 0) {
+        const int j = __popc(kept & ((1u << tid) - 1u));
+        rows[j] = row;
+        scales[j] = scale;
+      }
+      if (tid == 0) n_kept = __popc(kept);
     }
-  } else {
-    for (int c = lane; c < D; c += kWarp) {
-      o[c] = kScaled ? from_f32<T>(to_f32(s[c]) * scale) : s[c];
+    __syncthreads();
+    const int m = n_kept;  // a token no expert keeps is not read
+    if (kVectors) {
+      const int nv = D / V;
+      for (int c0 = tid; m && c0 < nv; c0 += kSlotThreads * kSlotUnroll) {
+        Vec<T> v[kSlotUnroll];
+#pragma unroll
+        for (int u = 0; u < kSlotUnroll; ++u) {
+          const int c = c0 + u * kSlotThreads;
+          if (c < nv) v[u] = load_vec(x + (size_t)c * V);
+        }
+        for (int j = 0; j < m; ++j) {
+          T* o = out + rows[j] * D;
+          const float sc = scales[j];
+#pragma unroll
+          for (int u = 0; u < kSlotUnroll; ++u) {
+            const int c = c0 + u * kSlotThreads;
+            if (c < nv) store_vec(o + (size_t)c * V, times<T, kScaled>(v[u], sc));
+          }
+        }
+      }
+    } else {
+      for (int c = tid; m && c < D; c += kSlotThreads) {
+        const T v = x[c];
+        for (int j = 0; j < m; ++j)
+          out[rows[j] * D + c] = kScaled ? from_f32<T>(to_f32(v) * scales[j]) : v;
+      }
     }
+    __syncthreads();  // rows, scales and n_kept are rewritten for the next group
   }
 }
 
@@ -277,18 +443,22 @@ unsigned blocks_for(long long rows) {
 }
 
 template <typename T>
-int slot_gather(const void* src, const int* slot_token, const int* slot_k, const float* w,
-                int k, void* out, long long rows, int D, cudaStream_t s) {
+int slot_gather(const void* src, const int* idx, const int* pos, const uint8_t* keep,
+                const int* counts, const float* w, int N, int k, int E, int C, int D, void* out,
+                cudaStream_t s) {
   const T* x = static_cast<const T*>(src);
   T* o = static_cast<T*>(out);
-  const unsigned grid = blocks_for(rows);
+  const int zero = (int)std::min<long long>(((long long)E * C - 1) / (kSlotThreads / kWarp) + 1,
+                                            kZeroBlocks);
+  if (N > INT_MAX - zero) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)(zero + N);
   const bool vec = vectors_fit(D, sizeof(T), src, out);
   if (w != nullptr) {
-    if (vec) moe_slot_gather_kernel<T, true, true><<<grid, kGatherThreads, 0, s>>>(x, slot_token, slot_k, w, k, o, rows, D);
-    else moe_slot_gather_kernel<T, true, false><<<grid, kGatherThreads, 0, s>>>(x, slot_token, slot_k, w, k, o, rows, D);
+    if (vec) moe_slot_gather_kernel<T, true, true><<<grid, kSlotThreads, 0, s>>>(x, idx, pos, keep, counts, w, k, E, C, D, zero, o);
+    else moe_slot_gather_kernel<T, true, false><<<grid, kSlotThreads, 0, s>>>(x, idx, pos, keep, counts, w, k, E, C, D, zero, o);
   } else {
-    if (vec) moe_slot_gather_kernel<T, false, true><<<grid, kGatherThreads, 0, s>>>(x, slot_token, slot_k, w, k, o, rows, D);
-    else moe_slot_gather_kernel<T, false, false><<<grid, kGatherThreads, 0, s>>>(x, slot_token, slot_k, w, k, o, rows, D);
+    if (vec) moe_slot_gather_kernel<T, false, true><<<grid, kSlotThreads, 0, s>>>(x, idx, pos, keep, counts, w, k, E, C, D, zero, o);
+    else moe_slot_gather_kernel<T, false, false><<<grid, kSlotThreads, 0, s>>>(x, idx, pos, keep, counts, w, k, E, C, D, zero, o);
   }
   return (int)cudaGetLastError();
 }
@@ -309,30 +479,58 @@ int token_gather(const void* src, const void* dy, const int* idx, const int* pos
 
 }  // namespace
 
-// Routing of fp32 probs [N, E] to top-k experts with capacity C.
+// Routing of fp32 probs [N, E] to top-k experts with capacity C; tile_counts
+// is [n_tiles, E] int32 scratch, n_tiles = ceil(N / kRouteTile).
 extern "C" int moe_route(const void* probs, int N, int E, int k, int C, void* idx, void* pos,
                          void* keep, void* counts, void* slot_token, void* slot_k,
-                         void* stream) {
-  if (N < 1 || E < 1 || k < 1 || k > E || C < 1) return (int)cudaErrorInvalidValue;
-  moe_route_kernel<<<E, kRouteThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(probs), N, E, k, C, static_cast<int*>(idx),
-      static_cast<int*>(pos), static_cast<uint8_t*>(keep), static_cast<int*>(counts),
-      static_cast<int*>(slot_token), static_cast<int*>(slot_k));
+                         void* tile_counts, int n_tiles, void* stream) {
+  if (N < 1 || E < 1 || E > kRouteMaxExperts || k < 1 || k > E || C < 1 ||
+      n_tiles != (N - 1) / kRouteTile + 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* table = static_cast<int*>(tile_counts);
+  const size_t smem = (size_t)E * kRouteTile * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      moe_route_pick_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  moe_route_pick_kernel<<<n_tiles, kRouteTile, smem, s>>>(
+      static_cast<const float*>(probs), N, E, k, static_cast<int*>(idx),
+      static_cast<int*>(pos), table);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_tiles);
+  cfg.blockDim = dim3(kRouteTile);
+  cfg.stream = s;
+  cudaLaunchAttribute dependent;
+  dependent.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  dependent.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &dependent;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, moe_route_place_kernel, N, E, k, C,
+                           static_cast<const int*>(table), n_tiles,
+                           static_cast<const int*>(idx), static_cast<int*>(pos),
+                           static_cast<uint8_t*>(keep), static_cast<int*>(counts),
+                           static_cast<int*>(slot_token), static_cast<int*>(slot_k));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// out [rows, D] = (w ? w[n, slot_k] : 1) * src[slot_token] per row, zeros
-// where slot_token < 0; w [N, k] or null.
-extern "C" int moe_slot_gather(int dtype, const void* src, const void* slot_token,
-                               const void* slot_k, const void* w, int k, void* out,
-                               long long rows, int D, void* stream) {
-  if (rows < 1 || D < 1 || k < 1) return (int)cudaErrorInvalidValue;
-  const int* st = static_cast<const int*>(slot_token);
-  const int* sk = static_cast<const int*>(slot_k);
+// out [E, C, D]: (w ? w[n, s] : 1) * src[n] in each kept slot (n, s)'s row
+// (idx, pos), zeros in the rows c >= min(counts[e], C); w [N, k] or null.
+extern "C" int moe_slot_gather(int dtype, const void* src, const void* idx, const void* pos,
+                               const void* keep, const void* counts, const void* w, int N,
+                               int k, int E, int C, int D, void* out, void* stream) {
+  if (N < 1 || k < 1 || E < 1 || C < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  const int* ix = static_cast<const int*>(idx);
+  const int* ps = static_cast<const int*>(pos);
+  const uint8_t* kp = static_cast<const uint8_t*>(keep);
+  const int* ct = static_cast<const int*>(counts);
   const float* wf = static_cast<const float*>(w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return slot_gather<float>(src, st, sk, wf, k, out, rows, D, s);
-  if (dtype == 1) return slot_gather<__nv_bfloat16>(src, st, sk, wf, k, out, rows, D, s);
+  if (dtype == 0) return slot_gather<float>(src, ix, ps, kp, ct, wf, N, k, E, C, D, out, s);
+  if (dtype == 1)
+    return slot_gather<__nv_bfloat16>(src, ix, ps, kp, ct, wf, N, k, E, C, D, out, s);
   return (int)cudaErrorInvalidValue;
 }
 

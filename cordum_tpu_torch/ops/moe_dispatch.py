@@ -15,10 +15,11 @@ The functions of one computation live here:
     checks use them; nothing on the card's main path does;
   * the wrappers of the hand-written Hopper kernels in
     ``csrc/moe_dispatch.cu``, one a launch mode, each counting its launches
-    in ``<function>.launches``: :func:`moe_route_kernel` (one block per
-    expert, no atomics); :func:`moe_slot_gather` (a capacity row from its
-    token: the dispatch forward) and :func:`moe_slot_gather_scaled` (the
-    same scaled by the row's weight: the combine backward's ``d_out``);
+    in ``<function>.launches``: :func:`moe_route_kernel` (a pick and a
+    place launch over tiles of :data:`ROUTE_TILE` tokens, no atomics);
+    :func:`moe_slot_gather` (each routed token to its kept capacity rows:
+    the dispatch forward) and :func:`moe_slot_gather_scaled` (the same
+    scaled by each slot's weight: the combine backward's ``d_out``);
     :func:`moe_token_gather` (a token from its kept slots, weighted: the
     combine forward), :func:`moe_token_sum` (unweighted: the dispatch
     backward) and :func:`moe_token_dot` (the combine backward's ``d_w``),
@@ -48,6 +49,11 @@ from . import _build
 
 SOURCE = _build.CSRC / "moe_dispatch.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: tokens a route block (``kRouteTile`` in the source)
+ROUTE_TILE = 128
+#: the most experts the route kernel takes (``kRouteMaxExperts``): a
+#: block's rows, E x ROUTE_TILE fp32, sit in shared memory
+ROUTE_MAX_EXPERTS = 448
 
 
 class MoERoute(NamedTuple):
@@ -117,9 +123,8 @@ def moe_combine_reference(expert_out: torch.Tensor, w: torch.Tensor,
 
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.moe_route.argtypes = [ptr, i32, i32, i32, i32] + [ptr] * 7
-    lib.moe_slot_gather.argtypes = [i32, ptr, ptr, ptr, ptr, i32, ptr, ctypes.c_longlong,
-                                    i32, ptr]
+    lib.moe_route.argtypes = [ptr, i32, i32, i32, i32] + [ptr] * 7 + [i32, ptr]
+    lib.moe_slot_gather.argtypes = [i32] + [ptr] * 6 + [i32] * 5 + [ptr, ptr]
     lib.moe_token_gather.argtypes = [i32] + [ptr] * 5 + [i32] * 4 + [ptr, ptr]
     lib.moe_token_dot.argtypes = [i32] + [ptr] * 5 + [i32] * 4 + [ptr, ptr]
     for fn in (lib.moe_route, lib.moe_slot_gather, lib.moe_token_gather, lib.moe_token_dot):
@@ -140,8 +145,8 @@ def _check_route(name: str, route: MoERoute, n: int, e: int, c: int) -> int:
     experts and capacity ``c``; returns k."""
     k = route.idx.shape[1] if route.idx.dim() == 2 else 0
     want = {"idx": (torch.int32, (n, k)), "pos": (torch.int32, (n, k)),
-            "keep": (torch.bool, (n, k)), "slot_token": (torch.int32, (e, c)),
-            "slot_k": (torch.int32, (e, c))}
+            "keep": (torch.bool, (n, k)), "counts": (torch.int32, (e,)),
+            "slot_token": (torch.int32, (e, c)), "slot_k": (torch.int32, (e, c))}
     for field, (dtype, shape) in want.items():
         x = getattr(route, field)
         if x.dtype != dtype or tuple(x.shape) != shape:
@@ -177,9 +182,16 @@ def _launch(fn, name: str, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+def route_tiles(n: int) -> int:
+    """The route's blocks for ``n`` tokens: tiles of :data:`ROUTE_TILE`,
+    the last one partial; the rows of its count table."""
+    return -(-n // ROUTE_TILE)
+
+
 def moe_route_kernel(probs: torch.Tensor, top_k: int, capacity: int) -> MoERoute:
-    """The route kernel on fp32 ``probs [N, E]`` on the card.  Counted in
-    ``moe_route_kernel.launches``."""
+    """The route kernels on fp32 ``probs [N, E]`` on the card: a pick and
+    a place launch sharing a ``[route_tiles(N), E]`` int32 count table.
+    Counted once in ``moe_route_kernel.launches``."""
     if probs.dtype != torch.float32 or probs.dim() != 2:
         raise ValueError(f"moe_route kernel: probs must be fp32 [N, E], got {probs.dtype} "
                          f"{tuple(probs.shape)}")
@@ -187,6 +199,9 @@ def moe_route_kernel(probs: torch.Tensor, top_k: int, capacity: int) -> MoERoute
     if not 1 <= top_k <= e or capacity < 1 or n < 1 or n * top_k >= 2**31 \
             or e * capacity >= 2**31:
         raise ValueError(f"moe_route kernel: N {n}, E {e}, top_k {top_k}, capacity {capacity}")
+    if e > ROUTE_MAX_EXPERTS:
+        raise ValueError(f"moe_route kernel: E {e} experts, at most {ROUTE_MAX_EXPERTS} (a "
+                         "block's probability rows sit in shared memory)")
     _check("moe_route", probs)
     fn = _build.load(SOURCE, _bind).moe_route
     dev = probs.device
@@ -197,9 +212,12 @@ def moe_route_kernel(probs: torch.Tensor, top_k: int, capacity: int) -> MoERoute
         counts = torch.empty((e,), dtype=torch.int32, device=dev)
         slot_token = torch.empty((e, capacity), dtype=torch.int32, device=dev)
         slot_k = torch.empty_like(slot_token)
+        tiles = route_tiles(n)
+        table = torch.empty((tiles, e), dtype=torch.int32, device=dev)
         _launch(fn, "moe_route", probs.data_ptr(), n, e, top_k, capacity, idx.data_ptr(),
                 pos.data_ptr(), keep.data_ptr(), counts.data_ptr(), slot_token.data_ptr(),
-                slot_k.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                slot_k.data_ptr(), table.data_ptr(), tiles,
+                torch.cuda.current_stream(dev).cuda_stream)
     moe_route_kernel.launches += 1
     return MoERoute(idx, pos, keep, counts, slot_token, slot_k)
 
@@ -215,21 +233,23 @@ def _slot_gather(name: str, src: torch.Tensor, route: MoERoute,
     d = src.shape[1]
     k = _check_route(name, route, n, e, c)
     extra = _check_weights(name, w, n, k)
-    _check(name, src, route.slot_token, route.slot_k, *extra)
+    _check(name, src, route.idx, route.pos, route.keep, route.counts, *extra)
     fn = _build.load(SOURCE, _bind).moe_slot_gather
     with torch.cuda.device(src.device):
         out = torch.empty((e, c, d), dtype=src.dtype, device=src.device)
-        _launch(fn, name, _DTYPE_CODES[src.dtype], src.data_ptr(),
-                route.slot_token.data_ptr(), route.slot_k.data_ptr(),
-                w.data_ptr() if w is not None else None, k, out.data_ptr(), e * c, d,
+        _launch(fn, name, _DTYPE_CODES[src.dtype], src.data_ptr(), route.idx.data_ptr(),
+                route.pos.data_ptr(), route.keep.data_ptr(), route.counts.data_ptr(),
+                w.data_ptr() if w is not None else None, n, k, e, c, d, out.data_ptr(),
                 torch.cuda.current_stream(src.device).cuda_stream)
     return out
 
 
 def moe_slot_gather(src: torch.Tensor, route: MoERoute) -> torch.Tensor:
     """``[E, C, D]``: each capacity row ``(e, c)`` is ``src[slot_token[e,
-    c]]``, zeros where the row is empty.  ``src`` ``[N, D]``.  Counted in
-    ``moe_slot_gather.launches``."""
+    c]]``, zeros where the row is empty.  ``src`` ``[N, D]``.  The kernel
+    is token-major: each routed token is read once and written to its kept
+    slots' rows ``(idx, pos)``; the rows past ``min(counts[e], C)`` are the
+    empty ones.  Counted in ``moe_slot_gather.launches``."""
     out = _slot_gather("moe_slot_gather", src, route, None)
     moe_slot_gather.launches += 1
     return out

@@ -6,8 +6,10 @@ Weights are JAX's ``init_params`` / ``init_moe_layer`` carried across by
 ``params_from_jax``; inputs and tokens come from numpy with a seed.  On the
 CPU the port's route, dispatch and combine are their plain versions (the
 reference's dense one-hot einsums); the kernels' own algorithm is emulated
-here in numpy (a block per expert walking the tokens in chunks, ranks for
-the top-k; gathers in slot order) and held to the plain versions.  Cases:
+here in numpy (the route's pick and place passes over tiles of tokens,
+the top-k by k passes and the k-th pick as a threshold; the slot gather
+token-major, the token gathers in slot order) and held to the plain
+versions.  Cases:
 ``top_k`` 1 and 2, ``n_experts`` 2, 4 and 8, a ragged N (B 3, T 7), the
 reference's capacity-drop case (``tests/test_moe_pipeline.py``: E 2, k 1,
 capacity factor 0.25, every token routed alike) and exact ties (a zero
@@ -40,6 +42,8 @@ router: every probability 1/E, experts 0..k-1 picked).  Tolerances, fp32:
   sum of the magnitudes of their terms (2^-22 of it).
 """
 from __future__ import annotations
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -315,67 +319,175 @@ def test_route_reference_matches_lax_top_k(e, k, n, cap):
 # ---------------------------------------------------------------------------
 
 
-def _emulate_route(probs, k, cap, chunk):
-    """``moe_route_kernel``: one block per expert walks the tokens ``chunk``
-    at a time; a token picks expert e at slot rank(e) when that is < k (the
-    experts before e in descending order, ties to the lower index); a
-    chunk's picks are numbered in token order after the earlier chunks'."""
+def _before(a, ia, b, ib):
+    """``before()`` of ``csrc/moe_dispatch.cu``: value a at index ia comes
+    before b at ib in ``lax.top_k``'s order (ties to the lower index, NaN
+    largest)."""
+    na, nb = np.isnan(a), np.isnan(b)
+    return np.where(na | nb, na & (~nb | (ia < ib)), (a > b) | ((a == b) & (ia < ib)))
+
+
+def _emulate_route(probs, k, cap, tile, warp=32, chunk=32):
+    """``moe_route_kernel``'s two launches over tiles of ``tile`` tokens,
+    a thread a token, experts ``chunk`` at a time.  Pick: k passes find a
+    token's picks in order (idx), each the first expert after the last;
+    the token picks e when e is not after the k-th pick; its position
+    among its tile's picks of e is its ballot prefix in its warp of
+    ``warp`` lanes plus the earlier warps' counts, at slot rank(e); the
+    tile's counts go to a table ``[n_tiles, E]``.  Place: each tile adds
+    the earlier tiles' counts; the tails of slot_token / slot_k are -1
+    over a grid-stride loop."""
     n, e_count = probs.shape
-    idx = np.full((n, k), -1, np.int32)
-    pos = np.full((n, k), -1, np.int32)
-    keep = np.zeros((n, k), bool)
-    counts = np.zeros(e_count, np.int32)
-    slot_token = np.full((e_count, cap), -7, np.int32)  # what the allocator left
-    slot_k = np.full((e_count, cap), -7, np.int32)
-    j = np.arange(e_count)
-    for e in range(e_count):
-        base = 0
-        for start in range(0, n, chunk):
-            rows = probs[start:start + chunk]
-            pe = rows[:, e:e + 1]
-            rank = ((rows > pe) | ((rows == pe) & (j < e))).sum(1)
-            picked = rank < k
-            p = base + np.cumsum(picked) - picked
-            for t in np.nonzero(picked)[0]:
-                s, tok = rank[t], start + t
-                idx[tok, s], pos[tok, s], keep[tok, s] = e, p[t], p[t] < cap
-                if p[t] < cap:
-                    slot_token[e, p[t]], slot_k[e, p[t]] = tok, s
-            base += int(picked.sum())
-        counts[e] = base
-        slot_token[e, min(base, cap):] = -1
-        slot_k[e, min(base, cap):] = -1
+    n_tiles = -(-n // tile)
+    junk = -7  # what the allocator left
+    idx, pos = np.full((n, k), junk, np.int32), np.full((n, k), junk, np.int32)
+    keep = np.full((n, k), True)
+    counts = np.full(e_count, junk, np.int32)
+    slot_token = np.full((e_count, cap), junk, np.int32)
+    slot_k = np.full((e_count, cap), junk, np.int32)
+    table = np.full((n_tiles, e_count), junk, np.int32)
+    j_all = np.arange(e_count)
+    last = np.zeros(n, np.int64)  # each token's k-th pick
+    for t in range(n):
+        prev = None
+        for s in range(k):
+            after = [j for j in j_all if prev is None or _before(probs[t, prev], prev, probs[t, j], j)]
+            best = after[0]
+            for j in after[1:]:
+                if _before(probs[t, j], j, probs[t, best], best):
+                    best = j
+            idx[t, s] = prev = best
+        last[t] = prev
+
+    def hit(t, e):
+        return e == last[t] or bool(_before(probs[t, e], e, probs[t, last[t]], last[t]))
+
+    def rank(t, e):
+        return int(_before(probs[t], j_all, probs[t, e], e).sum())
+
+    for t0 in range(n_tiles):  # the pick launch, a block a tile
+        toks = np.arange(t0 * tile, min((t0 + 1) * tile, n))
+        lanes = [toks[w:w + warp] for w in range(0, len(toks), warp)]
+        for e0 in range(0, e_count, chunk):
+            for e in range(e0, min(e0 + chunk, e_count)):
+                ballots = [np.array([hit(t, e) for t in lane], bool) for lane in lanes]
+                table[t0, e] = sum(int(b.sum()) for b in ballots)
+                for w, (lane, b) in enumerate(zip(lanes, ballots)):
+                    earlier = sum(int(x.sum()) for x in ballots[:w])
+                    for li in np.nonzero(b)[0]:
+                        pos[lane[li], rank(lane[li], e)] = earlier + int(b[:li].sum())
+    total = table.sum(0)
+    for t0 in range(n_tiles):  # the place launch
+        base = table[:t0].sum(0)
+        for e0 in range(0, e_count, chunk):
+            ne = min(chunk, e_count - e0)
+            for t in range(t0 * tile, min((t0 + 1) * tile, n)):
+                for s in range(k):
+                    if not e0 <= idx[t, s] < e0 + ne:
+                        continue
+                    p = base[idx[t, s]] + pos[t, s]
+                    pos[t, s], keep[t, s] = p, p < cap
+                    if p < cap:
+                        slot_token[idx[t, s], p], slot_k[idx[t, s], p] = t, s
+            if t0 == 0:
+                counts[e0:e0 + ne] = total[e0:e0 + ne]
+            for tid in range(tile):  # every thread of the block, past N too
+                for f in range(t0 * tile + tid, ne * cap, n_tiles * tile):
+                    e, c = e0 + f // cap, f % cap
+                    if c >= min(total[e], cap):
+                        slot_token[e, c] = slot_k[e, c] = -1
     return md.MoERoute(*(torch.from_numpy(a) for a in (idx, pos, keep, counts, slot_token,
                                                        slot_k)))
 
 
-@pytest.mark.parametrize("chunk", [1, 5, 1024])
-@pytest.mark.parametrize("e, k, n, cap", [(2, 1, 33, 4), (4, 2, 50, 30), (8, 2, 64, 20),
-                                          (4, 4, 12, 6)])
-def test_route_kernel_algorithm_matches_reference(e, k, n, cap, chunk):
-    probs = _probs(n, e, seed=n)
-    got = _emulate_route(probs, k, cap, chunk)
-    want = md.moe_route_reference(torch.from_numpy(probs), k, cap)
+def _assert_route_equal(got, want):
     for field in md.MoERoute._fields:
         assert torch.equal(getattr(got, field), getattr(want, field)), field
 
 
+@pytest.mark.parametrize("tile", [1, 3, 5, 1024])
+@pytest.mark.parametrize("e, k, n, cap", [(2, 1, 33, 4), (4, 2, 50, 30), (8, 2, 64, 20),
+                                          (4, 4, 12, 6), (64, 8, 40, 7)])
+def test_route_kernel_algorithm_matches_reference(e, k, n, cap, tile):
+    """Tiles of one token, of a few (N not a multiple of them) and larger
+    than N; k = E; E 64 k 8 (two passes of 32 experts)."""
+    probs = _probs(n, e, seed=n)
+    _assert_route_equal(_emulate_route(probs, k, cap, tile),
+                        md.moe_route_reference(torch.from_numpy(probs), k, cap))
+
+
+@pytest.mark.parametrize("tile, warp", [(3, 32), (5, 2), (4, 3)])
+@pytest.mark.parametrize("kind", ["ties", "cut"])
+def test_route_kernel_algorithm_at_tile_edges(kind, tile, warp):
+    """"ties": exact ties on both sides of every tile edge (the last token
+    of a tile and the first of the next uniform, the one after it with its
+    top two equal).  "cut": every token's top pick is expert 0 and the
+    capacity cut falls inside a tile.  Warps narrower than the tile
+    exercise the numbering across warps."""
+    n, e, k = 37, 4, 2
+    probs = _probs(n, e, seed=tile)
+    if kind == "ties":
+        edges = np.arange(tile, n - 1, tile)
+        probs[edges - 1] = probs[edges] = 1.0 / e
+        probs[edges + 1, 1:3] = probs[edges + 1].max(-1, keepdims=True)
+        cap = 12
+    else:
+        probs[:, 0] += 1.0
+        cap = 2 * tile + 1  # the cut: token 2 tile + 1, inside the third tile
+    got = _emulate_route(probs, k, cap, tile, warp=warp)
+    _assert_route_equal(got, md.moe_route_reference(torch.from_numpy(probs), k, cap))
+    if kind == "cut":
+        assert got.keep[:, 0].tolist() == [t < cap for t in range(n)]
+    else:
+        assert got.idx[edges - 1].tolist() == [[0, 1]] * len(edges)
+
+
+def test_route_kernel_names_its_expert_limit():
+    """Past ``ROUTE_MAX_EXPERTS`` the route kernel refuses, naming the
+    limit, before it looks for a card."""
+    probs = torch.full((4, md.ROUTE_MAX_EXPERTS + 1), 1.0 / (md.ROUTE_MAX_EXPERTS + 1))
+    with pytest.raises(ValueError, match=f"at most {md.ROUTE_MAX_EXPERTS}"):
+        md.moe_route_kernel(probs, 2, 4)
+
+
+def test_route_tiles_match_the_source():
+    """The wrapper's count table has a row a route block: ``ROUTE_TILE``
+    is the source's ``kRouteTile`` and ``route_tiles`` its ceiling
+    division (the C entry refuses any other count)."""
+    source = md.SOURCE.read_text()
+    tile = int(re.search(r"constexpr int kRouteTile = (\d+);", source).group(1))
+    assert tile == md.ROUTE_TILE
+    limit = int(re.search(r"constexpr int kRouteMaxExperts = (\d+);", source).group(1))
+    assert limit == md.ROUTE_MAX_EXPERTS
+    assert limit * tile * 4 + 32 * (tile // 32) * 4 <= 227 * 1024  # rows and ballots
+    assert [md.route_tiles(n) for n in (1, tile - 1, tile, tile + 1, 8192)] == [
+        1, 1, 1, 2, -(-8192 // tile)]
+
+
 def _emulate_gathers(tokens, expert_out, w, dy, d_ei, route):
-    """The gather kernels in numpy fp32: the dispatch (slot gather), the
-    combine (token gather, fmaf in slot order), its ``d_out`` (slot gather
-    scaled by w) and ``d_w`` (dots), and the dispatch backward (token
-    gather, w 1)."""
+    """The gather kernels in numpy fp32.  The slot gather, token-major: each
+    token with a kept slot is read once (the dispatch's token, d_out's dy
+    row) and written to each kept slot's row (idx, pos), times w[n, s] for
+    d_out; the rows past min(counts[e], C) are then zeros.  The token
+    gather: the combine (fmaf in slot order), ``d_w`` (dots) and the
+    dispatch backward (w 1)."""
     e, c = route.slot_token.shape
-    st, sk = route.slot_token.numpy(), route.slot_k.numpy()
+    counts = route.counts.numpy()
     idx, pos, keep = route.idx.numpy(), route.pos.numpy(), route.keep.numpy()
     n, k = idx.shape
-    expert_in = np.zeros((e, c, tokens.shape[1]), np.float32)
-    d_out = np.zeros_like(expert_in)
+    expert_in = np.full((e, c, tokens.shape[1]), np.nan, np.float32)  # the allocator's
+    d_out = np.full_like(expert_in, np.nan)
+    for t in range(n):
+        slots = np.nonzero(keep[t])[0]
+        if not len(slots):
+            continue
+        x, g = tokens[t].copy(), dy[t].copy()  # read once
+        for s in slots:
+            expert_in[idx[t, s], pos[t, s]] = x
+            d_out[idx[t, s], pos[t, s]] = np.float32(w[t, s]) * g
     for ex in range(e):
-        for r in range(c):
-            if st[ex, r] >= 0:
-                expert_in[ex, r] = tokens[st[ex, r]]
-                d_out[ex, r] = np.float32(w[st[ex, r], sk[ex, r]]) * dy[st[ex, r]]
+        expert_in[ex, min(counts[ex], c):] = 0.0
+        d_out[ex, min(counts[ex], c):] = 0.0
     y = np.zeros_like(tokens)
     d_tokens = np.zeros_like(tokens)
     d_w = np.zeros((n, k), np.float32)
@@ -389,7 +501,8 @@ def _emulate_gathers(tokens, expert_out, w, dy, d_ei, route):
     return expert_in, y, d_out, d_w, d_tokens
 
 
-@pytest.mark.parametrize("e, k, n, cap", [(2, 1, 33, 4), (4, 2, 50, 30), (8, 2, 64, 20)])
+@pytest.mark.parametrize("e, k, n, cap", [(2, 1, 33, 4), (4, 2, 50, 30), (8, 2, 64, 20),
+                                          (4, 4, 12, 2)])
 def test_gather_kernels_algorithm_matches_the_einsums(e, k, n, cap):
     rng = np.random.default_rng(e * n)
     d = 24
@@ -400,6 +513,8 @@ def test_gather_kernels_algorithm_matches_the_einsums(e, k, n, cap):
     tokens, dy = (rng.standard_normal((n, d)).astype(np.float32) for _ in range(2))
     expert_out, d_ei = (rng.standard_normal((e, cap, d)).astype(np.float32) for _ in range(2))
     got = _emulate_gathers(tokens, expert_out, w.numpy(), dy, d_ei, route)
+    if (e, k, n) in ((2, 1, 33), (4, 4, 12)):  # more slots than rows on some expert
+        assert (route.counts > cap).any()
     t_tok = torch.from_numpy(tokens).requires_grad_()
     t_out = torch.from_numpy(expert_out).requires_grad_()
     t_w = w.clone().requires_grad_()

@@ -15,12 +15,16 @@ rounded once to the dtype: ``chip_smoke.MOE_SUM_ROUNDING`` of the terms'
 magnitudes plus one ulp of the dtype); ``d_w`` within
 ``chip_smoke.MOE_DW_REL`` of its products' magnitudes (a D-long fp32 dot in
 another order); each backward kernel run twice gives the same bits.  Cases
-at block and tile edges: N 1, 7 and 8193 (the route's 1024-token chunks),
-D 64, 4096 and 4104 (4104 bf16 rows are 16-byte vectors, fp32 rows too;
-odd D takes the scalar loop), capacity 1, fewer rows than kept slots, all
-tokens on one expert, exact ties, bf16 and fp32.  On the card (no JAX
-there) run them with ``python -m pytest --noconftest -m gpu
-tests/test_torch_moe_dispatch.py``.
+at block and tile edges: N 1, 7 and 8193, and N at the route's tile size
+(``md.ROUTE_TILE``) less one, equal and plus one; D 64, 4096 and 4104
+(4104 bf16 rows are 16-byte vectors, fp32 rows too; odd D takes the
+scalar loop, 4104 a partial last group of the slot gather's vectors);
+capacity 1, fewer rows than kept slots, a capacity cut inside a route
+tile, all tokens on one expert, k = E with drops on every expert, more
+than 32 kept slots a token (the route, the dispatch and d_out only), exact
+ties (at N 8192 planted on the route's tile edges too), bf16 and fp32.
+On the card (no JAX there) run them with ``python -m pytest --noconftest
+-m gpu tests/test_torch_moe_dispatch.py``.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ def _need_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("d", [64, 4096, 4104, 100])
-@pytest.mark.parametrize("n", [1, 7, 8193])
+@pytest.mark.parametrize("n", [1, 7, md.ROUTE_TILE - 1, md.ROUTE_TILE, md.ROUTE_TILE + 1, 8193])
 def test_kernels_match_plain_version_on_card(n, d, dtype):
     dev = _need_card()
     case = chip_smoke.moe_case(torch, dev, dtype, n=n, d=d, seed=n + d)
@@ -61,6 +65,7 @@ def test_kernels_match_plain_version_on_card(n, d, dtype):
     ("ties", 8, 2, 1.25, 3000),
     ("ties", 4, 4, 1.25, 1500),   # k = E: every expert, in index order on ties
     ("random", 64, 8, 1.25, 1025),
+    ("random", 4, 4, 0.5, 700),     # k = E: every token in every queue, drops on every expert
 ])
 def test_capacity_and_tie_edges_on_card(kind, e, k, cf, n, dtype):
     dev = _need_card()
@@ -71,6 +76,63 @@ def test_capacity_and_tie_edges_on_card(kind, e, k, cf, n, dtype):
         assert route.counts[0].item() == n
     if cf < 1:
         assert not route.keep.all()
+    if k == e:
+        assert (route.counts == n).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_ties_on_route_tile_edges_on_card(dtype):
+    """N 8192 with exact ties on both sides of every tile edge: the last
+    token of a tile and the first of the next all equal, the next one's
+    top two equal."""
+    dev = _need_card()
+    n, e = 8192, 8
+    case = chip_smoke.moe_case(torch, dev, dtype, n=n, d=256, e=e, seed=3)
+    edges = torch.arange(md.ROUTE_TILE, n, md.ROUTE_TILE, device=dev)
+    probs = case["probs"]
+    probs[edges - 1] = 1.0 / e
+    probs[edges] = 1.0 / e
+    probs[edges + 1, 2:4] = probs[edges + 1].amax(-1, keepdim=True)
+    route, _, _ = chip_smoke.check_moe(torch, case, "ties on tile edges")
+    assert route.idx[edges - 1].tolist() == [[0, 1]] * len(edges)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_capacity_cut_inside_a_route_tile_on_card(dtype):
+    """Every token on expert 0 with capacity 200: the cut falls inside the
+    route's second tile, so one tile keeps its first tokens and drops the
+    rest."""
+    dev = _need_card()
+    n = 1000
+    case = chip_smoke.moe_case(torch, dev, dtype, n=n, d=256, cf=0.8, kind="one", seed=5)
+    cap = case["cap"]
+    assert cap == 200 and cap % md.ROUTE_TILE
+    route, _, _ = chip_smoke.check_moe(torch, case, f"cut at {cap}")
+    assert torch.equal(route.keep[:, 0].cpu(), torch.arange(n) < cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_more_than_32_slots_on_card(dtype):
+    """k 36 of E 40: the slot gather takes a token's kept slots 32 at a
+    time.  The route, the dispatch and d_out against the plain versions;
+    not the token gathers, whose sums of 36 terms are outside
+    ``check_moe``'s one-rounding gate (derived for a sum of a few)."""
+    dev = _need_card()
+    case = chip_smoke.moe_case(torch, dev, dtype, n=200, d=64, e=40, k=36, seed=11)
+    probs, k, cap, tokens, dy = (case[x] for x in ("probs", "k", "cap", "tokens", "dy"))
+    route = md.moe_route_kernel(probs, k, cap)
+    plain = md.moe_route_reference(probs, k, cap)
+    for field in md.MoERoute._fields:
+        assert torch.equal(getattr(route, field), getattr(plain, field)), field
+    w = chip_smoke.routing_weights(torch, probs, route)
+    assert torch.equal(md.moe_slot_gather(tokens, route), md.moe_dispatch_reference(tokens, plain))
+    out = case["expert_out"].clone().requires_grad_()
+    (d_out,) = torch.autograd.grad(md.moe_combine_reference(out, w, plain), out, dy)
+    assert torch.equal(md.moe_slot_gather_scaled(dy, route, w), d_out)
+    assert route.keep.sum(1).max() > 32
 
 
 @pytest.mark.gpu
