@@ -107,6 +107,46 @@ Every phase raises on failure.  Phases:
    result keys as the reference's, the mesh's ``ep`` 1.  B7 and B9 launches
    equal layers x steps in (2)-(4).
 
+10. Serving gangs, once phase 9 is done.  (1) B1 at a tensor-parallel
+    rank's heads: Llama-3-8B at tp 2 (h 16, kvh 4, hd 128) on phase 2's
+    8192-token case, bf16 and fp32, phase 2's gates (its own kernel row).
+    (2) An fp32 oracle of ``ServingGangGroup(tp=2)`` on the card: two
+    ranks as threads of this process over in-process gloo groups (CUDA
+    tensors staged through host memory), each holding its slices
+    (``reduced``: n_layers 32 -> 2), on phase 3's weights (drawn again from
+    the seed) and prompts, speculative off and on: tokens equal to phase
+    3's single-rank engine and to the dense oracle under the near-tie
+    rule, B1 launches = 2 ranks x layers x steps, one step shape a rank;
+    then one session's per-rank export merged and held to one rank's
+    export (within d_ff x 2^-24 of each record's largest value, the CPU
+    tests' rule), imported into a single-rank backend that decodes on to
+    the oracle's tokens.  (3) bf16 Llama-3-8B at tp 2, all 32 layers, as
+    two rank processes of this script on the one card (``--gang-rank``):
+    each draws its slices leaf by leaf from the seed, they meet at a
+    TCPStore and join a gloo group; rank 0 serves phase 4's 8 requests
+    through a ``ServingEngine`` over ``ShardedServingBackend(rank=0)``,
+    putting each step's entries into the store ahead of the step, and rank
+    1 replays them (``StepReplay``, the replay of a gang worker's
+    followers, with the store for the statebus); each rank's peak memory (below the peak of phase 4's
+    own weights and serving, gated), step p50, TTFT p50, output tokens/s,
+    host time inside the all-reduces, then a shorter run under
+    ``torch.profiler`` (device busy share, the all-reduces' part of it);
+    gated on B1 launches = 32 x steps
+    on each rank and each rank's parameter bytes below the whole model's;
+    no token gate in bf16 and no speed gate.  (4) A serving gang job
+    through two port worker processes (``WORKER_GANG=1``) over the TCP
+    statebus, this script playing the gang scheduler (the gang labels on
+    each member's ``JobRequest``): the reference's payload (tiny config,
+    fp32, a seed); ``ready`` then ``done`` from both ranks, rank 0's
+    tokens equal to a dense greedy run on the seed's weights (near-tie
+    rule), ``steps_replayed == steps``, only rank 0 streams, B1 launches =
+    layers x steps in each process; then a ``gang_test`` failing rank 1
+    (rank 1 aborts, rank 0 leaves its spin: both heartbeats show no active
+    job), then a ``gang_echo`` that both finish; SIGTERM drains both.
+    ``--cards``, on two or more cards (:func:`main_cards`): 10.3's rank
+    processes one a card (NCCL) at tp 2 and 4, in fp32 (2 layers) held to
+    phase 3's oracle and one rank, then in bf16 beside phase 4.
+
 Tolerances (kernel vs plain version, max abs error), paged attention:
 fp32 1e-4 — the sums run in another order over up to 8192 keys, on O(1)
 outputs; bf16 6e-2 — the kernel rounds scores to bf16 as the plain version
@@ -161,7 +201,8 @@ largest |value| (B9's fp32 gate).
 Near-tie rule of phase 3, fixed before any run: tokens are compared up to
 the first generated position where the oracle's top-2 logits differ by
 less than 1e-4 (fp32 sums in another order may flip such a tie); the
-number of such positions is printed.
+number of such positions is printed.  Phase 10 holds every gang token to
+the same rule, against the oracle and against the single rank.
 
 The line before the last two is a JSON object with each kernel's numbers;
 then the ``nvidia-smi`` name and power-limit line; the last line is
@@ -207,6 +248,8 @@ MOE_KERNELS = {
 #: kernel row → (its module under cordum_tpu_torch.ops, the JAX-side function it replaces)
 KERNELS = {
     "paged_attention": ("paged_attention", "cordum_tpu/models/llama.py:467"),
+    # B1 at a tensor-parallel rank's heads (phase 10): Llama-3-8B at tp 2
+    "paged_attention_tp2": ("paged_attention", "cordum_tpu/models/llama.py:467"),
     "embed_attention": ("embed_attention", "cordum_tpu/models/embedder.py:123"),
     "dense_attention_fwd": ("dense_attention", "cordum_tpu/models/llama.py:179-197"),
     "dense_attention_bwd": ("dense_attention", "cordum_tpu/models/llama.py:179-197"),
@@ -535,8 +578,9 @@ def decode_rate(emits):
 
 
 def phase_oracle(torch, dev, card, cfg, *, n_new=16):
-    """Returns the main path's kernel launches, the weights, the prompts and
-    the dense oracle's (tokens, near-tie positions) per prompt."""
+    """Returns the main path's kernel launches, the weights, the prompts,
+    the dense oracle's (tokens, near-tie positions) per prompt and the
+    engine's tokens per prompt for speculative off and on."""
     from cordum_tpu_torch.models import llama
     from cordum_tpu_torch.ops import paged_attention as pa
     from cordum_tpu_torch.worker.handlers import make_serving_engine
@@ -548,11 +592,13 @@ def phase_oracle(torch, dev, card, cfg, *, n_new=16):
     oracle = [dense_greedy(torch, llama, params, cfg, p, n_new, dev) for p in prompts]
     n_ties = sum(len(t) for _, t in oracle)
     launches = 0
+    served = {}
     for speculative in (False, True):
         engine = make_serving_engine(cfg, params, device=dev, speculative=speculative,
                                      max_new_tokens=n_new)
         pa.paged_attention.launches = 0
         outs = asyncio.run(serve_waves(engine, waves, n_new, f"spec{int(speculative)}"))
+        served[speculative] = outs
         run_launches = pa.paged_attention.launches
         st = engine.stats
         engine.allocator.check_consistency()
@@ -578,7 +624,7 @@ def phase_oracle(torch, dev, card, cfg, *, n_new=16):
             f"cow copies {st.cow_copies}, drafted {st.drafted_tokens}, "
             f"accepted {st.accepted_tokens}")
     log(f"[oracle] near-tie positions (top-2 gap < {NEAR_TIE:g}): {n_ties}  [{card}]")
-    return launches, params, prompts, oracle
+    return launches, params, prompts, oracle, served
 
 
 # ---------------------------------------------------------------------------
@@ -587,12 +633,16 @@ def phase_oracle(torch, dev, card, cfg, *, n_new=16):
 
 
 def phase_serve(torch, dev, card, cfg, *, n_requests=8, n_new=32, cache_pages=1024):
-    """Returns the main path's kernel launches and the weights, which
-    phase 6 serves again (one copy)."""
+    """Returns the main path's kernel launches, the weights, which phase 6
+    serves again (one copy), and the run's numbers that phase 10.3 prints
+    beside its own (step p50, TTFT p50, output tokens/s, and the peak
+    memory of this run's own weights and serving, without what earlier
+    phases left allocated)."""
     from cordum_tpu_torch.models import llama
     from cordum_tpu_torch.ops import paged_attention as pa
     from cordum_tpu_torch.worker.handlers import make_serving_engine
 
+    before = torch.cuda.memory_allocated(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.monotonic()
     params = llama.init_params(cfg, generator=gen, device=dev)
@@ -634,7 +684,9 @@ def phase_serve(torch, dev, card, cfg, *, n_requests=8, n_new=32, cache_pages=10
         f"{cfg.n_layers} layers): p50 {statistics.median(plan_ms):.3f} ms, max "
         f"{plan_ms[-1]:.3f} ms over {len(plan_ms)} steps")
     profile_serving(torch, dev, card, cfg, params, prompts, cache_pages=cache_pages)
-    return launches, params
+    return launches, params, {"peak_gib": peak_gib - before / 2**30, "step_p50_ms": step_ms,
+                              "ttft_p50_ms": statistics.median(ttft) * 1e3,
+                              "tokens_per_s": st.decoded_tokens / wall}
 
 
 def profile_serving(torch, dev, card, cfg, params, prompts, *, n_new=8, cache_pages=1024):
@@ -2460,6 +2512,778 @@ def phase_moe(torch, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: tensor-parallel serving gangs
+# ---------------------------------------------------------------------------
+
+#: the gang's width: Llama-3-8B over two ranks is h 16, kvh 4 a rank
+GANG_TP = 2
+#: a gang's merged KV export against one rank's: the row-parallel outputs
+#: are fp32 sums over up to d_ff terms in another order, which differ by at
+#: most about n 2^-24 of the terms' magnitudes; a record must lie within
+#: d_ff * GANG_ARENA_PER_TERM of its largest |value| (the CPU tests' rule,
+#: tests/test_torch_shard.py: 8.5e-4 at d_ff 14336)
+GANG_ARENA_PER_TERM = 2.0**-24
+#: seconds any collective or store read of a gang may wait before it fails
+GANG_TIMEOUT_S = 120.0
+#: the phase 10.4 gang job: the reference's payload contract (tiny config,
+#: fp32, a seed), two prompts, and the seed its ranks draw their weights from
+GANG_JOB_SEED = 3
+
+
+def phase_gang_kernel(torch, dev, card):
+    """10.1: B1 at a tp-2 rank's heads (h 16, kvh 4, hd 128) on phase 2's
+    8192-token case, bf16 and fp32, gated and timed as phase 2 does."""
+    case = attention_case(torch, dev, LONG_ROWS, h=32 // GANG_TP, kvh=8 // GANG_TP)
+    flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        q, k, v = (x.to(dtype) for x in case[:3])
+        results[name] = measure_paged(torch, dev, card, (q, k, v, *case[3:]), name,
+                                      f"8192-token tp{GANG_TP} rank", flush)
+        del q, k, v
+    del flush_buf, case
+    return results
+
+
+def drive_gang_backend(backend, prompt, n_new, pages):
+    """Prefill ``prompt`` and decode ``n_new - 1`` tokens through the
+    backend's compat calls on ``pages``; returns the tokens and the next
+    position."""
+    first = backend.prefill(prompt, pages)
+    out, pos = [first], len(prompt)
+    for _ in range(n_new - 1):
+        (nxt,) = backend.decode([(out[-1], pos, pages)])
+        out.append(int(nxt))
+        pos += 1
+    return out, pos
+
+
+def check_gang_export(cfg, merged, single):
+    """The merged gang records against one rank's, within d_ff *
+    GANG_ARENA_PER_TERM of each record's largest value; returns the worst
+    ratio of error to that bound."""
+    if len(merged) != len(single):
+        raise AssertionError(f"gang export: {len(merged)} records, one rank {len(single)}")
+    worst = 0.0
+    for m, s in zip(merged, single):
+        if (m["i"], m["used"], m["shape"]) != (s["i"], s["used"], s["shape"]):
+            raise AssertionError(f"gang export record header {m['i'], m['used'], m['shape']}")
+        for fld in ("k", "v"):
+            a = np.frombuffer(m[fld], np.float32)
+            b = np.frombuffer(s[fld], np.float32)
+            bound = cfg.d_ff * GANG_ARENA_PER_TERM * float(np.abs(b).max())
+            worst = max(worst, float(np.abs(a - b).max()) / bound)
+    if not worst <= 1.0:
+        raise AssertionError(f"gang export differs from one rank's: {worst:.3f} of the bound")
+    return worst
+
+
+def compare_near_tie(got, want, ties, what):
+    """``got`` against the oracle's ``want`` up to its first near-tie
+    position (phase 3's rule)."""
+    upto = ties[0] if ties else len(want)
+    if got[:upto] != want[:upto] or len(got) != len(want):
+        raise AssertionError(f"{what}: {got}, oracle {want} (compared up to {upto})")
+
+
+def phase_gang_oracle(torch, dev, card, cfg, prompts, oracle, served, *, n_new=16):
+    """10.2: ``ServingGangGroup(tp=2)`` on the card (two threads, gloo over
+    CUDA tensors) on phase 3's weights (drawn again from the seed) and
+    prompts, speculative off and on; tokens against phase 3's single-rank
+    engine and the dense oracle under the near-tie rule, B1 launches =
+    ranks x layers x steps, the gang's merged export against one rank's,
+    and the export imported into a single-rank backend decoding on.
+    Returns the run's B1 launches (both ranks)."""
+    from cordum_tpu_torch.models import llama
+    from cordum_tpu_torch.ops import paged_attention as pa
+    from cordum_tpu_torch.serving.backend import LlamaServingBackend
+    from cordum_tpu_torch.serving.engine import ServingEngine
+    from cordum_tpu_torch.serving.pager import PageAllocator
+    from cordum_tpu_torch.serving.shard import ServingGangGroup, merge_rank_records
+
+    params = llama.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+                               device=dev)
+    waves = serving_prompts(cfg.vocab_size)
+    sizing = dict(num_pages=1024, page_size=16, max_seqs=8, max_batch_tokens=8 + 16,
+                  params_provider=lambda: params, device=dev)
+    launches = 0
+    for speculative in (False, True):
+        gang = ServingGangGroup(cfg, tp=GANG_TP, **sizing)
+        collective = gang.ranks[1].tp_group.backend
+        engine = ServingEngine(gang, run_blocking=asyncio.to_thread, max_sessions=8,
+                               max_new_tokens_cap=n_new, speculative=speculative)
+        pa.paged_attention.launches = 0
+        outs = asyncio.run(serve_waves(engine, waves, n_new, f"gang{int(speculative)}"))
+        run_launches = pa.paged_attention.launches
+        st = engine.stats
+        engine.allocator.check_consistency()
+        for p, out, single, (want, ties) in zip(prompts, outs, served[speculative], oracle):
+            compare_near_tie(out, want, ties, f"gang speculative={speculative}, "
+                             f"{len(p)}-token prompt")
+            compare_near_tie(out, single, ties, f"gang vs one rank, speculative={speculative}")
+        if run_launches != GANG_TP * cfg.n_layers * st.steps or run_launches == 0:
+            raise AssertionError(f"gang B1 launches {run_launches} != {GANG_TP} ranks x "
+                                 f"{cfg.n_layers} layers x {st.steps} steps")
+        if gang.compiled_per_rank() != [1] * GANG_TP:
+            raise AssertionError(f"step shapes per rank {gang.compiled_per_rank()}")
+        if speculative and st.drafted_tokens < 1:
+            raise AssertionError("speculative gang run drafted nothing")
+        launches += run_launches
+        log(f"[gang] fp32 tp{GANG_TP} speculative={speculative}: {len(prompts)} requests "
+            f"token-identical to the dense oracle and to one rank; steps {st.steps}, launches "
+            f"{run_launches} (= {GANG_TP} ranks x {cfg.n_layers} layers x {st.steps} steps), "
+            f"prefix hits {st.prefix_hits}, cow copies {st.cow_copies}, drafted "
+            f"{st.drafted_tokens}, accepted {st.accepted_tokens}; collective {collective}  "
+            f"[{card}]")
+        if not speculative:
+            gang.close()
+    # the export: one session on the gang and on one rank, merged and held
+    # together; then the gang's records imported into a fresh rank
+    prompt, n = prompts[2], 8
+    single = LlamaServingBackend(cfg, **sizing)
+    pages = PageAllocator(1024, 16).alloc("x", -(-(len(prompt) + n + 8) // 16))
+    toks_g, end = drive_gang_backend(gang, prompt, n, pages)
+    toks_s, _ = drive_gang_backend(single, prompt, n, pages)
+    exp = gang.export_kv(pages, 0, end)
+    worst = check_gang_export(cfg, merge_rank_records(exp), single.export_kv(pages, 0, end))
+    fresh = LlamaServingBackend(cfg, **sizing)
+    fresh.import_kv(pages, exp)
+    cont_f, cont_g = [], []
+    last_f = last_g = toks_g[-1]
+    for i in range(6):
+        (last_f,) = fresh.decode([(last_f, end + i, pages)])
+        (last_g,) = gang.decode([(last_g, end + i, pages)])
+        cont_f.append(int(last_f))
+        cont_g.append(int(last_g))
+    want, ties = dense_greedy(torch, llama, params, cfg, prompt + toks_g, 6, dev)
+    compare_near_tie(cont_f, want, ties, "single rank after importing the gang's export")
+    compare_near_tie(cont_g, want, ties, "gang decoding on")
+    log(f"[gang] export: {len(exp)} per-rank records merged to {len(exp) // GANG_TP}, within "
+        f"{worst:.3f} of the bound d_ff x 2^-24 = {cfg.d_ff * GANG_ARENA_PER_TERM:.3e} of each "
+        f"record's largest value; imported into one rank, which decodes on to the oracle's "
+        f"tokens ({len(ties)} near ties)  [{card}]")
+    gang.close()
+    del gang, single, fresh, params
+    return launches
+
+
+def gang_rank_config(torch, llama, on_card, fp32):
+    """The rank processes' model: bf16 Llama-3-8B, or with ``fp32`` phase
+    3's fp32 cut of it (``reduced``: n_layers 32 -> 2); off the card (the
+    CPU rehearsal) the tiny widths with 4 KV heads, so that 4 ranks split
+    them, and room for phase 4's prompts."""
+    cfg = llama.LlamaConfig.llama3_8b() if on_card else dataclasses.replace(
+        llama.LlamaConfig.tiny(), n_heads=8, n_kv_heads=4, max_seq_len=512)
+    return dataclasses.replace(cfg, n_layers=2, dtype=torch.float32) if fp32 else cfg
+
+
+def gang_rank_main(args):
+    """One rank process of phase 10.3 (``python3 chip_smoke.py --gang-rank
+    R --gang-port P --gang-out PATH [--gang-tp N] [--gang-spread]
+    [--gang-fp32] [--gang-device cpu] [--gang-new N]``): its slices of the
+    model (:func:`gang_rank_config`) drawn from the seed (on card 0, or on
+    card R with ``--gang-spread``), a TCPStore rendezvous on 127.0.0.1:P
+    (rank 0 hosts it), then rank 0 serves through a ServingEngine over
+    ShardedServingBackend(rank=0) (phase 4's settings, prefix sharing off)
+    and puts each step's entries into the store ahead of the step
+    (``step_message``); the other ranks replay them (``StepReplay``, as a
+    gang worker's followers do, with the store for the statebus).  In bf16:
+    phase 4's requests, speculative decoding on, then a shorter run of the
+    same requests under ``torch.profiler``.  With ``--gang-fp32``: phase
+    3's prompts, speculative off and then on, and rank 0's tokens in the
+    output for the oracle.  Writes its numbers to PATH as JSON."""
+    import argparse
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from cordum_tpu_torch.models import llama
+    from cordum_tpu_torch.ops import paged_attention as pa
+    from cordum_tpu_torch.parallel.mesh import TPGroup
+    from cordum_tpu_torch.serving.engine import ServingEngine
+    from cordum_tpu_torch.serving.shard import ShardedServingBackend, StepReplay, step_message
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--gang-rank", type=int, required=True)
+    ap.add_argument("--gang-port", type=int, required=True)
+    ap.add_argument("--gang-out", required=True)
+    ap.add_argument("--gang-device", default="cuda")
+    ap.add_argument("--gang-new", type=int, default=32)
+    ap.add_argument("--gang-tp", type=int, default=GANG_TP)
+    ap.add_argument("--gang-spread", action="store_true")
+    ap.add_argument("--gang-fp32", action="store_true")
+    a = ap.parse_args(args)
+    rank, tp = a.gang_rank, a.gang_tp
+    dev = (torch.device(a.gang_device, rank if a.gang_spread else 0)
+           if a.gang_device == "cuda" else torch.device("cpu"))
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = gang_rank_config(torch, llama, on_card, a.gang_fp32)
+    timeout = datetime.timedelta(seconds=GANG_TIMEOUT_S)
+    store = dist.TCPStore("127.0.0.1", a.gang_port, tp, rank == 0, timeout,
+                          wait_for_workers=False)
+    group = TPGroup.join(store, rank, tp, dev, timeout_s=GANG_TIMEOUT_S)
+    # host seconds inside the all-reduces, and their count
+    ar = {"s": 0.0, "n": 0}
+    inner = group.all_reduce
+
+    def timed_all_reduce(t):
+        t0 = time.perf_counter()
+        out = inner(t)
+        ar["s"] += time.perf_counter() - t0
+        ar["n"] += 1
+        return out
+
+    group.all_reduce = timed_all_reduce
+    t0 = time.monotonic()
+    backend = ShardedServingBackend(cfg, rank=rank, tp=tp, group=group, num_pages=1024,
+                                    page_size=16, max_seqs=8, max_batch_tokens=8 + 16,
+                                    seed=SEED, device=dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    backend._ensure()
+    if on_card:
+        torch.cuda.synchronize(dev)
+    init_s = time.monotonic() - t0
+    param_bytes = sum(x.numel() * x.element_size() for x in _leaves(backend._params))
+    d, hd = cfg.d_model, cfg.head_dim
+    layer = 2 * d + 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + 3 * d * cfg.d_ff
+    full_bytes = (2 * cfg.vocab_size * d + d + cfg.n_layers * layer) * cfg.dtype.itemsize
+    seq = {"n": 0}
+
+    def send(msg):
+        store.set(f"step/{seq['n']}", json.dumps(msg))
+        seq["n"] += 1
+
+    if a.gang_fp32:
+        waves = serving_prompts(cfg.vocab_size)
+    else:
+        rng = np.random.default_rng(SEED + 2)
+        lengths = np.linspace(8, 300, 8).astype(int).tolist()
+        waves = [[rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]]
+    out = {"rank": rank, "collective": group.backend, "init_s": init_s, "n_layers": cfg.n_layers,
+           "param_bytes": param_bytes, "full_bytes": full_bytes}
+    pa.paged_attention.launches = 0
+    if rank == 0:
+        backend.before_step = lambda entries: send(step_message(seq["n"], entries))
+
+        def engine(speculative=True):
+            # phase 4's engine settings, but for prefix sharing: its page
+            # copies happen outside the step and would not reach the others
+            return ServingEngine(backend, run_blocking=asyncio.to_thread, max_sessions=8,
+                                 max_new_tokens_cap=a.gang_new, prefix_cache=False,
+                                 speculative=speculative)
+
+        if a.gang_fp32:
+            tokens, steps = [], 0
+            for speculative in (False, True):
+                eng = engine(speculative)
+                tokens.append(asyncio.run(serve_waves(eng, waves, a.gang_new,
+                                                      f"gang{int(speculative)}")))
+                steps += eng.stats.steps
+            out.update(steps=steps, tokens=tokens)
+            launches, ar_s, ar_n, prof = pa.paged_attention.launches, ar["s"], ar["n"], None
+            send(step_message(seq["n"], final=True))
+        else:
+            eng = engine()
+            emits = []
+            t0 = time.monotonic()
+            outs = asyncio.run(serve_waves(eng, waves, a.gang_new, "gang", emits))
+            if on_card:
+                torch.cuda.synchronize(dev)
+            wall = time.monotonic() - t0
+            st = eng.stats
+            out.update(steps=st.steps, wall_s=wall, drafted=st.drafted_tokens,
+                       accepted=st.accepted_tokens,
+                       ttft_p50_ms=statistics.median(st.ttft_seconds) * 1e3,
+                       step_p50_ms=statistics.median(st.step_seconds) * 1e3,
+                       tokens_per_s=st.decoded_tokens / wall, decode_p50=decode_rate(emits),
+                       outputs_ok=all(len(o) == a.gang_new
+                                      and all(0 <= t < cfg.vocab_size for t in o)
+                                      for o in outs))
+            launches, ar_s, ar_n = pa.paged_attention.launches, ar["s"], ar["n"]
+            # every rank's profiler starts before the window does, and the
+            # window ends for all at the final marker
+            ctx = gang_profile_start(torch, on_card)
+            send(step_message(seq["n"], profile=True))
+            for r in range(1, tp):
+                store.get(f"profiling/{r}")
+            ctx.t0 = time.monotonic()
+            asyncio.run(serve_waves(engine(), waves, 4, "gang-profile"))
+            send(step_message(seq["n"], final=True))
+            prof = gang_profile_stop(torch, on_card, ctx)
+        for r in range(1, tp):
+            store.get(f"done/{r}")  # every rank read the final marker: the store may close
+    else:
+        replay, prof, ctx = StepReplay(backend), None, None
+        launches, ar_s, ar_n, steps = None, 0.0, 0, 0
+        while True:
+            replay.offer(json.loads(store.get(f"step/{replay.expected}")))
+            msg = replay.next()
+            if msg.get("profile") or msg.get("final"):
+                if launches is None:  # the numbers of the serving run
+                    launches, ar_s, ar_n = pa.paged_attention.launches, ar["s"], ar["n"]
+                    steps = replay.replayed
+            if msg.get("profile"):
+                ctx = gang_profile_start(torch, on_card)
+                store.set(f"profiling/{rank}", "1")
+                ctx.t0 = time.monotonic()
+            elif msg.get("final"):
+                if ctx is not None:
+                    prof = gang_profile_stop(torch, on_card, ctx)
+                store.set(f"done/{rank}", "1")
+                break
+            else:
+                replay.step(msg)
+        out.update(steps=steps)
+    out.update(launches=launches, all_reduce_host_s=ar_s, all_reduces=ar_n, profile=prof,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else 0.0)
+    with open(a.gang_out, "w") as f:
+        json.dump(out, f)
+    group.close()
+    return 0
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def gang_profile_start(torch, on_card):
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    ctx = profile(activities=acts)
+    ctx.__enter__()
+    ctx.t0 = time.monotonic()
+    return ctx
+
+
+def gang_profile_stop(torch, on_card, ctx):
+    """The window's wall time, device busy time (every thread's kernels:
+    the device trace is process-wide) and the all-reduces' part of it:
+    gloo's host<->device copies (it stages each all-reduce through host
+    memory) or NCCL's kernels, which also count the time they wait for
+    their peers."""
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.monotonic() - ctx.t0
+    ctx.__exit__(None, None, None)
+    rows = kernel_rows(ctx) if on_card else []
+    total = sum(r[1] for r in rows)
+    collective = sum(r[1] for r in rows if "memcpy" in r[0].lower() or "nccl" in r[0].lower())
+    return {"wall_ms": wall * 1e3, "device_ms": total / 1e3, "collective_ms": collective / 1e3}
+
+
+def phase_gang_processes(torch, dev, card, single, *, n_new=32):
+    """10.3: two rank processes of this script on the one card, bf16
+    Llama-3-8B at full depth; gated on each rank's launches = layers x
+    steps, each rank's parameter bytes below the whole model's, its peak
+    memory below one rank's (phase 4) and outputs in the vocabulary; phase
+    4's numbers (``single``) printed beside.  Returns the B1 launches of
+    both ranks."""
+    ranks = run_gang_ranks(dev, n_new=n_new)
+    return check_gang_ranks(dev, card, ranks, single, n_new=n_new)
+
+
+def run_gang_ranks(dev, *, n_new, tp=GANG_TP, spread=False, fp32=False):
+    """Spawn ``tp`` rank processes (on card 0, or rank r on card r with
+    ``spread``; the fp32 oracle's model with ``fp32``); returns each rank's
+    JSON document."""
+    import tempfile
+
+    port = free_port()
+    with tempfile.TemporaryDirectory(prefix="cordum-gang-") as workdir:
+        procs, outs, logs = [], [], []
+        try:
+            for rank in range(tp):
+                outs.append(os.path.join(workdir, f"rank{rank}.json"))
+                logs.append(os.path.join(workdir, f"rank{rank}.log"))
+                args = [os.path.abspath(__file__), "--gang-rank", str(rank), "--gang-port",
+                        str(port), "--gang-out", outs[-1], "--gang-new", str(n_new),
+                        "--gang-tp", str(tp)]
+                if spread:
+                    args.append("--gang-spread")
+                if fp32:
+                    args.append("--gang-fp32")
+                if dev.type == "cpu":
+                    args += ["--gang-device", "cpu"]
+                with open(logs[-1], "w") as log_f:
+                    procs.append(subprocess.Popen([sys.executable, *args], stdout=log_f,
+                                                  stderr=subprocess.STDOUT))
+            deadline = time.monotonic() + 600
+            for proc in procs:
+                try:
+                    proc.wait(max(1.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    pass
+        finally:
+            rcs = [stop_process(p, timeout_s=10) for p in procs]
+        if any(rcs):
+            for path in logs:
+                log(open(path).read()[-3000:])
+            raise AssertionError(f"gang rank processes exited {rcs}")
+        return [json.load(open(path)) for path in outs]
+
+
+def check_gang_ranks(dev, card, ranks, single, *, n_new, where="one card", tag="gang-proc"):
+    lead, tp = ranks[0], len(ranks)
+    peak_single = single["peak_gib"]
+    n_layers = lead["n_layers"]
+    for r in ranks:
+        if r["launches"] != n_layers * lead["steps"] or r["launches"] == 0:
+            raise AssertionError(f"rank {r['rank']}: B1 launches {r['launches']} != "
+                                 f"{n_layers} layers x {lead['steps']} steps")
+        if not r["param_bytes"] < r["full_bytes"]:
+            raise AssertionError(f"rank {r['rank']} holds {r['param_bytes']} bytes of "
+                                 f"parameters, the whole model is {r['full_bytes']}")
+        if r["steps"] != lead["steps"]:
+            raise AssertionError(f"rank {r['rank']} replayed {r['steps']} of {lead['steps']} "
+                                 f"steps")
+    if not lead["outputs_ok"]:
+        raise AssertionError("rank 0's outputs are not in the vocabulary")
+    log(f"[{tag}] bf16 Llama-3-8B, {n_layers} layers, tp{tp}: {tp} rank processes on {where}, "
+        f"collective {lead['collective']}; 8 requests, {n_new} new each: steps {lead['steps']}, "
+        f"step p50 {lead['step_p50_ms']:.2f} ms, TTFT p50 {lead['ttft_p50_ms']:.1f} ms, output "
+        f"{lead['tokens_per_s']:.1f} tokens/s (whole run), decode p50 "
+        f"{lead['decode_p50']:.1f} tokens/s per request; drafted {lead['drafted']} accepted "
+        f"{lead['accepted']}; launches {[r['launches'] for r in ranks]} "
+        f"(= {n_layers} x {lead['steps']} each)  [{card}]")
+    log(f"[{tag}] one rank on one card (phase 4, the same requests): step p50 "
+        f"{single['step_p50_ms']:.2f} ms, TTFT p50 {single['ttft_p50_ms']:.1f} ms, output "
+        f"{single['tokens_per_s']:.1f} tokens/s, peak memory of its own weights and serving "
+        f"{peak_single:.2f} GiB  [{card}]")
+    for r in ranks:
+        ar_share = r["all_reduce_host_s"] / lead["wall_s"]
+        prof = r["profile"] or {}
+        log(f"[{tag}] rank {r['rank']}: peak memory {r['peak_gib']:.2f} GiB, parameters "
+            f"{r['param_bytes'] / 2**30:.2f} of {r['full_bytes'] / 2**30:.2f} GiB, weights "
+            f"drawn in {r['init_s']:.1f} s; {r['all_reduces']} all-reduces, "
+            f"{r['all_reduce_host_s'] * 1e3:.1f} ms of host time in them ({100 * ar_share:.1f}% "
+            f"of rank 0's serving wall)  [{card}]")
+        if prof:
+            dev_ms = prof["device_ms"]
+            coll_ms = prof["collective_ms"]
+            log(f"[{tag}] rank {r['rank']} profiled window: wall {prof['wall_ms']:.1f} ms, "
+                f"device busy {dev_ms:.1f} ms ({100 * dev_ms / prof['wall_ms']:.1f}% of wall), "
+                f"of it the all-reduces ({lead['collective']}: "
+                f"{'NCCL kernels' if lead['collective'] == 'nccl' else 'host<->device copies'}) "
+                f"{coll_ms:.2f} ms ({100 * coll_ms / dev_ms if dev_ms else 0.0:.1f}%), the rest "
+                f"{(dev_ms - coll_ms) / prof['wall_ms'] * 100:.1f}% of wall  [{card}]")
+    if dev.type == "cuda" and not all(r["peak_gib"] < peak_single for r in ranks):
+        raise AssertionError(f"rank peaks {[r['peak_gib'] for r in ranks]} GiB not below one "
+                             f"rank's {peak_single:.2f}")
+    return sum(r["launches"] for r in ranks)
+
+
+def check_gang_oracle_ranks(card, ranks, oracle, served, *, where):
+    """The fp32 rank processes' tokens, speculative off and on, against
+    the dense oracle and phase 3's single-rank engine under the near-tie
+    rule; B1 launches = layers x steps on each rank, every rank replaying
+    every step.  Returns the near-tie count."""
+    lead, tp = ranks[0], len(ranks)
+    n_layers = lead["n_layers"]
+    for r in ranks:
+        if r["launches"] != n_layers * lead["steps"] or r["launches"] == 0:
+            raise AssertionError(f"rank {r['rank']}: B1 launches {r['launches']} != "
+                                 f"{n_layers} layers x {lead['steps']} steps")
+        if r["steps"] != lead["steps"]:
+            raise AssertionError(f"rank {r['rank']} replayed {r['steps']} of {lead['steps']} "
+                                 f"steps")
+    for speculative, outs in enumerate(lead["tokens"]):
+        for out, single, (want, ties) in zip(outs, served[bool(speculative)], oracle):
+            compare_near_tie(out, want, ties, f"fp32 gang tp{tp} on {where}, "
+                             f"speculative={bool(speculative)}")
+            compare_near_tie(out, single, ties, f"fp32 gang tp{tp} vs one rank, "
+                             f"speculative={bool(speculative)}")
+    n_ties = sum(len(t) for _, t in oracle)
+    log(f"[gang-oracle] fp32, {n_layers} layers, tp{tp}: {tp} rank processes on {where}, "
+        f"collective {lead['collective']}; speculative off and on, "
+        f"{len(lead['tokens'][0])} requests each token-identical to the dense oracle and to "
+        f"one rank ({n_ties} near ties); steps {lead['steps']}, launches "
+        f"{[r['launches'] for r in ranks]} (= {n_layers} x {lead['steps']} each)  [{card}]")
+    return n_ties
+
+
+def main_cards() -> int:
+    """``python3 chip_smoke.py --cards``, on a host with two or more cards,
+    one rank a card (NCCL), at tp 2 and, with four cards, tp 4: phase 3's
+    fp32 oracle on one card, then the fp32 gang of rank processes on its
+    weights and prompts, its tokens held to the oracle and to one rank
+    (:func:`check_gang_oracle_ranks`); then phase 4's serving run on one
+    card and phase 10.3's bf16 gang, with 10.3's gates (no token gate in
+    bf16, no speed gate).  Ends with the card line and the ``{"ok": true,
+    ...}`` line, as the default run does."""
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        print("chip_smoke --cards: needs two or more CUDA cards", file=sys.stderr)
+        return 2
+    from cordum_tpu_torch.models import llama
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    n = torch.cuda.device_count()
+    card = f"{n} x {smi[0]}"
+    log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build_kernels()
+    tps = [tp for tp in (2, 4) if tp <= n]
+    cfg32 = gang_rank_config(torch, llama, True, True)
+    _, params, _, oracle, served = phase_oracle(torch, dev, card, cfg32)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tp in tps:
+        ranks = run_gang_ranks(dev, n_new=16, tp=tp, spread=True, fp32=True)
+        if ranks[0]["collective"] != "nccl":
+            raise AssertionError(f"fp32 tp{tp} over {tp} cards chose {ranks[0]['collective']}")
+        check_gang_oracle_ranks(card, ranks, oracle, served, where=f"{tp} cards")
+    _, params, single = phase_serve(torch, dev, card, llama.LlamaConfig.llama3_8b())
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tp in tps:
+        ranks = run_gang_ranks(dev, n_new=32, tp=tp, spread=True)
+        if ranks[0]["collective"] != "nccl":
+            raise AssertionError(f"tp{tp} over {tp} cards chose {ranks[0]['collective']}")
+        check_gang_ranks(dev, card, ranks, single, n_new=32, where=f"{tp} cards",
+                         tag="gang-cards")
+    print("\n".join(smi))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
+    return 0
+
+
+class GangDispatcher:
+    """Plays the gang scheduler for phase 10.4: publishes each member's
+    ``JobRequest`` with the gang labels on its worker's subject and watches
+    the gang subject for the members' ``ready``, ``done`` and ``abort``."""
+
+    def __init__(self, bus, store, workers):
+        self.bus, self.store, self.workers = bus, store, workers
+        self.msgs: list = []
+        self.stream_senders: set = set()
+        #: worker id -> (arrival time, active jobs) of its latest heartbeat
+        self.active: dict = {}
+
+    async def start(self):
+        from cordum_tpu_torch.protocol import subjects as subj
+        from cordum_tpu_torch.protocol.types import STATUS_HINT_STREAM
+
+        async def on_gang(subject, pkt):
+            if pkt.gang_msg is not None:
+                self.msgs.append(pkt.gang_msg)
+
+        async def on_progress(subject, pkt):
+            pr = pkt.job_progress
+            if pr is not None and pr.status_hint == STATUS_HINT_STREAM:
+                self.stream_senders.add(pr.worker_id)
+
+        async def on_hb(subject, pkt):
+            if pkt.heartbeat is not None:
+                self.active[pkt.heartbeat.worker_id] = (time.monotonic(),
+                                                        pkt.heartbeat.active_jobs)
+
+        await self.bus.subscribe(subj.GANG_WILDCARD, on_gang)
+        await self.bus.subscribe(subj.PROGRESS, on_progress)
+        await self.bus.subscribe(subj.HEARTBEAT, on_hb)
+
+    async def run(self, job_id, payload, *, kind="", want="done", timeout_s=180.0):
+        """Dispatch one gang job; wait until every rank reported ``want``
+        (``done`` or ``abort``); returns each rank's message."""
+        from cordum_tpu_torch.protocol import subjects as subj
+        from cordum_tpu_torch.protocol.types import (
+            LABEL_GANG_ID, LABEL_GANG_KIND, LABEL_GANG_MEMBERS, LABEL_GANG_RANK,
+            LABEL_GANG_SIZE, BusPacket, JobRequest,
+        )
+
+        gang_id = f"gang-{job_id}"
+        ptr = await self.store.put_context(job_id, payload)
+        for rank, wid in enumerate(self.workers):
+            labels = {LABEL_GANG_ID: gang_id, LABEL_GANG_RANK: str(rank),
+                      LABEL_GANG_SIZE: str(len(self.workers)),
+                      LABEL_GANG_MEMBERS: ",".join(self.workers)}
+            if kind:
+                labels[LABEL_GANG_KIND] = kind
+            await self.bus.publish(subj.direct_subject(wid), BusPacket.wrap(JobRequest(
+                job_id=job_id, topic="job.gang", context_ptr=ptr, labels=labels)))
+        deadline = time.monotonic() + timeout_s
+        while True:
+            mine = [m for m in self.msgs if m.gang_id == gang_id]
+            got = {m.rank: m for m in mine if m.kind == want}
+            if len(got) == len(self.workers):
+                return [got[r] for r in range(len(self.workers))], mine
+            if want == "done" and any(m.kind == "abort" for m in mine):
+                raise AssertionError(f"gang {job_id} aborted: "
+                                     f"{[m.reason for m in mine if m.kind == 'abort']}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"gang {job_id}: {len(got)} of {len(self.workers)} ranks "
+                                     f"reported {want}: {[(m.kind, m.rank) for m in mine]}")
+            await asyncio.sleep(0.05)
+
+
+async def drive_gang_workers(torch, dev, card, workdir, *, n_new=12):
+    """10.4: a statebus process and two port worker processes with
+    ``WORKER_GANG=1``; this script plays the gang scheduler over TCP.  A
+    serving gang job (tiny config, fp32, a seed): both ranks ``ready`` then
+    ``done``, rank 0's tokens equal a dense greedy run on the weights the
+    seed draws (near-tie rule), ``steps_replayed == steps``, only rank 0
+    streams.  Then a ``gang_test`` failing rank 1: both members end (an
+    abort, no member left active), and both finish a ``gang_echo``.  SIGTERM
+    drains both to exit 0.  Returns the workers' B1 launches."""
+    from cordum_tpu_torch.infra import statebus
+    from cordum_tpu_torch.infra.memstore import MemoryStore
+    from cordum_tpu_torch.models import llama
+
+    port = free_port()
+    url = f"statebus://127.0.0.1:{port}"
+    workers = ["gang-w0", "gang-w1"]
+    base = {**os.environ, "STATEBUS_PORT": str(port), "CORDUM_STATEBUS_URL": url,
+            "WORKER_GANG": "1", "WORKER_POOL": "gangpool", "WORKER_TOPICS": "job.gang",
+            "WORKER_GANG_RENDEZVOUS_TIMEOUT": "60", "WORKER_GANG_PEER_TIMEOUT": "60",
+            "WORKER_HEARTBEAT_INTERVAL": "0.5", "WORKER_SERVING": "0", "WORKER_BATCHING": "0",
+            "CORDUM_LOG_FORMAT": "json", "PYTHONDONTWRITEBYTECODE": "1"}
+    base.pop("CORDUM_FORCE_CPU", None)
+    if dev.type == "cpu":
+        base["CORDUM_FORCE_CPU"] = "1"
+    bus_log = os.path.join(workdir, "statebus.log")
+    logs = [os.path.join(workdir, f"{w}.log") for w in workers]
+    server = start_process(["cordum_tpu_torch.cmd.statebus"], base, bus_log)
+    procs = [server]
+    conn = None
+    try:
+        kv, bus, conn = await connect_when_up(statebus, url, server)
+        sched = GangDispatcher(bus, MemoryStore(kv), workers)
+        await sched.start()
+        for wid, path in zip(workers, logs):
+            procs.append(start_process(["cordum_tpu_torch.cmd.worker"],
+                                       {**base, "WORKER_ID": wid}, path))
+        t0 = time.monotonic()
+        while not all(w in sched.active for w in workers):
+            if any(p.poll() is not None for p in procs[1:]) or time.monotonic() - t0 > 300:
+                raise AssertionError(f"gang workers never beat; see {logs}")
+            await asyncio.sleep(0.1)
+        rng = np.random.default_rng(SEED + 20)
+        cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (9, 40)]
+        payload = {"op": "llm.generate", "gang": {"kind": "serving", "workers": 2},
+                   "prompts": prompts, "max_new_tokens": n_new, "dtype": "float32",
+                   "seed": GANG_JOB_SEED, "page_size": 16, "cache_pages": 64}
+        t0 = time.monotonic()
+        (lead, follow), msgs = await sched.run("gang-serve", payload, kind="serving")
+        serve_s = time.monotonic() - t0
+        if {m.rank for m in msgs if m.kind == "ready"} != {0, 1}:
+            raise AssertionError("a rank never beaconed ready")
+        ls, fs = lead.stats, follow.stats
+        if fs["steps_replayed"] != ls["steps"] or ls["steps"] < 1:
+            raise AssertionError(f"rank 1 replayed {fs['steps_replayed']} of {ls['steps']} steps")
+        if sched.stream_senders != {workers[0]}:
+            raise AssertionError(f"streamed by {sched.stream_senders}, not rank 0 alone")
+        params = llama.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(
+            GANG_JOB_SEED), device=dev)
+        ties_n = 0
+        for p, res in zip(prompts, ls["results"]):
+            want, ties = dense_greedy(torch, llama, params, cfg, p, n_new, dev)
+            ties_n += len(ties)
+            compare_near_tie(res["tokens"], want, ties, "gang job")
+        # a member failure: rank 1 fails at once, rank 0 must leave its spin
+        fail_msgs = await gang_abort_leg(sched, workers)
+        echo, _ = await sched.run("gang-echo", {"op": "gang_echo"})
+        if [m.stats.get("mode") for m in echo] != ["barrier", "barrier"]:
+            raise AssertionError(f"gang_echo after the abort: {[m.stats for m in echo]}")
+        rcs = [stop_process(p) for p in procs[1:]]
+    finally:
+        if conn is not None:
+            await conn.close()
+        for proc in procs:
+            stop_process(proc)
+    exits = [worker_exit_line(path) for path in logs]
+    if any(rcs) or any(e.get("cancelled_sessions") for e in exits):
+        raise AssertionError(f"SIGTERM: the gang workers exited {rcs}, {exits}")
+    launches = [e["kernel_launches"]["paged_attention"] for e in exits]
+    if launches != [cfg.n_layers * ls["steps"]] * 2:
+        raise AssertionError(f"gang workers' B1 launches {launches} != {cfg.n_layers} layers x "
+                             f"{ls['steps']} steps each")
+    log(f"[gang-job] serving gang over two worker processes (WORKER_GANG=1, TCP statebus): "
+        f"ready then done from both ranks in {serve_s:.2f} s; collective {ls['collective']}; "
+        f"{len(prompts)} prompts token-identical to the dense oracle on the seed's weights "
+        f"({ties_n} near ties); steps {ls['steps']}, replayed {fs['steps_replayed']}; only rank 0 "
+        f"streamed; B1 launches {launches}  [{card}]")
+    log(f"[gang-job] gang_test failing rank 1: {fail_msgs}; then gang_echo done on both; "
+        f"SIGTERM exits {rcs}  [{card}]")
+    return sum(launches)
+
+
+async def gang_abort_leg(sched, workers, *, spin_s=600.0, timeout_s=60.0):
+    """A ``gang_test`` whose rank 1 fails: rank 1's abort must reach the
+    gang and rank 0 must leave its spin (its heartbeat shows no active job)
+    well before ``spin_s``."""
+    from cordum_tpu_torch.protocol import subjects as subj
+    from cordum_tpu_torch.protocol.types import (
+        LABEL_GANG_ID, LABEL_GANG_MEMBERS, LABEL_GANG_RANK, LABEL_GANG_SIZE, BusPacket,
+        JobRequest,
+    )
+
+    gang_id = "gang-fail"
+    ptr = await sched.store.put_context(gang_id, {"op": "gang_test", "spin_s": spin_s,
+                                                  "fail_workers": [workers[1]]})
+    for rank, wid in enumerate(workers):
+        await sched.bus.publish(subj.direct_subject(wid), BusPacket.wrap(JobRequest(
+            job_id=gang_id, topic="job.gang", context_ptr=ptr, labels={
+                LABEL_GANG_ID: gang_id, LABEL_GANG_RANK: str(rank),
+                LABEL_GANG_SIZE: str(len(workers)), LABEL_GANG_MEMBERS: ",".join(workers)})))
+    deadline = time.monotonic() + timeout_s
+    seen_abort = None
+    while True:
+        mine = [m for m in sched.msgs if m.gang_id == gang_id]
+        aborts = [m for m in mine if m.kind == "abort"]
+        if aborts and seen_abort is None:
+            seen_abort = time.monotonic()
+        # each worker's heartbeat sent after the abort shows it idle
+        idle = seen_abort is not None and all(
+            sched.active.get(w, (0.0, 1))[0] > seen_abort + 0.5
+            and sched.active[w][1] == 0 for w in workers)
+        if idle:
+            break
+        if any(m.kind == "done" for m in mine) or time.monotonic() > deadline:
+            raise AssertionError(f"gang_test abort leg: {[(m.kind, m.rank, m.reason) for m in mine]}"
+                                 f", active {sched.active}")
+        await asyncio.sleep(0.1)
+    return [(m.rank, m.reason) for m in aborts]
+
+
+def phase_gang(torch, dev, card, cfg32, prompts, oracle, served32, serve4):
+    """10.1-10.4.  Returns the B1-at-rank-heads row's numbers and its
+    launches per dtype."""
+    import tempfile
+
+    rows = phase_gang_kernel(torch, dev, card)
+    torch.cuda.empty_cache()
+    fp32 = phase_gang_oracle(torch, dev, card, cfg32, prompts, oracle, served32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16 = phase_gang_processes(torch, dev, card, serve4)
+    with tempfile.TemporaryDirectory(prefix="cordum-gang-") as workdir:
+        jobs = asyncio.run(drive_gang_workers(torch, dev, card, workdir))
+    return rows, {"float32": fp32 + jobs, "bfloat16": bf16}
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_kernels():
@@ -2487,6 +3311,10 @@ def build_kernels():
 
 
 def main() -> int:
+    if "--gang-rank" in sys.argv:
+        return gang_rank_main(sys.argv[1:])
+    if "--cards" in sys.argv:
+        return main_cards()
     import torch
 
     if not torch.cuda.is_available():
@@ -2514,9 +3342,9 @@ def main() -> int:
 
     cfg8b = llama.LlamaConfig.llama3_8b()
     cfg32 = dataclasses.replace(cfg8b, n_layers=2, dtype=torch.float32)
-    fp32_launches, params32, prompts, oracle = phase_oracle(torch, dev, smi, cfg32)
+    fp32_launches, params32, prompts, oracle, served32 = phase_oracle(torch, dev, smi, cfg32)
     torch.cuda.empty_cache()
-    bf16_launches, params8b = phase_serve(torch, dev, smi, cfg8b)
+    bf16_launches, params8b, serve4 = phase_serve(torch, dev, smi, cfg8b)
     torch.cuda.empty_cache()
     kernel["embed_attention"] = phase_embed_kernel(torch, dev, smi)
     worker, numbers6 = phase_worker(torch, dev, smi, fp32=(cfg32, params32, prompts, oracle),
@@ -2535,6 +3363,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_rows, moe = phase_moe(torch, dev, smi)
     kernel.update(moe_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernel["paged_attention_tp2"], gang = phase_gang(torch, dev, smi, cfg32, prompts, oracle,
+                                                     served32, serve4)
 
     # phase 8's worker process serves an fp32 Llama and the bf16 embedder
     launches = {
@@ -2551,6 +3383,7 @@ def main() -> int:
             + worker["bfloat16"]["dense_attention_fwd"]},
         "dense_attention_bwd": train["dense_attention_bwd"],
         **{name: moe[name] for name in MOE_KERNELS},
+        "paged_attention_tp2": gang,
     }
     # phase 9's MoE runs launch B9 too
     for name in ("dense_attention_fwd", "dense_attention_bwd"):

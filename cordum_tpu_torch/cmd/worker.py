@@ -29,9 +29,17 @@ serving sessions to peers or back to the scheduler, finish per-job work
 The last log line, ``worker stopped``, gives ``cancelled_sessions``, the
 serving steps and each hand-written kernel's launches in this process.
 
-Not ported: tensor-parallel serving gangs (WORKER_TP > 1, ROADMAP A6) and
-gang scheduling (WORKER_GANG=1, ROADMAP A6 and A9): asking for either
-exits with an error that names them.
+Gang members (WORKER_GANG, on unless ``0``): jobs carrying the scheduler's
+gang labels run on the gang runner (``worker/gang.py``) — the barrier, the
+SPMD train leg and tensor-parallel serving gangs over a ``torch.distributed``
+group; WORKER_GANG_RENDEZVOUS_TIMEOUT (default 10 s) bounds the barrier and
+WORKER_GANG_PEER_TIMEOUT (default 30 s) the rank group's join and every
+collective.
+
+Not ported: WORKER_TP > 1, the width of the local device mesh the
+reference's ``TPUCompute`` shards one worker's own ops over (several chips
+in one worker process); asking for it exits with an error that says so and
+names ROADMAP A13.
 """
 from __future__ import annotations
 
@@ -56,13 +64,22 @@ from . import _boot
 
 def _refuse_unported(env) -> None:
     tp = _boot.env_int("WORKER_TP", 1)
-    gang = env.get("WORKER_GANG", "0") not in ("", "0")
-    if tp > 1 or gang:
-        asked = ", ".join(x for x in (f"WORKER_TP={tp}" if tp > 1 else "",
-                                      "WORKER_GANG" if gang else "") if x)
+    if tp > 1:
         raise SystemExit(
-            f"cordum_tpu_torch worker: {asked}: tensor-parallel serving gangs (ROADMAP A6) "
-            "and gang scheduling (ROADMAP A6, A9) are not ported; this worker owns one card")
+            f"cordum_tpu_torch worker: WORKER_TP={tp}: a local device mesh for this worker's "
+            "own ops (the reference's TPUCompute over several chips in one process) is not "
+            "ported; this worker's compute runs on one card (ROADMAP A13). Tensor-parallel "
+            "serving runs as a gang of workers instead (WORKER_GANG, on by default)")
+
+
+def _gang_options(env) -> dict:
+    """``attach_default_gpu_worker``'s gang keywords: the runner on unless
+    WORKER_GANG is ``0``, and its two timeouts."""
+    return {
+        "gang": env.get("WORKER_GANG", "1") != "0",
+        "gang_rendezvous_timeout_s": _boot.env_float("WORKER_GANG_RENDEZVOUS_TIMEOUT", 10.0),
+        "gang_peer_timeout_s": _boot.env_float("WORKER_GANG_PEER_TIMEOUT", 30.0),
+    }
 
 
 def _device() -> str | None:
@@ -155,6 +172,7 @@ async def main() -> None:
         or (pool.serving_draft_k if pool else 0),
         serving_cold_tier=env.get("WORKER_SERVING_COLD_TIER", "")
         or (pool.serving_cold_tier if pool else ""),
+        **_gang_options(env),
     )
     profiler = RuntimeProfiler(metrics, service="worker")
     telemetry = TelemetryExporter(

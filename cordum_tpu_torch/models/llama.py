@@ -79,18 +79,31 @@ class LlamaConfig:
 
 
 def init_params(
-    cfg: LlamaConfig, *, generator: torch.Generator, device: DeviceLike = None
+    cfg: LlamaConfig, *, generator: torch.Generator, device: DeviceLike = None,
+    shard: Optional[tuple[int, int]] = None, lm_head: bool = True,
 ) -> Params:
     """Random weights: standard normal over ``sqrt(fan_in)``, norms at one
     — the shapes and scale of the JAX ``init_params``.  ``generator`` must
     live on ``device``; the numbers differ from ``jax.random``'s (use
-    :func:`params_from_jax` to share weights between the packages)."""
-    dev = resolve_device(device)
-    d, h, kvh, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    :func:`params_from_jax` to share weights between the packages).
 
-    def dense(shape, scale_dim):
+    ``shard=(rank, tp)`` gives the rank's slices of the same weights
+    (:func:`shard_params` of the full draw, bit for bit), drawn leaf by
+    leaf: each leaf is drawn whole in fp32, sliced and cast before the
+    next, so no more than one whole leaf is ever held.  ``lm_head=False``
+    leaves it out (``None``): a rank that never samples."""
+    dev = resolve_device(device)
+    if shard is not None:
+        check_tp(cfg, shard[1])
+    d, h, kvh, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    specs = param_specs(cfg)["layers"][0]
+
+    def dense(shape, scale_dim, axis=None):
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
-        return w.div_(math.sqrt(scale_dim)).to(cfg.dtype)
+        w = w.div_(math.sqrt(scale_dim))
+        if shard is not None and axis is not None:
+            w = _slice(w, axis, *shard)
+        return w.to(cfg.dtype)
 
     def ones(n):
         return torch.ones((n,), dtype=cfg.dtype, device=dev)
@@ -100,22 +113,115 @@ def init_params(
         layers.append(
             {
                 "attn_norm": ones(d),
-                "wq": dense((d, h * hd), d),
-                "wk": dense((d, kvh * hd), d),
-                "wv": dense((d, kvh * hd), d),
-                "wo": dense((h * hd, d), h * hd),
+                "wq": dense((d, h * hd), d, specs["wq"]),
+                "wk": dense((d, kvh * hd), d, specs["wk"]),
+                "wv": dense((d, kvh * hd), d, specs["wv"]),
+                "wo": dense((h * hd, d), h * hd, specs["wo"]),
                 "mlp_norm": ones(d),
-                "w_gate": dense((d, f), d),
-                "w_up": dense((d, f), d),
-                "w_down": dense((f, d), f),
+                "w_gate": dense((d, f), d, specs["w_gate"]),
+                "w_up": dense((d, f), d, specs["w_up"]),
+                "w_down": dense((f, d), f, specs["w_down"]),
             }
         )
     return {
         "embed": dense((cfg.vocab_size, d), d),
         "layers": layers,
         "final_norm": ones(d),
-        "lm_head": dense((d, cfg.vocab_size), d),
+        # the last leaf drawn: skipping it leaves every other leaf's numbers
+        "lm_head": dense((d, cfg.vocab_size), d) if lm_head else None,
     }
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel layout (serving gangs)
+# ---------------------------------------------------------------------------
+
+
+def param_specs(cfg: LlamaConfig) -> Params:
+    """The reference's Megatron layout (``param_specs`` of the JAX module)
+    as the axis of each leaf that splits over the ``tp`` ranks, ``None``
+    for a replicated leaf: column-parallel ``wq``/``wk``/``wv`` (by head)
+    and ``w_gate``/``w_up`` (by ``d_ff``), row-parallel ``wo`` and
+    ``w_down``; ``embed`` on the vocabulary rows, ``lm_head`` on its
+    columns.  :func:`shard_params` follows it except for ``embed`` and
+    ``lm_head``, which it keeps whole (see there)."""
+    layer = {
+        "attn_norm": None, "wq": 1, "wk": 1, "wv": 1, "wo": 0,
+        "mlp_norm": None, "w_gate": 1, "w_up": 1, "w_down": 0,
+    }
+    return {
+        "embed": 0,
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+        "final_norm": None,
+        "lm_head": 1,
+    }
+
+
+def _slice(w: torch.Tensor, axis: int, rank: int, tp: int) -> torch.Tensor:
+    n = w.shape[axis]
+    if n % tp:
+        raise ValueError(f"dimension {n} does not split over tp={tp}")
+    per = n // tp
+    return w.narrow(axis, rank * per, per).contiguous()
+
+
+def check_tp(cfg: LlamaConfig, tp: int) -> None:
+    """Raise ``ValueError`` when ``cfg`` cannot split over ``tp`` ranks:
+    the KV heads (and with them the query heads of each GQA group) and
+    ``d_ff`` must divide evenly."""
+    if tp < 1 or cfg.n_kv_heads % tp or cfg.n_heads % tp or cfg.d_ff % tp:
+        raise ValueError(
+            f"tp={tp} does not divide {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads "
+            f"and d_ff {cfg.d_ff}")
+
+
+def shard_params(params: Params, cfg: LlamaConfig, rank: int, tp: int) -> Params:
+    """Rank ``rank``'s slices of full ``params`` under a ``tp``-way split,
+    per :func:`param_specs`: ``wq`` on its query heads' columns, ``wk`` and
+    ``wv`` on its KV heads' columns, ``wo`` on the matching rows, ``w_gate``
+    and ``w_up`` on a ``d_ff / tp`` block of columns and ``w_down`` on the
+    matching rows; norms whole.  Unlike the reference, ``embed`` and
+    ``lm_head`` stay whole on every rank: only rank 0 samples, and a
+    vocabulary-split argmax would need a cross-rank (max, index) reduction
+    that keeps argmax's first-index rule.  With ``tp == 1`` the leaves are
+    returned as they are."""
+    check_tp(cfg, tp)
+    if tp == 1:
+        return params
+    specs = param_specs(cfg)["layers"][0]
+    return {
+        "embed": params["embed"],
+        "layers": [
+            {k: (v if specs[k] is None else _slice(v, specs[k], rank, tp)) for k, v in layer.items()}
+            for layer in params["layers"]
+        ],
+        "final_norm": params["final_norm"],
+        "lm_head": params["lm_head"],
+    }
+
+
+def shard_serving_state(
+    cfg: LlamaConfig, rank: int, tp: int, *, num_pages: int, page_size: int,
+    params: Optional[Params] = None, generator: Optional[torch.Generator] = None,
+    lm_head: bool = True, device: DeviceLike = None,
+) -> tuple[Params, torch.Tensor, torch.Tensor]:
+    """A tensor-parallel rank's serving state: its slices of the weights
+    — :func:`shard_params` of the full ``params`` when given, else drawn
+    leaf by leaf from ``generator`` (:func:`init_params` ``shard=``), so the
+    whole model is never held — and empty page arenas ``[L, pages, ps,
+    kvh / tp, hd]`` on its KV heads (axis 3), matching the column-parallel
+    ``wk``/``wv``, so every page write and read of the ragged step stays on
+    the rank.  ``lm_head=False`` drops the head (a rank that never
+    samples)."""
+    if params is not None:
+        params = shard_params(params, cfg, rank, tp)
+        if not lm_head:
+            params = {**params, "lm_head": None}
+    else:
+        params = init_params(cfg, generator=generator, device=device, shard=(rank, tp),
+                             lm_head=lm_head)
+    k_pages, v_pages = init_kv_pages(cfg, num_pages, page_size, device=device, tp=tp)
+    return params, k_pages, v_pages
 
 
 def _tensor_from_numpy(a: Any, device: torch.device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -186,10 +292,16 @@ def _attention(q, k, v, cfg: LlamaConfig, *, causal: bool = True, q_offset=None)
 
 
 def _mlp(x: torch.Tensor, layer: dict, cfg: LlamaConfig) -> torch.Tensor:
+    return x + _mlp_out(x, layer, cfg)
+
+
+def _mlp_out(x: torch.Tensor, layer: dict, cfg: LlamaConfig) -> torch.Tensor:
+    """The SwiGLU branch of :func:`_mlp`, without the residual (a
+    tensor-parallel rank's partial sum over its ``d_ff`` block)."""
     mlp_in = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     gate = torch.nn.functional.silu(mlp_in @ layer["w_gate"])
     up = mlp_in @ layer["w_up"]
-    return x + ((gate * up) @ layer["w_down"])
+    return (gate * up) @ layer["w_down"]
 
 
 def _attention_residual(x, layer, cfg: LlamaConfig, positions, attention=_attention):
@@ -325,10 +437,11 @@ def train_step_of(init_fn: Callable, loss: Callable,
 
 def init_kv_pages(
     cfg: LlamaConfig, num_pages: int, page_size: int, dtype: Optional[torch.dtype] = None,
-    *, device: DeviceLike = None,
+    *, device: DeviceLike = None, tp: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Preallocated page arenas for K and V: [L, num_pages, page_size, kvh, hd]."""
-    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    """Preallocated page arenas for K and V: [L, num_pages, page_size, kvh
+    / tp, hd] (``tp``: a tensor-parallel rank's share of the KV heads)."""
+    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads // tp, cfg.head_dim)
     dev = resolve_device(device)
     dt = dtype or cfg.dtype
     return (
@@ -403,6 +516,7 @@ def ragged_step(
     *,
     sample_logits: bool = True,
     plan: Optional[AttentionPlan] = None,
+    tp_group: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One ragged mixed prefill+decode step over the paged KV cache.
 
@@ -428,9 +542,20 @@ def ragged_step(
     same.  ``plan`` is the step's paged-attention work list
     (:func:`..ops.paged_attention.build_plan`), built once per step and
     handed to every layer's kernel; without it the kernel wrapper builds
-    one per layer."""
+    one per layer.
+
+    ``tp_group`` (a :class:`..parallel.mesh.TPGroup`) runs one rank of a
+    tensor-parallel gang: ``params`` and the arenas are the rank's slices
+    (:func:`shard_serving_state`), the rank attends with its ``n_heads /
+    tp`` query heads over its ``n_kv_heads / tp`` KV heads, and the
+    row-parallel products ``attn @ wo`` and ``(gate * up) @ w_down`` are
+    partial sums: each is all-reduced over the group before its one
+    residual add, two all-reduces a layer.  ``None`` is the single-rank
+    step (the same operations, with no reduction)."""
     t_buf = tokens.shape[0]
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tp = 1 if tp_group is None else tp_group.size
+    reduce = (lambda t: t) if tp_group is None else tp_group.all_reduce
+    h, kvh, hd = cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim
     ps = k_pages.shape[2]
     pos2 = positions[:, None]  # [T, 1]
     pt_tok = page_tables[token_seq.long()]  # [T, P] — each token's own row
@@ -450,8 +575,8 @@ def ragged_step(
             q[:, 0], k_pages[li], v_pages[li], page_tables, token_seq, positions,
             plan=plan,
         )
-        x = x + (attn.reshape(t_buf, 1, h * hd) @ layer["wo"])
-        x = _mlp(x, layer, cfg)
+        x = x + reduce(attn.reshape(t_buf, 1, h * hd) @ layer["wo"])
+        x = x + reduce(_mlp_out(x, layer, cfg))
     if not sample_logits:
         return torch.zeros((t_buf,), dtype=torch.int32, device=tokens.device), k_pages, v_pages
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

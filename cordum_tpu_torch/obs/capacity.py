@@ -19,6 +19,12 @@ the worker's telemetry beacon (``Worker.telemetry_health``): rows carry
 beacon self-heals on the next change.  The control plane's fleet aggregator
 and scheduler fold these blocks; they live with the control plane, not in
 this package.
+
+A worker serving in a tensor-parallel gang adds a ``serving_gang`` block
+(:func:`serving_gang_block`) while the gang lives and drops it when the gang
+ends; the scheduler's ``CapacityView`` folds the ranks' blocks into one row
+per gang (the leader's tokens/s, the smallest page headroom of any rank) and
+routes new sessions to leaders only.
 """
 from __future__ import annotations
 
@@ -224,3 +230,13 @@ class CapacityProfiler:
                     s += r["steady_s"]
                     tokens += r["steady_tokens"]
             return tokens / s if s > 0 else 0.0
+
+
+def serving_gang_block(gang_id: str, rank: int, size: int, members: list[str],
+                       pages_total: int) -> dict:
+    """The identity half of a gang member's ``serving_gang`` capacity block:
+    gang id, this worker's rank, the gang's size and members in rank order,
+    and the rank's arena size.  Rank 0 adds its live fields at beacon time:
+    ``pages_free`` and the gang's measured ``tokens_per_s``."""
+    return {"gang_id": gang_id, "rank": int(rank), "size": int(size),
+            "members": list(members), "pages_total": int(pages_total)}

@@ -9,13 +9,32 @@ names and :class:`MeshSpec` with its ``resolve``.
 
 A training job on one card needs no device mesh: the train step runs on the
 card, and the resolved axis sizes (all 1 there) are what the job reports.
-Meshes over several ranks (``torch.distributed``) come with ROADMAP A6 and
-A11.
+
+:class:`TPGroup` is the rank group of a tensor-parallel serving gang: a
+``torch.distributed`` process group over the gang's ranks, built either
+across processes, from a ``TCPStore`` rank 0 opens on an ephemeral port
+(:func:`open_store`, :func:`connect_store`, :meth:`TPGroup.join`), or inside
+one process, one gloo group a thread over a shared ``HashStore``
+(:func:`in_process_groups`).  The backend is NCCL when every rank owns a
+distinct CUDA card and gloo otherwise (CPU ranks, or ranks that share one
+card).  The reference's ``simple_mesh`` and ``rank_mesh`` have nothing to
+map onto: they build ``jax.sharding.Mesh`` objects for GSPMD, which places
+arrays over the devices it sees; here each rank holds its own slices and
+the sums across ranks are explicit all-reduces.  Meshes for training over
+several ranks (dp, sp, ep, pp) come with ROADMAP A9 and A11.
 """
 from __future__ import annotations
 
+import datetime
 import math
+import threading
 from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from ..infra import logging as logx
 
 AXIS_DP = "dp"
 AXIS_TP = "tp"
@@ -58,3 +77,132 @@ class MeshSpec:
         elif fixed != n_devices:
             raise ValueError(f"mesh {sizes} needs {fixed} devices, have {n_devices}")
         return sizes
+
+
+# ---------------------------------------------------------------------------
+# the rank group of a tensor-parallel gang
+# ---------------------------------------------------------------------------
+
+#: the address rank 0's rendezvous store listens on: gang members share a host
+STORE_HOST = "127.0.0.1"
+
+
+def _device_id(device: torch.device) -> str:
+    """What the backend choice compares: ``cpu``, or the card's UUID."""
+    if device.type != "cuda":
+        return "cpu"
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return f"cuda:{torch.cuda.get_device_properties(index).uuid}"
+
+
+def choose_backend(device_ids: list[str]) -> str:
+    """``nccl`` when every rank owns a distinct CUDA card, else ``gloo``
+    (CPU ranks, and ranks that share a card: NCCL refuses two ranks on one
+    device, while gloo stages CUDA tensors through host memory)."""
+    if all(d.startswith("cuda:") for d in device_ids) and len(set(device_ids)) == len(device_ids):
+        return "nccl"
+    return "gloo"
+
+
+@dataclass
+class TPGroup:
+    """One rank's view of a tensor-parallel group: its ``rank`` of
+    ``size``, the ``torch.distributed`` process group (built directly, not
+    registered as the process's default group, so a worker can belong to
+    one gang after another), its ``backend`` and the rank's ``device``.
+    Every collective waits at most the ``timeout_s`` it was joined with
+    (a gang's peer timeout); :meth:`close` tears the group down, which
+    makes a peer blocked in a collective with this rank fail at once
+    instead of at its timeout."""
+
+    rank: int
+    size: int
+    pg: Any
+    backend: str
+    device: torch.device
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the group, in place; returns ``t``."""
+        if self.pg is None:
+            raise RuntimeError(f"rank {self.rank}: the group was closed")
+        self.pg.allreduce([t]).wait()
+        return t
+
+    def close(self) -> None:
+        """Tear the group down (idempotent).  A collective this rank is
+        itself blocked in still ends at its timeout."""
+        pg, self.pg = self.pg, None
+        if pg is not None:
+            pg.abort()
+
+    # -- construction ----------------------------------------------------
+    @classmethod
+    def join(cls, store: Any, rank: int, size: int, device: torch.device, *,
+             timeout_s: float) -> "TPGroup":
+        """Join the group over ``store``: publish this rank's device,
+        read every rank's, choose the backend (:func:`choose_backend`) and
+        build the process group, which keeps ``store`` (rank 0's server
+        included) alive until it is closed.  Blocks until all ``size``
+        ranks have joined or ``timeout_s`` passes."""
+        timeout = datetime.timedelta(seconds=timeout_s)
+        store.set_timeout(timeout)
+        store.set(f"dev/{rank}", _device_id(device))
+        ids = [store.get(f"dev/{r}").decode() for r in range(size)]
+        backend = choose_backend(ids)
+        pg_store = dist.PrefixStore(backend, store)
+        if backend == "nccl":
+            opts = dist.ProcessGroupNCCL.Options()
+            opts._timeout = timeout
+            pg = dist.ProcessGroupNCCL(pg_store, rank, size, opts)
+        else:
+            pg = dist.ProcessGroupGloo(pg_store, rank, size, timeout)
+        logx.info("tensor-parallel group joined", rank=rank, size=size,
+                  collective=backend, device=str(device))
+        return cls(rank=rank, size=size, pg=pg, backend=backend, device=device)
+
+
+def open_store(size: int, *, timeout_s: float) -> tuple[Any, str]:
+    """Rank 0's rendezvous store: a ``TCPStore`` server on an ephemeral
+    port of :data:`STORE_HOST`.  Returns the store and its ``host:port``,
+    which rank 0 hands its peers (the gang's ``ready`` message)."""
+    store = dist.TCPStore(STORE_HOST, 0, size, True, datetime.timedelta(seconds=timeout_s),
+                          wait_for_workers=False)
+    return store, f"{STORE_HOST}:{store.port}"
+
+
+def connect_store(addr: str, size: int, *, timeout_s: float) -> Any:
+    """A peer's client of rank 0's rendezvous store at ``host:port``."""
+    host, port = addr.rsplit(":", 1)
+    return dist.TCPStore(host, int(port), size, False, datetime.timedelta(seconds=timeout_s))
+
+
+def in_process_groups(size: int, device: torch.device, *, timeout_s: float) -> list[TPGroup]:
+    """``size`` groups of one process, one a thread, over a shared
+    ``HashStore``: the in-process gang's ranks (gloo, since the ranks
+    share the device).  Built in parallel threads, as gloo's rendezvous
+    needs every rank at once."""
+    store = dist.HashStore()
+    groups: list[Any] = [None] * size
+    errors: list[BaseException] = []
+
+    def build(r: int) -> None:
+        try:
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+            groups[r] = TPGroup.join(dist.PrefixStore("tp", store), r, size, device,
+                                     timeout_s=timeout_s)
+        except BaseException as e:  # noqa: BLE001 - re-raised below, in the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(r,), name=f"tp-join-{r}")
+               for r in range(size)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout_s + 5.0)
+    if errors or any(g is None for g in groups):
+        for g in groups:
+            if g is not None:
+                g.close()
+        raise RuntimeError(f"in-process group of {size} ranks did not form: {errors}")
+    return groups

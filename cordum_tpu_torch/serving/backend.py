@@ -76,8 +76,14 @@ class LlamaServingBackend:
     # projection — rank 0 alone pays sampling
     sample_output = True
     # observation tap: called with the entry list after every successful
-    # step (the serving-gang leader broadcasts it to its followers)
+    # step
     on_step: Optional[Callable[[list["StepEntry"]], None]] = None
+    # called with the entry list once the step's buffers are built, before
+    # the device call: a serving-gang leader ships the entries to its
+    # followers here, since the step's all-reduces wait for them
+    before_step: Optional[Callable[[list["StepEntry"]], None]] = None
+    # a tensor-parallel rank's group (serving/shard.py); None: one rank
+    tp_group: Any = None
 
     def __init__(
         self,
@@ -127,14 +133,21 @@ class LlamaServingBackend:
     def _ensure(self) -> None:
         if self._params is not None:
             return
+        self._params, self._k_pages, self._v_pages = self._init_state()
+
+    def _init_state(self) -> tuple[Any, torch.Tensor, torch.Tensor]:
+        """The weights (injected, or drawn from the seed) and the empty
+        page arenas.  A tensor-parallel rank overrides it to hold its
+        slices only."""
         if self._params_provider is not None:
-            self._params = self._params_provider()
+            params = self._params_provider()
         else:
             gen = torch.Generator(device=self.device).manual_seed(self._seed)
-            self._params = llama.init_params(self.cfg, generator=gen, device=self.device)
-        self._k_pages, self._v_pages = llama.init_kv_pages(
+            params = llama.init_params(self.cfg, generator=gen, device=self.device)
+        k_pages, v_pages = llama.init_kv_pages(
             self.cfg, self.num_pages, self.page_size, device=self.device
         )
+        return params, k_pages, v_pages
 
     def compiled_programs(self) -> int:
         return len(self._compiled_shapes)
@@ -211,12 +224,16 @@ class LlamaServingBackend:
             # the kernel's work list, once per step for every layer (the
             # CPU takes the plain version, which needs none)
             t0 = time.perf_counter()
+            # the heads this rank attends with (all of them on one rank)
+            tp = 1 if self.tp_group is None else self.tp_group.size
             plan = build_plan(
                 token_seq, positions, page_size=self.page_size,
-                pages_per_seq=self.pages_per_seq, n_heads=self.cfg.n_heads,
-                n_kv_heads=self.cfg.n_kv_heads, dtype=self.cfg.dtype, device=dev,
+                pages_per_seq=self.pages_per_seq, n_heads=self.cfg.n_heads // tp,
+                n_kv_heads=self.cfg.n_kv_heads // tp, dtype=self.cfg.dtype, device=dev,
             )
             self.plan_seconds.append(time.perf_counter() - t0)
+        if self.before_step is not None:
+            self.before_step(entries)
         with self._dev_lock:
             nxt, self._k_pages, self._v_pages = llama.ragged_step(
                 self._params, self._k_pages, self._v_pages,
@@ -226,6 +243,7 @@ class LlamaServingBackend:
                 torch.from_numpy(token_seq).to(dev),
                 torch.from_numpy(out_idx).to(dev),
                 self.cfg, sample_logits=bool(self.sample_output), plan=plan,
+                tp_group=self.tp_group,
             )
             out = nxt.cpu().numpy()
         # out is [T] per-position predictions: a sampled entry's token is
@@ -280,14 +298,18 @@ class LlamaServingBackend:
         call from an executor thread."""
         if not records:
             return
-        self._ensure()
         if any("heads" in rec for rec in records):
-            # per-rank records come from a tensor-parallel serving gang;
-            # merging head slices needs the sharded-serving helpers, which
-            # this package does not have yet
-            raise ValueError(
-                "per-rank (head-sliced) KV records are not supported here"
-            )
+            # per-rank records from a serving-gang source (serving/shard.py):
+            # each rank exported its head slice of every page; merge them
+            # back into full-head records, so a gang export imports here
+            from .shard import merge_rank_records
+
+            records = merge_rank_records(records)
+        self._scatter_records(pages, records)
+
+    def _scatter_records(self, pages: list[int], records: list[dict]) -> None:
+        """Write records whose head axis matches this arena's."""
+        self._ensure()
         ids, blocks = [], []
         for rec in records:
             o = int(rec["i"])

@@ -508,13 +508,17 @@ def attach_default_gpu_worker(
     serving_speculative: bool = True,
     serving_draft_k: int = 0,
     serving_cold_tier: str = "",
+    gang: bool = True,
+    gang_rendezvous_timeout_s: float = 10.0,
+    gang_peer_timeout_s: float = 30.0,
     metrics=None,
     **kw,
 ) -> GPUCompute:
     """Wire the standard op handlers (and, by default, the micro-batcher
-    over the batchable ops and the llm.generate serving engine) onto a
-    worker, on the worker's device.  ``kw`` goes to :class:`GPUCompute`
-    (configs, ``seed``, injected params)."""
+    over the batchable ops, the llm.generate serving engine and the gang
+    runner for gang member jobs) onto a worker, on the worker's device.
+    ``kw`` goes to :class:`GPUCompute` (configs, ``seed``, injected
+    params)."""
     compute = GPUCompute(device=worker.device, **kw)
     worker.register_default(make_gpu_handlers(compute))
     if batching:
@@ -538,4 +542,13 @@ def attach_default_gpu_worker(
             cold_tier=serving_cold_tier,
             metrics=metrics,
         ))
+    if gang:
+        from .gang import GangRunner
+
+        worker.attach_gang(GangRunner(
+            worker,
+            trainer=TrainRunner(ckpt_root=compute.ckpt_root, device=compute.device),
+            rendezvous_timeout_s=gang_rendezvous_timeout_s,
+            peer_timeout_s=gang_peer_timeout_s,
+        ), metrics=metrics)
     return compute

@@ -73,6 +73,7 @@ from ..serving.engine import (
 )
 from ..serving.migration import MigrationError, MigrationServer, migrate_session
 from ..utils.ids import new_id
+from .gang import GangRunner
 
 HEARTBEAT_INTERVAL_S = 10.0
 
@@ -207,8 +208,12 @@ class Worker:
         # — the waiter future wins the race against the acquire and the job
         # returns to the scheduler as a non-terminal SESSION_REQUEUE
         self._preempt_waiters: dict[str, asyncio.Future] = {}
-        # no gang runner: a gang-labelled job takes the per-job path, as
-        # the reference worker does when none is attached
+        # gang scheduling: member jobs (cordum.gang_id label) route to the
+        # gang runner (worker/gang.py) — rendezvous barrier + step program;
+        # members publish GangMsg traffic, never JobResults.  With no runner
+        # attached a gang-labelled job takes the per-job path.
+        self._gang: Optional[GangRunner] = None
+        self.gang_metrics = None
         self._draining = False
         self._drained = asyncio.Event()
         self._drain_task: Optional[asyncio.Task] = None
@@ -335,6 +340,18 @@ class Worker:
     def serving(self) -> Optional[ServingEngine]:
         return self._serving
 
+    def attach_gang(self, runner: GangRunner, *, metrics=None) -> None:
+        """Wire a gang runner between job intake and the step programs.
+        Jobs carrying the scheduler-stamped gang labels bypass the handler
+        path and the intake semaphore: the gang's reservation is the
+        concurrency bound."""
+        self._gang = runner
+        self.gang_metrics = metrics
+
+    @property
+    def gang(self) -> Optional[GangRunner]:
+        return self._gang
+
     async def run_in_executor(self, fn, *args):
         """Run a blocking device computation off the event loop, in an
         executor thread pinned to the worker's device."""
@@ -396,6 +413,9 @@ class Worker:
             await self._batcher.stop()  # drain queued batches before the pool dies
         if self._serving is not None:
             await self._serving.stop()  # evict sessions (they publish CANCELLED)
+        if self._gang is not None:
+            await self._gang.stop()  # cancel member tasks: no abort published,
+            # the scheduler's watchdog recovers the gang, as after a crash
         self._executor.shutdown(wait=False)
 
     # ------------------------------------------------------------------
@@ -824,11 +844,28 @@ class Worker:
             and req.job_id not in self._active
             and req.job_id not in self._completed
         ):
+            if self._gang is not None and self._gang.is_member(req):
+                # a gang member landing mid-drain is dropped: the scheduler's
+                # gang watchdog sees the draining heartbeat and aborts and
+                # requeues the WHOLE gang (a requeue here would re-dispatch
+                # the gang job to a single worker)
+                return
             # new work routed here mid-drain (affinity raced the draining
             # beacon): hand it straight back for failover re-dispatch
             await self._publish_requeue(
                 req.job_id, "worker draining", trace_id=pkt.trace_id,
                 partition=(req.labels or {}).get(LABEL_PARTITION, ""),
+            )
+            return
+        if self._gang is not None and self._gang.is_member(req):
+            # gang member: rendezvous + step program, no intake semaphore
+            # and no JobResult (the scheduler folds the member reports)
+            member_payload = (
+                await self.store.get_pointer(req.context_ptr)
+                if req.context_ptr else None
+            )
+            await self._gang.handle(
+                req, member_payload, trace_id=pkt.trace_id, parent_span_id=pkt.span_id,
             )
             return
         payload: Any = _UNFETCHED
@@ -1192,6 +1229,13 @@ class Worker:
             out["capacity"]["serving_role"] = self.serving_role
             if self._draining:
                 out["capacity"]["draining"] = True
+        if self._gang is not None:
+            # serving-gang membership: rank 0 beacons the gang's measured
+            # throughput, followers their arena headroom; the fleet folds
+            # all ranks into one capacity row
+            gang_doc = self._gang.serving_gang_doc()
+            if gang_doc:
+                out["capacity"]["serving_gang"] = gang_doc
         if self._draining:
             out["draining"] = True
         return out

@@ -119,6 +119,31 @@ def test_kernel_checks_reject_what_it_does_not_take():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 1, 16), (16, 4, 128)], ids=["tiny-tp2", "8b-tp2"])
+def test_kernel_at_a_tensor_parallel_ranks_heads_on_card(dtype, shape):
+    """A tp-2 serving rank attends with half the heads of each kind
+    (serving/shard.py): the kernel and its plan at those counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    h, kvh, hd = shape
+    dev = torch.device("cuda")
+    q, k, v, tables, seq, pos = [
+        torch.from_numpy(a).to(dev) for a in _case(h=h, kvh=kvh, hd=hd, ps=16)
+    ]
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    plan = pa.build_plan(seq.cpu().numpy(), pos.cpu().numpy(), page_size=16,
+                         pages_per_seq=tables.shape[1], n_heads=h, n_kv_heads=kvh,
+                         dtype=dtype, device=dev)
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(q, k, v, tables, seq, pos, plan=plan)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    want = pa.paged_attention_reference(q, k, v, tables, seq, pos)
+    assert (got.float() - want.float()).abs().max().item() <= KERNEL_ATOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 2, 16), (32, 8, 128)])
 def test_kernel_matches_plain_version_on_card(dtype, shape):
     if not torch.cuda.is_available():

@@ -228,9 +228,9 @@ def test_cpu_worker_heartbeat_reports_the_cpu():
 
 
 async def test_gang_labelled_job_takes_the_per_job_path():
-    """The port has no gang runner: a job carrying the scheduler's gang
-    labels runs through the op table and publishes an ordinary result, as
-    a reference worker without a gang runner does."""
+    """A worker with no gang runner attached: a job carrying the
+    scheduler's gang labels runs through the op table and publishes an
+    ordinary result, as a reference worker without a gang runner does."""
     from cordum_tpu_torch.infra.bus import LoopbackBus
     from cordum_tpu_torch.infra.kv import MemoryKV
     from cordum_tpu_torch.infra.memstore import MemoryStore

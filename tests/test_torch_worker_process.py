@@ -12,8 +12,8 @@ cordum_tpu_torch.cmd.worker``), on the CPU (``CORDUM_FORCE_CPU=1``,
 * SIGTERM drains the worker process: exit 0, no cancelled session, while a
   generation is in flight.
 * The binary refuses what it cannot do: no card without
-  ``CORDUM_FORCE_CPU=1``, ``WORKER_TP`` > 1 and ``WORKER_GANG`` (ROADMAP
-  A6, A9).
+  ``CORDUM_FORCE_CPU=1``, ``WORKER_TP`` > 1 (ROADMAP A13); ``WORKER_GANG=1``
+  is accepted (gang members run on ``worker/gang.py``).
 
 Each test that spawns a process bounds it (a deadline under 120 s) and
 kills it on the way out.
@@ -216,8 +216,10 @@ async def test_sigterm_drains_the_worker_process_mid_generation():
 
 @pytest.mark.parametrize("extra, message", [
     ({"CORDUM_FORCE_CPU": ""}, "no CUDA device"),
-    ({"WORKER_TP": "2"}, "ROADMAP A6"),
-    ({"WORKER_GANG": "1"}, "ROADMAP A6, A9"),
+    ({"WORKER_TP": "2"}, "ROADMAP A13"),
+    # gang members are served now: WORKER_GANG=1 passes the boot checks and
+    # the worker stops only at the unreachable statebus
+    ({"WORKER_GANG": "1"}, "Connect call failed"),
 ], ids=["no-card", "tp", "gang"])
 def test_worker_process_refuses_what_it_cannot_do(extra, message):
     if "CORDUM_FORCE_CPU" in extra and torch.cuda.is_available():
