@@ -4,7 +4,7 @@ card, by one method, each leg in a process of its own, in the order
 other, this, this, other.
 
     git archive <commit> | tar -x -C build/parent   # a git-ignored directory
-    python3 chip_ab.py --other build/parent [--legs kernels,serve,dense,train,moe]
+    python3 chip_ab.py --other build/parent [--legs kernels,serve,dense,train,moe,pipe]
 
 Legs:
 
@@ -48,6 +48,10 @@ Legs:
   tree's plain route; then phase 9.3's bf16 MoE train steps
   (Mixtral-8x7B widths on the Llama-3-8B base, 2 layers, B 4, T 2048, 10
   steps on one seeded batch): the step p50 over steps 2-10.
+* ``pipe``: ``chip_smoke.py``'s phase 11.2 — bf16 pipeline train steps
+  (Llama-3-8B widths, 2 layers, S 2, M 4, B 4, T 2048, the pipeline's
+  AdamW) on one seeded batch, 10 steps: the step p50 over steps 2-10 and
+  the run's peak memory.
 
 Prints each leg's numbers, then a summary (per measure: the two legs of
 each tree and this tree's median over the other's) and writes it all to
@@ -263,6 +267,34 @@ def leg_train(torch, cs, dev, *, batch=4, seq=2048, steps=10):
             "loss_last": losses[-1]}
 
 
+def leg_pipe(torch, cs, dev, *, batch=4, seq=2048, steps=10, stages=2, micro=4):
+    """Phase 11.2's bf16 pipeline train steps: the step p50 over steps 2
+    on, and the peak memory of the run."""
+    import dataclasses
+
+    import numpy as np
+
+    from cordum_tpu_torch.models import llama, pipeline
+
+    base = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2)
+    cfg = pipeline.PipelineConfig(base=base, n_stages=stages, n_microbatches=micro)
+    init, step = pipeline.make_train_step(cfg, device=dev)
+    params, state = init(cs.SEED)
+    rng = np.random.default_rng(cs.SEED + 31)
+    toks = pipeline.microbatch(torch.from_numpy(
+        rng.integers(0, base.vocab_size, (batch, seq)).astype(np.int32)).to(dev), micro)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, state, loss = step(params, state, toks)
+        losses.append(loss.item())  # waits for the step
+        secs.append(time.perf_counter() - t0)
+    return {"step_p50_ms": statistics.median(secs[1:]) * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "loss_first": losses[0], "loss_last": losses[-1]}
+
+
 #: (N, E, k) of the route's other widths: DeepSeek- and Qwen-style expert
 #: counts, and a larger batch of tokens
 MOE_ROUTE_SHAPES = ((8192, 64, 8), (8192, 256, 8), (65536, 8, 2))
@@ -324,7 +356,7 @@ def leg_moe(torch, cs, dev, *, batch=4, seq=2048, steps=10):
 
 
 LEGS = {"kernels": leg_kernels, "serve": leg_serve, "dense": leg_dense, "train": leg_train,
-        "moe": leg_moe}
+        "moe": leg_moe, "pipe": leg_pipe}
 
 
 def run_leg(leg: str, root: str) -> int:
@@ -371,9 +403,9 @@ def summarise(leg, results):
             for key in ("ms", "plain_ms", "sdpa_ms"):
                 row(f"{name} {key}", [r[name][key] for r in by["this"]],
                     [r[name][key] for r in by["other"]])
-    elif leg == "train":
-        row("step_p50_ms", [r["step_p50_ms"] for r in by["this"]],
-            [r["step_p50_ms"] for r in by["other"]])
+    elif leg in ("train", "pipe"):
+        for key in ("step_p50_ms", "peak_gib") if leg == "pipe" else ("step_p50_ms",):
+            row(key, [r[key] for r in by["this"]], [r[key] for r in by["other"]])
     elif leg == "moe":
         for name in by["this"][0]:
             keys = ("step_p50_ms",) if name == "train" else ("ms", "library_ms")

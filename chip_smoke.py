@@ -146,6 +146,28 @@ Every phase raises on failure.  Phases:
     ``--cards``, on two or more cards (:func:`main_cards`): 10.3's rank
     processes one a card (NCCL) at tp 2 and 4, in fp32 (2 layers) held to
     phase 3's oracle and one rank, then in bf16 beside phase 4.
+11. The pipeline family and MPMD gangs, once phase 10 is done.  (1) An
+    fp32 oracle at Llama-3-8B widths (``reduced``: n_layers 32 -> 2; S 2,
+    one layer a stage; M 2, B 2, T 256): the pipeline loss and every
+    gradient on the B9 path against the pipeline's plain-attention path and
+    against ``llama.loss_fn`` on the same weights unstacked, one copy of the
+    params, no optimizer step; B9 launches = layers x M.  (2) A bf16 run at
+    the same widths and cut, S 2, M 4, B 4, T 2048 (7.3's 8192 tokens a
+    step), 10 steps on one batch with the pipeline's AdamW (weight decay
+    1e-4): the loss falls; step p50, tokens/s and peak memory beside 7.3's
+    dense step, then two steps under ``torch.profiler``.  (3) ``pipeline``
+    train jobs through a port worker (``LlamaConfig.tiny()``, 6 steps, a
+    checkpoint every 2), cancelled after step 2 and resumed, then one at M
+    4; result keys as the reference's, ``mesh.pp`` 1.  (4) An MPMD gang job
+    (pp 2) through two port worker processes over the TCP statebus: both
+    ranks done with ``mode: "mpmd"``, rank 0's loss None, rank 1's first
+    loss equal to the one-process pipeline loss (plain attention) on the
+    weights and tokens the seed draws, each process's B9 launches = its
+    stage's layers x microbatches x steps; the workers run with
+    ``WORKER_GANG_ADDR`` set to a non-loopback address of the host (skipped,
+    and said so, where it has none), and a serving gang job whose store
+    rank 0 advertises there must be token-identical to the dense greedy
+    run; SIGTERM drains both.
 
 Tolerances (kernel vs plain version, max abs error), paged attention:
 fp32 1e-4 — the sums run in another order over up to 8192 keys, on O(1)
@@ -196,7 +218,9 @@ relative to the plain value); d_w, a D-long fp32 dot in another order,
 within 1e-4 of the sum of its products' magnitudes (two orders' worst case
 2 D 2^-24 = 4.9e-4 at D 4096, typical sqrt(D) 2^-24 = 3.8e-6).  fp32 MoE
 oracle: the loss within 1e-5 relative, each gradient within 1e-4 of its
-largest |value| (B9's fp32 gate).
+largest |value| (B9's fp32 gate).  The fp32 pipeline oracle (phase 11)
+holds its loss and gradients to the same two gates; an MPMD gang's first
+loss is held to the one-process loss within 1e-5 relative.
 
 Near-tie rule of phase 3, fixed before any run: tokens are compared up to
 the first generated position where the oracle's top-2 logits differ by
@@ -211,6 +235,7 @@ then the ``nvidia-smi`` name and power-limit line; the last line is
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1199,9 +1224,10 @@ DENSE_ROW_FLOOR = 2.0**-8
 DENSE_ROW_FACTOR = 2.0
 DENSE_ROW_SLACK = 2.0**-9
 #: (tag, B, T, H, KVH, hd): phase 7's main shape (Llama-3-8B heads; its
-#: numbers go into the kernel line) and ``LlamaConfig()``'s, the ``train``
-#: job's
-DENSE_SHAPES = (("llama3-8b", 4, 2048, 32, 8, 128), ("llama-default", 8, 2048, 8, 4, 64))
+#: numbers go into the kernel line), ``LlamaConfig()``'s, the ``train``
+#: job's, and one microbatch of phase 11.2's bf16 pipeline run
+DENSE_SHAPES = (("llama3-8b", 4, 2048, 32, 8, 128), ("llama-default", 8, 2048, 8, 4, 64),
+                ("pipeline-mb", 1, 2048, 32, 8, 128))
 #: phase 7.2, the B9 path against the plain-attention path: each step's
 #: loss (relative); every param element within six learning rates (each of
 #: three Adam steps moves an element by about lr * sign(g), so a gradient
@@ -1623,7 +1649,8 @@ def phase_train_bf16(torch, dev, card, cfg, *, batch=4, seq=2048, steps=10):
     """bf16 train steps on one fixed batch through ``make_train_step``: the
     loss must be finite and fall from the first step to the last.  Then two
     steps more under ``torch.profiler`` (informational, not counted).
-    Returns the launches."""
+    Returns the launches and the step's numbers (p50 ms, tokens/s, peak
+    GiB)."""
     from cordum_tpu_torch.models import llama
 
     init, step = llama.make_train_step(cfg, device=dev)
@@ -1654,7 +1681,7 @@ def phase_train_bf16(torch, dev, card, cfg, *, batch=4, seq=2048, steps=10):
     profile_train(torch, card, lambda: step(params, state, toks))
     del params, state
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"p50_ms": p50 * 1e3, "tokens_s": batch * seq / p50, "peak_gib": peak_gib}
 
 
 def profile_train(torch, card, one_step, *, steps=2, families=("dense_attention",)):
@@ -1791,7 +1818,8 @@ def phase_train(torch, dev, card, cfg8b, dense_log=""):
     """7.1 B9 vs its plain version and its times (``dense_log``: the B9
     library's build log, for its ptxas lines); 7.2 the fp32 train-step
     oracle; 7.3 the bf16 train run; 7.4 ``train`` jobs through a worker.
-    Returns the kernel rows' numbers and each dtype's main-path launches."""
+    Returns the kernel rows' numbers, each dtype's main-path launches and
+    7.3's step numbers."""
     import tempfile
 
     log_ptxas(dense_log)
@@ -1799,11 +1827,11 @@ def phase_train(torch, dev, card, cfg8b, dense_log=""):
     torch.cuda.empty_cache()
     cfg2 = dataclasses.replace(cfg8b, n_layers=2)
     fp32 = phase_train_oracle(torch, dev, card, dataclasses.replace(cfg2, dtype=torch.float32))
-    bf16 = phase_train_bf16(torch, dev, card, cfg2)
+    bf16, dense_step = phase_train_bf16(torch, dev, card, cfg2)
     with tempfile.TemporaryDirectory(prefix="cordum-ckpt-") as ckpt_root:
         jobs = asyncio.run(drive_train_worker(torch, dev, card, ckpt_root))
     launches = {k: {"float32": fp32[k], "bfloat16": bf16[k] + jobs[k]} for k in fp32}
-    return rows, launches
+    return rows, launches, dense_step
 
 
 # ---------------------------------------------------------------------------
@@ -2355,6 +2383,20 @@ def layer0_kept(torch, params, toks, cfg):
     return int(route.keep.sum()), route.keep.numel()
 
 
+def worst_grad(got, want, names):
+    """The largest of each gradient's max error over its largest |value|,
+    and the leaf it is in; an error that is not finite (a NaN or inf in
+    either gradient) is the worst at once."""
+    worst = (0.0, None)
+    for g, w, name in zip(got, want, names):
+        err = (g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        if not math.isfinite(err):
+            return math.inf, name
+        if err > worst[0]:
+            worst = (err, name)
+    return worst
+
+
 def phase_moe_oracle(torch, dev, card, cfg, *, batch=2, seq=256, drop_cf=0.5):
     """9.2: ``moe.loss_fn`` and every gradient on the kernel path (B7 + B9)
     against the plain path (the plain route, dispatch and combine, the plain
@@ -2393,11 +2435,7 @@ def phase_moe_oracle(torch, dev, card, cfg, *, batch=2, seq=256, drop_cf=0.5):
         if any(read_launches().values()):
             raise AssertionError(f"the plain MoE path launched kernels: {read_launches()}")
         loss_rel = abs(loss.item() - plain_loss.item()) / abs(plain_loss.item())
-        worst, worst_at = 0.0, None
-        for i, (g, p) in enumerate(zip(grads, plain_grads)):
-            rel = (g - p).abs().max().item() / max(p.abs().max().item(), 1e-30)
-            if not math.isfinite(rel) or rel > worst:
-                worst, worst_at = rel, i
+        worst, worst_at = worst_grad(grads, plain_grads, range(len(grads)))
         if not (math.isfinite(loss.item()) and loss_rel <= MOE_LOSS_REL
                 and worst <= MOE_GRAD_REL):
             raise AssertionError(
@@ -3137,33 +3175,30 @@ class GangDispatcher:
             await asyncio.sleep(0.05)
 
 
-async def drive_gang_workers(torch, dev, card, workdir, *, n_new=12):
-    """10.4: a statebus process and two port worker processes with
-    ``WORKER_GANG=1``; this script plays the gang scheduler over TCP.  A
-    serving gang job (tiny config, fp32, a seed): both ranks ``ready`` then
-    ``done``, rank 0's tokens equal a dense greedy run on the weights the
-    seed draws (near-tie rule), ``steps_replayed == steps``, only rank 0
-    streams.  Then a ``gang_test`` failing rank 1: both members end (an
-    abort, no member left active), and both finish a ``gang_echo``.  SIGTERM
-    drains both to exit 0.  Returns the workers' B1 launches."""
+@contextlib.asynccontextmanager
+async def gang_worker_stack(dev, workdir, workers, extra_env=None):
+    """A statebus process and one port worker process with
+    ``WORKER_GANG=1`` for each of ``workers`` (``extra_env`` on top of the
+    gang settings); yields ``(sched, procs, logs)``: this script's
+    :class:`GangDispatcher` over TCP, once every worker has beaten, the
+    processes (the statebus first) and the workers' log paths.  Every
+    process is stopped on the way out."""
     from cordum_tpu_torch.infra import statebus
     from cordum_tpu_torch.infra.memstore import MemoryStore
-    from cordum_tpu_torch.models import llama
 
     port = free_port()
     url = f"statebus://127.0.0.1:{port}"
-    workers = ["gang-w0", "gang-w1"]
     base = {**os.environ, "STATEBUS_PORT": str(port), "CORDUM_STATEBUS_URL": url,
             "WORKER_GANG": "1", "WORKER_POOL": "gangpool", "WORKER_TOPICS": "job.gang",
             "WORKER_GANG_RENDEZVOUS_TIMEOUT": "60", "WORKER_GANG_PEER_TIMEOUT": "60",
             "WORKER_HEARTBEAT_INTERVAL": "0.5", "WORKER_SERVING": "0", "WORKER_BATCHING": "0",
-            "CORDUM_LOG_FORMAT": "json", "PYTHONDONTWRITEBYTECODE": "1"}
+            "CORDUM_LOG_FORMAT": "json", "PYTHONDONTWRITEBYTECODE": "1", **(extra_env or {})}
     base.pop("CORDUM_FORCE_CPU", None)
     if dev.type == "cpu":
         base["CORDUM_FORCE_CPU"] = "1"
-    bus_log = os.path.join(workdir, "statebus.log")
     logs = [os.path.join(workdir, f"{w}.log") for w in workers]
-    server = start_process(["cordum_tpu_torch.cmd.statebus"], base, bus_log)
+    server = start_process(["cordum_tpu_torch.cmd.statebus"], base,
+                           os.path.join(workdir, "statebus.log"))
     procs = [server]
     conn = None
     try:
@@ -3178,40 +3213,66 @@ async def drive_gang_workers(torch, dev, card, workdir, *, n_new=12):
             if any(p.poll() is not None for p in procs[1:]) or time.monotonic() - t0 > 300:
                 raise AssertionError(f"gang workers never beat; see {logs}")
             await asyncio.sleep(0.1)
-        rng = np.random.default_rng(SEED + 20)
-        cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32)
-        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (9, 40)]
-        payload = {"op": "llm.generate", "gang": {"kind": "serving", "workers": 2},
-                   "prompts": prompts, "max_new_tokens": n_new, "dtype": "float32",
-                   "seed": GANG_JOB_SEED, "page_size": 16, "cache_pages": 64}
-        t0 = time.monotonic()
-        (lead, follow), msgs = await sched.run("gang-serve", payload, kind="serving")
-        serve_s = time.monotonic() - t0
-        if {m.rank for m in msgs if m.kind == "ready"} != {0, 1}:
-            raise AssertionError("a rank never beaconed ready")
-        ls, fs = lead.stats, follow.stats
-        if fs["steps_replayed"] != ls["steps"] or ls["steps"] < 1:
-            raise AssertionError(f"rank 1 replayed {fs['steps_replayed']} of {ls['steps']} steps")
-        if sched.stream_senders != {workers[0]}:
-            raise AssertionError(f"streamed by {sched.stream_senders}, not rank 0 alone")
-        params = llama.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(
-            GANG_JOB_SEED), device=dev)
-        ties_n = 0
-        for p, res in zip(prompts, ls["results"]):
-            want, ties = dense_greedy(torch, llama, params, cfg, p, n_new, dev)
-            ties_n += len(ties)
-            compare_near_tie(res["tokens"], want, ties, "gang job")
+        yield sched, procs, logs
+    finally:
+        if conn is not None:
+            await conn.close()
+        for proc in procs:
+            stop_process(proc)
+
+
+async def serving_gang_job(torch, dev, sched, job_id, *, n_new):
+    """A serving gang job (tiny config, fp32, a seed) on ``sched``'s two
+    workers: both ranks ``ready`` then ``done``, rank 0's tokens equal a
+    dense greedy run on the weights the seed draws (near-tie rule),
+    ``steps_replayed == steps``, only rank 0 streams.  Returns rank 0's
+    and rank 1's stats, the near ties, the seconds and the config."""
+    from cordum_tpu_torch.models import llama
+
+    rng = np.random.default_rng(SEED + 20)
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (9, 40)]
+    payload = {"op": "llm.generate", "gang": {"kind": "serving", "workers": 2},
+               "prompts": prompts, "max_new_tokens": n_new, "dtype": "float32",
+               "seed": GANG_JOB_SEED, "page_size": 16, "cache_pages": 64}
+    sched.stream_senders.clear()
+    t0 = time.monotonic()
+    (lead, follow), msgs = await sched.run(job_id, payload, kind="serving")
+    serve_s = time.monotonic() - t0
+    if {m.rank for m in msgs if m.kind == "ready"} != {0, 1}:
+        raise AssertionError("a rank never beaconed ready")
+    ls, fs = lead.stats, follow.stats
+    if fs["steps_replayed"] != ls["steps"] or ls["steps"] < 1:
+        raise AssertionError(f"rank 1 replayed {fs['steps_replayed']} of {ls['steps']} steps")
+    if sched.stream_senders != {sched.workers[0]}:
+        raise AssertionError(f"streamed by {sched.stream_senders}, not rank 0 alone")
+    params = llama.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(
+        GANG_JOB_SEED), device=dev)
+    ties_n = 0
+    for p, res in zip(prompts, ls["results"]):
+        want, ties = dense_greedy(torch, llama, params, cfg, p, n_new, dev)
+        ties_n += len(ties)
+        compare_near_tie(res["tokens"], want, ties, "gang job")
+    return ls, fs, ties_n, serve_s, cfg, msgs
+
+
+async def drive_gang_workers(torch, dev, card, workdir, *, n_new=12):
+    """10.4: a statebus process and two port worker processes with
+    ``WORKER_GANG=1``; this script plays the gang scheduler over TCP.  A
+    serving gang job (:func:`serving_gang_job`).  Then a ``gang_test``
+    failing rank 1: both members end (an abort, no member left active), and
+    both finish a ``gang_echo``.  SIGTERM drains both to exit 0.  Returns
+    the workers' B1 launches."""
+    workers = ["gang-w0", "gang-w1"]
+    async with gang_worker_stack(dev, workdir, workers) as (sched, procs, logs):
+        ls, fs, ties_n, serve_s, cfg, _ = await serving_gang_job(
+            torch, dev, sched, "gang-serve", n_new=n_new)
         # a member failure: rank 1 fails at once, rank 0 must leave its spin
         fail_msgs = await gang_abort_leg(sched, workers)
         echo, _ = await sched.run("gang-echo", {"op": "gang_echo"})
         if [m.stats.get("mode") for m in echo] != ["barrier", "barrier"]:
             raise AssertionError(f"gang_echo after the abort: {[m.stats for m in echo]}")
         rcs = [stop_process(p) for p in procs[1:]]
-    finally:
-        if conn is not None:
-            await conn.close()
-        for proc in procs:
-            stop_process(proc)
     exits = [worker_exit_line(path) for path in logs]
     if any(rcs) or any(e.get("cancelled_sessions") for e in exits):
         raise AssertionError(f"SIGTERM: the gang workers exited {rcs}, {exits}")
@@ -3221,7 +3282,7 @@ async def drive_gang_workers(torch, dev, card, workdir, *, n_new=12):
                              f"{ls['steps']} steps each")
     log(f"[gang-job] serving gang over two worker processes (WORKER_GANG=1, TCP statebus): "
         f"ready then done from both ranks in {serve_s:.2f} s; collective {ls['collective']}; "
-        f"{len(prompts)} prompts token-identical to the dense oracle on the seed's weights "
+        f"{len(ls['results'])} prompts token-identical to the dense oracle on the seed's weights "
         f"({ties_n} near ties); steps {ls['steps']}, replayed {fs['steps_replayed']}; only rank 0 "
         f"streamed; B1 launches {launches}  [{card}]")
     log(f"[gang-job] gang_test failing rank 1: {fail_msgs}; then gang_echo done on both; "
@@ -3281,6 +3342,299 @@ def phase_gang(torch, dev, card, cfg32, prompts, oracle, served32, serve4):
     with tempfile.TemporaryDirectory(prefix="cordum-gang-") as workdir:
         jobs = asyncio.run(drive_gang_workers(torch, dev, card, workdir))
     return rows, {"float32": fp32 + jobs, "bfloat16": bf16}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the pipeline family and MPMD gangs
+# ---------------------------------------------------------------------------
+
+PIPE_STAGES = 2
+# fp32 pipeline oracle: MoE oracle's gates (phase 9.2), B9's fp32 gradient gate
+PIPE_LOSS_REL = 1e-5
+PIPE_GRAD_REL = 1e-4
+#: 11.4's gang job; an lr of 0.5 (the payload's default is 1e-3) so that a
+#: wrong cotangent or SGD scale moves rank 1's second loss past the gate
+MPMD_PAYLOAD = {"op": "train", "model": "pipeline", "steps": 2, "batch": 4, "seq": 16,
+                "microbatches": 2, "mesh": {"pp": 2}, "gang": {"workers": 2}, "lr": 0.5}
+MPMD_LOSS_REL = 1e-5
+
+
+def leaf_names(tree, prefix=""):
+    """The names of a param tree's leaves in ``optim.tree_leaves`` order
+    (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def phase_pipeline_oracle(torch, dev, card, cfg, *, batch=2, seq=256):
+    """11.1: the pipeline loss and every gradient on the B9 path against
+    (a) the pipeline's plain-attention path and (b) ``llama.loss_fn`` on
+    the same weights unstacked into ``layers`` with plain attention; one
+    copy of the params, no optimizer step.  Returns the B9 launches."""
+    from cordum_tpu_torch import optim
+    from cordum_tpu_torch.models import llama, pipeline
+
+    params = pipeline.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+                                  device=dev)
+    leaves = optim.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    names = leaf_names(params)
+    rng = np.random.default_rng(SEED + 30)
+    toks = torch.from_numpy(rng.integers(0, cfg.base.vocab_size, (batch, seq))
+                            .astype(np.int32)).to(dev)
+    toks_mb = pipeline.microbatch(toks, cfg.n_microbatches)
+
+    def value_and_grads(loss):
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return loss.item(), grads
+
+    zero_launches()
+    k_loss, k_grads = value_and_grads(pipeline.make_loss_fn(cfg)(params, toks_mb))
+    launches = dense_launches(cfg.base.n_layers, cfg.n_microbatches)
+    p_loss, p_grads = value_and_grads(
+        pipeline.make_loss_fn(cfg, attention=plain_attention)(params, toks_mb))
+    l_loss, l_grads = value_and_grads(
+        llama.loss_fn(pipeline.unstacked(params), toks, cfg.base, attention=plain_attention))
+    if any(read_launches()[k] != launches[k] for k in launches):
+        raise AssertionError("the plain-attention paths launched the dense kernels")
+    rel_a, rel_b = abs(k_loss - p_loss) / abs(p_loss), abs(k_loss - l_loss) / abs(l_loss)
+    grad_a, grad_b = worst_grad(k_grads, p_grads, names), worst_grad(k_grads, l_grads, names)
+    finite = all(math.isfinite(x) for x in (k_loss, p_loss, l_loss))
+    if not (finite and max(rel_a, rel_b) <= PIPE_LOSS_REL
+            and max(grad_a[0], grad_b[0]) <= PIPE_GRAD_REL):
+        raise AssertionError(
+            f"fp32 pipeline oracle: loss B9 {k_loss}, plain pipeline {p_loss} (rel {rel_a:.3e}), "
+            f"llama.loss_fn {l_loss} (rel {rel_b:.3e}), tolerance {PIPE_LOSS_REL:g}; worst "
+            f"gradient {grad_a} / {grad_b} (tolerance {PIPE_GRAD_REL:g} of its max)")
+    log(f"[pipe-oracle] fp32 {cfg.base.n_layers}-layer Llama-3-8B widths, S {cfg.n_stages}, M "
+        f"{cfg.n_microbatches}, B {batch}, T {seq}: loss B9 {k_loss:.6f}; vs the plain pipeline "
+        f"{p_loss:.6f} (rel {rel_a:.3e}), worst gradient {grad_a[0]:.3e} of its max ({grad_a[1]}); "
+        f"vs llama.loss_fn unstacked {l_loss:.6f} (rel {rel_b:.3e}), worst gradient "
+        f"{grad_b[0]:.3e} ({grad_b[1]}); launches {launches}  [{card}]")
+    del params, leaves, k_grads, p_grads, l_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_pipeline_bf16(torch, dev, card, cfg, dense_step, *, batch=4, seq=2048, steps=10):
+    """11.2: bf16 pipeline train steps (the pipeline's AdamW, weight decay
+    1e-4) on one fixed batch: the loss must be finite and fall.  Step p50,
+    tokens/s and peak memory beside phase 7.3's dense step
+    (``dense_step``), then two steps under ``torch.profiler``.  Returns the
+    launches."""
+    from cordum_tpu_torch.models import pipeline
+
+    init, step = pipeline.make_train_step(cfg, device=dev)
+    params, state = init(SEED)
+    rng = np.random.default_rng(SEED + 31)
+    toks = pipeline.microbatch(torch.from_numpy(
+        rng.integers(0, cfg.base.vocab_size, (batch, seq)).astype(np.int32)).to(dev),
+        cfg.n_microbatches)
+    torch.cuda.synchronize()
+    state_gib = torch.cuda.memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, state, loss = step(params, state, toks)
+        losses.append(loss.item())  # waits for the step
+        secs.append(time.perf_counter() - t0)
+    launches = dense_launches(cfg.base.n_layers, steps * cfg.n_microbatches)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bf16 pipeline run: losses {losses} (finite, falling expected)")
+    p50 = statistics.median(secs[1:])
+    log(f"[pipe-train] bf16 {cfg.base.n_layers}-layer Llama-3-8B widths, S {cfg.n_stages}, M "
+        f"{cfg.n_microbatches}, B {batch}, T {seq}, {steps} steps on one batch: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} ({', '.join(f'{x:.4f}' for x in losses)}); step "
+        f"p50 {p50 * 1e3:.2f} ms (steps 2-{steps}), first step {secs[0] * 1e3:.2f} ms, "
+        f"{batch * seq / p50:.1f} tokens/s, peak memory {peak_gib:.2f} GiB ({state_gib:.2f} GiB "
+        f"allocated before the first step); phase 7.3's dense step: p50 "
+        f"{dense_step['p50_ms']:.2f} ms, {dense_step['tokens_s']:.1f} tokens/s, peak "
+        f"{dense_step['peak_gib']:.2f} GiB; launches {launches}  [{card}]")
+    profile_train(torch, card, lambda: step(params, state, toks))
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+async def drive_pipeline_worker(torch, dev, card, ckpt_root, *, batch=8, seq=128):
+    """11.3: a ``pipeline`` run (``LlamaConfig.tiny()``, M 2) of 6 steps
+    checkpointed every 2, cancelled after step 2 and resumed; then a run at
+    M 4 asking for pp 2.  Result keys as the reference's, ``mesh.pp`` 1;
+    B9 launches = layers x microbatches x steps, forward and backward."""
+    from cordum_tpu_torch.models import llama
+
+    payload = {"op": "train", "model": "pipeline", "steps": 6, "batch": batch, "seq": seq,
+               "checkpoint_every": 2, "run_name": "phase11", "microbatches": 2}
+    other_payload = {"op": "train", "model": "pipeline", "steps": 3, "batch": batch,
+                     "seq": seq, "microbatches": 4, "mesh": {"pp": 2}}
+    first, second, other, n, saved = await run_train_jobs(
+        torch, dev, ckpt_root, "w-pipe", payload, other_payload)
+    if any(doc["mesh"]["pp"] != 1 for doc in (first, second, other)):
+        raise AssertionError(f"pipeline job meshes {[d['mesh'] for d in (first, second, other)]}")
+    layers = llama.LlamaConfig.tiny().n_layers
+    want = layers * (2 * (first["steps_done"] + second["steps_done"] - second["resumed_from"])
+                     + 4 * other["steps_done"])
+    if not n["dense_attention_fwd"] == n["dense_attention_bwd"] == want:
+        raise AssertionError(f"dense_attention launches {n}; {want} each expected")
+    log(f"[pipe-worker] pipeline (LlamaConfig.tiny(): {layers} layers, d 64, bf16), B {batch}, "
+        f"T {seq}, M 2: cancelled after {first['steps_done']} steps (loss "
+        f"{first['loss_first']:.4f} -> {first['final_loss']:.4f}); re-dispatched: resumed from "
+        f"{second['resumed_from']}, {second['steps_done']} steps done, loss "
+        f"{second['final_loss']:.4f}; checkpoints {saved}; M 4 (pp 2 asked): "
+        f"{other['steps_done']} steps, loss {other['loss_first']:.4f} -> "
+        f"{other['final_loss']:.4f}; mesh {first['mesh']}; launches forward "
+        f"{n['dense_attention_fwd']}, backward {n['dense_attention_bwd']}  [{card}]")
+    return {k: n[k] for k in ("dense_attention_fwd", "dense_attention_bwd")}
+
+
+def routable_address():
+    """A non-loopback IPv4 address of one of this host's interfaces, read
+    with ``SIOCGIFADDR`` (nothing is sent), as ``(interface, address)``; or
+    None."""
+    import fcntl
+    import socket
+    import struct
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+        for _, name in socket.if_nameindex():
+            try:
+                packed = fcntl.ioctl(sock.fileno(), 0x8915,  # SIOCGIFADDR
+                                     struct.pack("256s", name[:15].encode()))
+            except OSError:
+                continue  # no IPv4 address on this interface
+            addr = socket.inet_ntoa(packed[20:24])
+            if not addr.startswith("127."):
+                return name, addr
+    return None
+
+
+def mpmd_one_process_losses(torch, dev, payload):
+    """Rank 1's two losses computed in this process: the pipeline's
+    ``make_loss_fn`` with plain attention on the weights and the step-0
+    tokens the seed draws (the gang's CPU generators), then one SGD step of
+    the payload's ``lr`` on its gradient (the gang's sum over microbatches
+    at ``lr / M``) and the loss on step 1's tokens."""
+    from cordum_tpu_torch import optim
+    from cordum_tpu_torch.models import pipeline
+    from cordum_tpu_torch.worker import gang
+
+    base = gang.mpmd_base()
+    cfg = pipeline.PipelineConfig(base=base, n_stages=2, n_microbatches=payload["microbatches"])
+    params = optim.tree_map(lambda t: t.to(dev), gang.mpmd_draw(payload, 2))
+    leaves = optim.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss_fn = pipeline.make_loss_fn(cfg, attention=plain_attention)
+    losses = []
+    for step in range(2):
+        toks = gang.mpmd_tokens(step, payload["batch"], payload["seq"], base.vocab_size).to(dev)
+        loss = loss_fn(params, pipeline.microbatch(toks, cfg.n_microbatches))
+        losses.append(loss.item())
+        with torch.no_grad():
+            for p, g in zip(leaves, torch.autograd.grad(loss, leaves)):
+                p.sub_(payload["lr"] * g)
+    return losses
+
+
+async def drive_mpmd_workers(torch, dev, card, workdir, *, n_new=12):
+    """11.4: an MPMD pipeline gang job (pp 2) through two port worker
+    processes over the TCP statebus, this script playing the gang
+    scheduler: both ranks ``done`` with ``mode: "mpmd"``, rank 0's loss
+    None, rank 1's first and second losses (lr 0.5) equal to
+    :func:`mpmd_one_process_losses`, each
+    process's B9 launches = its stage's layers x microbatches x steps,
+    forward and backward.  The workers run with ``WORKER_GANG_ADDR`` set to
+    a non-loopback address of the host where it has one, and then serve a
+    gang job (:func:`serving_gang_job`) whose store rank 0 advertises
+    there.  SIGTERM drains both to exit 0.  Returns the workers' B9
+    launches (fp32) and B1 launches."""
+    from cordum_tpu_torch.worker import gang
+
+    routable = routable_address()
+    extra = {"WORKER_GANG_ADDR": routable[1]} if routable else {}
+    workers = ["mpmd-w0", "mpmd-w1"]
+    payload = dict(MPMD_PAYLOAD)
+    async with gang_worker_stack(dev, workdir, workers, extra) as (sched, procs, logs):
+        t0 = time.monotonic()
+        (r0, r1), _ = await sched.run("mpmd-train", payload)
+        train_s = time.monotonic() - t0
+        serving = None
+        if routable:
+            serving = await serving_gang_job(torch, dev, sched, "gang-addr", n_new=n_new)
+        rcs = [stop_process(p) for p in procs[1:]]
+    exits = [worker_exit_line(path) for path in logs]
+    if any(rcs) or any(e.get("cancelled_sessions") for e in exits):
+        raise AssertionError(f"SIGTERM: the MPMD workers exited {rcs}, {exits}")
+    s0, s1 = r0.stats, r1.stats
+    if s0.get("mode") != "mpmd" or s1.get("mode") != "mpmd" or s0.get("loss") is not None \
+            or s1.get("loss") is None or s1["steps_done"] != payload["steps"]:
+        raise AssertionError(f"MPMD gang results: {s0}, {s1}")
+    want = mpmd_one_process_losses(torch, dev, payload)
+    got = [s1["loss_first"], s1["loss"]]
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    if not rel <= MPMD_LOSS_REL:
+        raise AssertionError(f"MPMD rank 1's losses {got} vs one process {want} "
+                             f"(rel {rel:.3e}, tolerance {MPMD_LOSS_REL:g})")
+    per_stage = gang.mpmd_base().n_layers // 2 * payload["microbatches"] * payload["steps"]
+    b9 = [(e["kernel_launches"]["dense_attention_fwd"], e["kernel_launches"]["dense_attention_bwd"])
+          for e in exits]
+    if b9 != [(per_stage, per_stage)] * 2:
+        raise AssertionError(f"MPMD workers' B9 launches {b9}; {per_stage} each expected")
+    b1 = [e["kernel_launches"]["paged_attention"] for e in exits]
+    log(f"[mpmd-job] MPMD pipeline gang over two worker processes (pp 2, WORKER_GANG=1, TCP "
+        f"statebus): done from both ranks in {train_s:.2f} s, mode mpmd; rank 1 loss "
+        f"{s1['loss_first']:.6f} -> {s1['loss']:.6f} (lr {payload['lr']}), one process "
+        f"{want[0]:.6f} -> {want[1]:.6f} (max rel {rel:.3e}); "
+        f"rank 0 loss None; B9 launches (forward, backward) {b9}  [{card}]")
+    if serving is None:
+        log(f"[mpmd-job] WORKER_GANG_ADDR leg skipped: this host has no non-loopback IPv4 "
+            f"address  [{card}]")
+        b1_launches = 0
+    else:
+        ls, fs, ties_n, serve_s, cfg, msgs = serving
+        stores = {(m.stats or {}).get("store", "") for m in msgs if m.kind == "ready" and m.rank == 0}
+        if not stores or not all(a.startswith(f"{routable[1]}:") for a in stores):
+            raise AssertionError(f"rank 0 advertised {stores}, not {routable[1]}")
+        if b1 != [cfg.n_layers * ls["steps"]] * 2:
+            raise AssertionError(f"B1 launches {b1} != {cfg.n_layers} x {ls['steps']} each")
+        b1_launches = sum(b1)
+        log(f"[mpmd-job] WORKER_GANG_ADDR={routable[1]} ({routable[0]}): rank 0 advertised "
+            f"{sorted(stores)}; serving gang done in {serve_s:.2f} s, collective "
+            f"{ls['collective']}, token-identical to the dense oracle ({ties_n} near ties), "
+            f"steps {ls['steps']}, replayed {fs['steps_replayed']}; B1 launches {b1}  [{card}]")
+    log(f"[mpmd-job] SIGTERM exits {rcs}  [{card}]")
+    return sum(f for f, _ in b9), sum(b for _, b in b9), b1_launches
+
+
+def phase_pipeline(torch, dev, card, cfg8b, dense_step):
+    """11.1-11.4.  Returns B9's launches per dtype (forward and backward)
+    and the B1 launches of 11.4's serving leg (fp32)."""
+    import tempfile
+
+    from cordum_tpu_torch.models import pipeline
+
+    base2 = dataclasses.replace(cfg8b, n_layers=2)
+    fp32 = phase_pipeline_oracle(torch, dev, card, pipeline.PipelineConfig(
+        base=dataclasses.replace(base2, dtype=torch.float32), n_stages=PIPE_STAGES,
+        n_microbatches=2))
+    bf16 = phase_pipeline_bf16(torch, dev, card, pipeline.PipelineConfig(
+        base=base2, n_stages=PIPE_STAGES, n_microbatches=4), dense_step)
+    with tempfile.TemporaryDirectory(prefix="cordum-ckpt-") as ckpt_root:
+        jobs = asyncio.run(drive_pipeline_worker(torch, dev, card, ckpt_root))
+    with tempfile.TemporaryDirectory(prefix="cordum-mpmd-") as workdir:
+        mpmd_fwd, mpmd_bwd, b1 = asyncio.run(drive_mpmd_workers(torch, dev, card, workdir))
+    launches = {k: {"float32": fp32[k], "bfloat16": bf16[k] + jobs[k]} for k in fp32}
+    launches["dense_attention_fwd"]["float32"] += mpmd_fwd
+    launches["dense_attention_bwd"]["float32"] += mpmd_bwd
+    return launches, b1
 
 
 # ---------------------------------------------------------------------------
@@ -3354,7 +3708,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[train] device memory allocated before phase 7: "
         f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
-    dense, train = phase_train(torch, dev, smi, cfg8b, build_logs["dense_attention"])
+    dense, train, dense_step = phase_train(torch, dev, smi, cfg8b, build_logs["dense_attention"])
     kernel.update(dense)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3367,6 +3721,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernel["paged_attention_tp2"], gang = phase_gang(torch, dev, smi, cfg32, prompts, oracle,
                                                      served32, serve4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe, pipe_b1 = phase_pipeline(torch, dev, smi, cfg8b, dense_step)
 
     # phase 8's worker process serves an fp32 Llama and the bf16 embedder
     launches = {
@@ -3385,10 +3742,12 @@ def main() -> int:
         **{name: moe[name] for name in MOE_KERNELS},
         "paged_attention_tp2": gang,
     }
-    # phase 9's MoE runs launch B9 too
+    # phase 11.4's serving leg runs B1 at full heads (fp32)
+    launches["paged_attention"]["float32"] += pipe_b1
+    # phase 9's MoE runs and phase 11's pipeline runs launch B9 too
     for name in ("dense_attention_fwd", "dense_attention_bwd"):
         for dtype in ("float32", "bfloat16"):
-            launches[name][dtype] += moe[name][dtype]
+            launches[name][dtype] += moe[name][dtype] + pipe[name][dtype]
     line = {"kernels": [
         {"name": f"{name}_{dtype}", "route": "cuda", "source": sources[name],
          "replaces": KERNELS[name][1], "launches": launches[name][dtype],

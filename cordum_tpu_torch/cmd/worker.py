@@ -31,10 +31,17 @@ serving steps and each hand-written kernel's launches in this process.
 
 Gang members (WORKER_GANG, on unless ``0``): jobs carrying the scheduler's
 gang labels run on the gang runner (``worker/gang.py``) — the barrier, the
-SPMD train leg and tensor-parallel serving gangs over a ``torch.distributed``
-group; WORKER_GANG_RENDEZVOUS_TIMEOUT (default 10 s) bounds the barrier and
-WORKER_GANG_PEER_TIMEOUT (default 30 s) the rank group's join and every
-collective.
+SPMD train leg, MPMD pipeline gangs and tensor-parallel serving gangs over
+a ``torch.distributed`` group; WORKER_GANG_RENDEZVOUS_TIMEOUT (default 10 s)
+bounds the barrier and WORKER_GANG_PEER_TIMEOUT (default 30 s) the rank
+group's join, every collective and every wait for a peer's stage tensor.
+WORKER_GANG_ADDR is the address this worker advertises for the rendezvous
+store when it leads a serving gang (default ``127.0.0.1``: the gang's
+members share a host); set it to an address the other members can route
+to when they live on other hosts.  The store listens on every interface.
+NCCL and gloo pick their own interface for the group's traffic, from
+NCCL_SOCKET_IFNAME and GLOO_SOCKET_IFNAME, which torch reads itself; this
+worker sets neither.
 
 Not ported: WORKER_TP > 1, the width of the local device mesh the
 reference's ``TPUCompute`` shards one worker's own ops over (several chips
@@ -74,11 +81,13 @@ def _refuse_unported(env) -> None:
 
 def _gang_options(env) -> dict:
     """``attach_default_gpu_worker``'s gang keywords: the runner on unless
-    WORKER_GANG is ``0``, and its two timeouts."""
+    WORKER_GANG is ``0``, its two timeouts and the store address it
+    advertises (WORKER_GANG_ADDR; empty: ``127.0.0.1``)."""
     return {
         "gang": env.get("WORKER_GANG", "1") != "0",
         "gang_rendezvous_timeout_s": _boot.env_float("WORKER_GANG_RENDEZVOUS_TIMEOUT", 10.0),
         "gang_peer_timeout_s": _boot.env_float("WORKER_GANG_PEER_TIMEOUT", 30.0),
+        "gang_addr": env.get("WORKER_GANG_ADDR", "").strip(),
     }
 
 

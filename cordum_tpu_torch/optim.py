@@ -19,9 +19,15 @@ the Adam step, which rounds in another order.
 A param tree is what the models use: dicts (keys in sorted order) and lists
 of tensors.  The state is ``{"count", "mu", "nu"}`` with ``mu`` and ``nu``
 trees of the params' shape.  :func:`adamw_update` works in place.
+
+:func:`adamw` builds the ``(init, update)`` pair a train step takes for
+another weight decay: the pipeline family's is optax's default
+``optax.adamw(3e-4)``, whose ``weight_decay`` is 1e-4
+(:data:`OPTAX_WEIGHT_DECAY`), where the Llama and MoE families pass 0.01.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Sequence
 
 import torch
@@ -31,6 +37,8 @@ LEARNING_RATE = 3e-4
 B1, B2 = 0.9, 0.999
 EPS = 1e-8
 WEIGHT_DECAY = 0.01
+#: optax.adamw's own default weight decay (the pipeline family's optimizer)
+OPTAX_WEIGHT_DECAY = 1e-4
 _COUNT_MAX = 2**31 - 1
 
 
@@ -74,7 +82,8 @@ def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(grads: Any, state: dict, params: Any) -> None:
+def adamw_update(grads: Any, state: dict, params: Any, *,
+                 weight_decay: float = WEIGHT_DECAY) -> None:
     """One AdamW step, in place on ``params`` and ``state``.  ``grads`` is a
     dict tree of the params' shape, or a list of its leaves in
     :func:`tree_leaves` order (what ``torch.autograd.grad`` returns)."""
@@ -94,6 +103,12 @@ def adamw_update(grads: Any, state: dict, params: Any) -> None:
         mu_hat = mu / bc1.to(mu.dtype)
         nu_hat = nu / bc2.to(nu.dtype)
         u = mu_hat / (torch.sqrt(nu_hat) + EPS)  # eps_root is 0
-        u = u + WEIGHT_DECAY * p
+        u = u + weight_decay * p
         p.add_((-LEARNING_RATE) * u)
 
+
+def adamw(weight_decay: float = WEIGHT_DECAY) -> tuple[Callable[[Any], dict], Callable[..., None]]:
+    """The ``(init, update)`` pair of ``optax.adamw(3e-4,
+    weight_decay=weight_decay)``: :func:`adamw_init` and
+    :func:`adamw_update` with that decay."""
+    return adamw_init, functools.partial(adamw_update, weight_decay=weight_decay)

@@ -21,7 +21,8 @@ card).  The reference's ``simple_mesh`` and ``rank_mesh`` have nothing to
 map onto: they build ``jax.sharding.Mesh`` objects for GSPMD, which places
 arrays over the devices it sees; here each rank holds its own slices and
 the sums across ranks are explicit all-reduces.  Meshes for training over
-several ranks (dp, sp, ep, pp) come with ROADMAP A9 and A11.
+several ranks (dp, tp, sp, ep, pp) come with ROADMAP A9b, A14, A12 and
+A11.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import datetime
 import math
 import threading
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
@@ -83,7 +84,8 @@ class MeshSpec:
 # the rank group of a tensor-parallel gang
 # ---------------------------------------------------------------------------
 
-#: the address rank 0's rendezvous store listens on: gang members share a host
+#: the address rank 0 advertises for its rendezvous store by default: the
+#: gang's members share a host
 STORE_HOST = "127.0.0.1"
 
 
@@ -161,13 +163,19 @@ class TPGroup:
         return cls(rank=rank, size=size, pg=pg, backend=backend, device=device)
 
 
-def open_store(size: int, *, timeout_s: float) -> tuple[Any, str]:
+def open_store(size: int, *, timeout_s: float,
+               advertise_host: Optional[str] = None) -> tuple[Any, str]:
     """Rank 0's rendezvous store: a ``TCPStore`` server on an ephemeral
-    port of :data:`STORE_HOST`.  Returns the store and its ``host:port``,
-    which rank 0 hands its peers (the gang's ``ready`` message)."""
+    port.  Returns the store and the ``host:port`` rank 0 hands its peers
+    (the gang's ``ready`` message), naming ``advertise_host`` (default
+    :data:`STORE_HOST`): a gang whose ranks live on other hosts advertises
+    an address they can route to.  torch's server listens on every
+    interface of the host, whatever host name the store is given (that
+    name is only where rank 0's own client connects), so the store is
+    reachable at any of the host's addresses."""
     store = dist.TCPStore(STORE_HOST, 0, size, True, datetime.timedelta(seconds=timeout_s),
                           wait_for_workers=False)
-    return store, f"{STORE_HOST}:{store.port}"
+    return store, f"{advertise_host or STORE_HOST}:{store.port}"
 
 
 def connect_store(addr: str, size: int, *, timeout_s: float) -> Any:

@@ -27,11 +27,19 @@ list).  The member then:
      reference does) would deadlock; followers replay the entries in
      ``seq`` order against their slices until the final marker.  The group
      is torn down on every exit: done, abort or cancel.
-   * **SPMD train** (``op: "train"``): every member runs the port's
-     :class:`~.training.TrainRunner` on its own card, as the reference's
-     members each run a replica on one device.  A pipeline train
-     (``model: "pipeline"`` or ``mesh.pp > 1``) fails the member, naming
-     ROADMAP A9: the MPMD stage programs are not ported.
+   * **SPMD train** (``op: "train"``, unless MPMD below): every member runs
+     the port's :class:`~.training.TrainRunner` on its own card (dense,
+     MoE or the one-device pipeline), as the reference's members each run
+     a replica on one device.
+   * **MPMD pipeline** (``op: "train"`` with ``mesh.pp`` equal to the gang's
+     size, size > 1): rank ``r`` owns stage ``r`` of a pipeline model
+     (rank 0 also embeds, the last rank owns the head and the loss).
+     Activations flow forward and cotangents back between neighbour ranks
+     as ``kind="stage"`` messages over the bus, addressed by tag to one
+     rank and carried as raw little-endian float32, in the fill/drain
+     GPipe schedule; autograd takes the place of ``jax.vjp``, and every
+     rank applies SGD to its own stage.  No collective: two workers that
+     share one card run it.
    * ``gang_test`` spins (``spin_s``) or fails the workers named in
      ``fail_workers``; any other op is barrier-only (``gang_echo``).
 
@@ -46,13 +54,16 @@ import collections
 import contextlib
 import dataclasses
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from ..device import DeviceLike, resolve_device
 from ..infra import logging as logx
-from ..models import llama
+from ..models import llama, pipeline
 from ..obs.capacity import serving_gang_block
+from ..optim import tree_leaves, tree_map
 from ..parallel.mesh import TPGroup, connect_store, open_store
 from ..protocol import subjects as subj
 from ..protocol.types import (
@@ -72,20 +83,19 @@ DEFAULT_RENDEZVOUS_TIMEOUT_S = 10.0
 DEFAULT_PEER_TIMEOUT_S = 30.0
 BEACON_INTERVAL_S = 0.25
 _DONE_CACHE_CAP = 128
-#: the refusal a pipeline (MPMD) train gang gets; ``member_failed`` makes
-#: the scheduler exclude the reporting worker from the retry
-PIPELINE_REFUSAL = ("member_failed:pipeline_unported: a pipeline (MPMD) train gang is not "
-                    "ported to this worker (ROADMAP A9: pipeline and MPMD gangs)")
+#: the wire dtype of MPMD stage tensors: raw little-endian float32
+WIRE_DTYPE = np.dtype("<f4")
 
 
 class GangAborted(Exception):
-    """The gang is over (peer abort / barrier timeout / cancel / refusal) —
-    unwind without publishing a member result."""
+    """The gang is over (peer abort / barrier timeout / cancel) — unwind
+    without publishing a member result."""
 
 
 class _GangSession:
     """One member's live view of its gang: the ready set, the abort latch,
-    rank 0's rendezvous store address and the replay stream."""
+    rank 0's rendezvous store address, the replay stream and the
+    tag-addressed mailboxes of MPMD stage traffic."""
 
     def __init__(self, gang_id: str, job_id: str, rank: int, size: int,
                  trace_id: str = "") -> None:
@@ -104,6 +114,9 @@ class _GangSession:
         # drained in seq order by the follower loop
         self.steps: collections.deque[GangMsg] = collections.deque()
         self.step_event = asyncio.Event()
+        # MPMD stage traffic (kind="stage"), one future a tag, made by
+        # whichever of the message and the recv comes first
+        self._mail: dict[str, asyncio.Future] = {}
 
     def on_msg(self, msg: GangMsg) -> None:
         if msg.kind in ("ready", "done", "step"):
@@ -121,10 +134,37 @@ class _GangSession:
         elif msg.kind == "abort":
             self.abort_reason = self.abort_reason or (msg.reason or "abort")
             self.abort.set()
+            for fut in self._mail.values():
+                if not fut.done():
+                    fut.set_exception(GangAborted(self.abort_reason))
+        elif msg.kind == "stage" and msg.to_rank == self.rank:
+            fut = self._mailbox(msg.tag)
+            if not fut.done():  # a redelivered message changes nothing
+                fut.set_result((bytes(msg.data or b""), [int(n) for n in msg.shape or []]))
+
+    def _mailbox(self, tag: str) -> asyncio.Future:
+        fut = self._mail.get(tag)
+        if fut is None:
+            fut = self._mail[tag] = asyncio.get_running_loop().create_future()
+        return fut
 
     def check_abort(self) -> None:
         if self.abort.is_set():
             raise GangAborted(self.abort_reason or "abort")
+
+    async def recv(self, tag: str, timeout_s: float) -> tuple[bytes, list[int]]:
+        """The stage message addressed to this rank by ``tag``, whether it
+        arrived before this call or arrives within ``timeout_s``: ``(data,
+        shape)``.  A peer's abort fails the wait at once; a peer that went
+        silent raises ``GangAborted("peer_timeout:<tag>")``."""
+        self.check_abort()
+        fut = self._mailbox(tag)
+        try:
+            return await asyncio.wait_for(asyncio.shield(fut), timeout_s)
+        except asyncio.TimeoutError:
+            raise GangAborted(f"peer_timeout:{tag}") from None
+        finally:
+            self._mail.pop(tag, None)
 
 
 def _is_serving(payload: Any) -> bool:
@@ -139,7 +179,9 @@ class GangRunner:
     ``params_provider(cfg)``, when given, returns the full weights a
     serving gang's ranks slice (the way ``GPUCompute`` takes
     ``llama_params``), else every rank draws them from the payload's
-    seed."""
+    seed.  ``store_host``, when set, is the address rank 0 advertises for
+    its rendezvous store (``WORKER_GANG_ADDR``: a gang whose ranks live on
+    other hosts), else ``127.0.0.1``."""
 
     def __init__(
         self,
@@ -150,6 +192,7 @@ class GangRunner:
         peer_timeout_s: float = DEFAULT_PEER_TIMEOUT_S,
         beacon_interval_s: float = BEACON_INTERVAL_S,
         params_provider: Optional[Callable[[Any], Any]] = None,
+        store_host: str = "",
     ) -> None:
         self.worker = worker
         self.trainer = trainer
@@ -157,6 +200,7 @@ class GangRunner:
         self.peer_timeout_s = peer_timeout_s
         self.beacon_interval_s = beacon_interval_s
         self.params_provider = params_provider
+        self.store_host = store_host
         self._sessions: dict[str, _GangSession] = {}
         self._tasks: set[asyncio.Task] = set()
         # live serving gangs this worker is a member of, keyed by gang id —
@@ -259,7 +303,8 @@ class GangRunner:
         try:
             if rank == 0 and size > 1 and _is_serving(payload):
                 store, ready_stats["store"] = await worker.run_in_executor(
-                    lambda: open_store(size, timeout_s=self.peer_timeout_s))
+                    lambda: open_store(size, timeout_s=self.peer_timeout_s,
+                                       advertise_host=self.store_host or None))
             beacon = asyncio.ensure_future(self._beacon_loop(session, trace_id, ready_stats))
             rdv_span = tracer.begin(
                 "gang-rendezvous", trace_id=trace_id,
@@ -372,10 +417,9 @@ class GangRunner:
         if _is_serving(payload):
             return await self._run_serving(session, ctx, payload, store)
         if op == "train":
-            mesh_req = payload.get("mesh") or {}
-            if str(payload.get("model", "")).startswith("pipeline") \
-                    or int(mesh_req.get("pp", 1) or 1) > 1:
-                raise GangAborted(PIPELINE_REFUSAL)
+            pp = int((payload.get("mesh") or {}).get("pp", 1) or 1)
+            if session.size > 1 and pp == session.size:
+                return await self._run_mpmd(session, ctx, payload)
             return await self._run_spmd(session, ctx, payload)
         if op == "gang_test":
             return await self._run_gang_test(session, ctx, payload)
@@ -413,6 +457,82 @@ class GangRunner:
             self._check(session, ctx)
             await asyncio.sleep(0.02)
         return {"op": "gang_test", "mode": "spin", "rank": session.rank, "spin_s": spin_s}
+
+    # ------------------------------------------------------------------
+    # MPMD pipeline: one stage per worker, activations over the bus
+    # ------------------------------------------------------------------
+    async def _run_mpmd(self, session: _GangSession, ctx, payload: dict) -> dict:
+        """This rank's stage of an MPMD pipeline gang (the reference's
+        ``_run_mpmd``, ``gang.py:698-790``): every microbatch forward
+        through the stage (fill), then every cotangent back (drain), the
+        gradients summed over the microbatches and one SGD step of ``lr /
+        microbatches``.  ``batch`` is rounded DOWN to the microbatch count,
+        as the reference rounds it."""
+        worker = self.worker
+        rank, size = session.rank, session.size
+        state = await worker.run_in_executor(
+            lambda: mpmd_state(mpmd_draw(payload, size), rank, size, mpmd_base(),
+                               worker.device))
+        steps = int(payload.get("steps", 1) or 1)
+        micro = max(1, int(payload.get("microbatches", 1) or 1))
+        batch = int(payload.get("batch", 4) or 4)
+        batch = max(micro, (batch // micro) * micro)
+        seq = int(payload.get("seq", 16) or 16)
+        lr = float(payload.get("lr", 1e-3) or 1e-3)
+        losses: list[float] = []
+        for step in range(steps):
+            self._check(session, ctx)
+            # every rank draws the same tokens: only activations and
+            # cotangents cross the wire, never the batch
+            mbs = mpmd_tokens(step, batch, seq, state["vocab"]).reshape(micro, batch // micro, seq)
+            graphs: list[Any] = []
+            grads: list[torch.Tensor] = []
+            mb_losses: list[float] = []
+            for m in range(micro):  # fill
+                x = None
+                if rank > 0:
+                    x = from_wire(*await session.recv(f"fwd:{step}:{m}:{rank}",
+                                                      self.peer_timeout_s))
+                out = await worker.run_in_executor(
+                    lambda x=x, m=m: mpmd_forward(state, mbs[m], x))
+                graphs.append(out)
+                if rank == size - 1:
+                    mb_losses.append(out[0])
+                else:
+                    await self._send_stage(session, f"fwd:{step}:{m}:{rank + 1}", rank + 1, out[0])
+            for m in range(micro):  # drain
+                if rank == size - 1:
+                    _, g_params, g_x = graphs[m]
+                else:
+                    g_y = from_wire(*await session.recv(f"bwd:{step}:{m}:{rank}",
+                                                        self.peer_timeout_s))
+                    g_params, g_x = await worker.run_in_executor(
+                        lambda g=graphs[m][1], g_y=g_y: mpmd_backward(g, g_y))
+                graphs[m] = None  # this microbatch's graph and activations go
+                if rank > 0:
+                    await self._send_stage(session, f"bwd:{step}:{m}:{rank - 1}", rank - 1, g_x)
+                grads = [a + b for a, b in zip(grads, g_params)] if grads else g_params
+            await worker.run_in_executor(lambda g=grads: mpmd_sgd(state, g, lr / micro))
+            if mb_losses:
+                losses.append(sum(mb_losses) / len(mb_losses))
+        return {
+            "mode": "mpmd",
+            "rank": rank,
+            "steps_done": steps,
+            "mesh": {"pp": size, "dp": 1},
+            "microbatches": micro,
+            "loss": losses[-1] if losses else None,
+            "loss_first": losses[0] if losses else None,
+        }
+
+    async def _send_stage(self, session: _GangSession, tag: str, to_rank: int,
+                          arr: np.ndarray) -> None:
+        await self._publish(session.gang_id, GangMsg(
+            gang_id=session.gang_id, job_id=session.job_id, kind="stage",
+            rank=session.rank, to_rank=to_rank, tag=tag,
+            data=arr.tobytes(), shape=list(arr.shape),
+            worker_id=self.worker.worker_id,
+        ), session.trace_id)
 
     # ------------------------------------------------------------------
     # serving gangs: tensor-parallel ragged serving over the gang
@@ -675,6 +795,123 @@ class GangRunner:
                 return
             with contextlib.suppress(asyncio.TimeoutError):
                 await asyncio.wait_for(session.step_event.wait(), 0.1)
+
+
+# ---------------------------------------------------------------------------
+# MPMD stage math (blocking calls for the worker's executor threads)
+# ---------------------------------------------------------------------------
+
+
+class StageGraph(NamedTuple):
+    """A microbatch's forward through a stage, kept until its cotangent
+    arrives: the stage output and what its gradient is taken for (the
+    stage's param leaves, then the received activation on ranks past 0)."""
+
+    y: torch.Tensor
+    inputs: list
+    with_input: bool
+
+
+def mpmd_base() -> llama.LlamaConfig:
+    """The model an MPMD gang trains: ``LlamaConfig.tiny()`` in fp32, as the
+    reference builds it."""
+    return dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32)
+
+
+def mpmd_draw(payload: dict, size: int) -> dict:
+    """The full stacked pipeline params every rank draws alike, from a CPU
+    ``torch.Generator`` seeded with the payload's ``seed``: a generator on a
+    card draws other numbers than one on the CPU, so ranks on different
+    devices would train different models with no error.  ``ValueError`` when
+    the layers do not split into ``size`` stages."""
+    base = mpmd_base()
+    if base.n_layers % size:
+        raise ValueError(f"pipeline needs n_layers {base.n_layers} divisible by pp={size}")
+    cfg = pipeline.PipelineConfig(base=base, n_stages=size, n_microbatches=1)
+    gen = torch.Generator().manual_seed(int(payload.get("seed", 0) or 0))
+    return pipeline.init_params(cfg, generator=gen, device="cpu")
+
+
+def mpmd_tokens(step: int, batch: int, seq: int, vocab: int) -> torch.Tensor:
+    """Step ``step``'s batch ``[batch, seq]``, the same on every rank: from a
+    CPU generator seeded ``1000 + step`` (the reference's key)."""
+    gen = torch.Generator().manual_seed(1000 + step)
+    return torch.randint(0, vocab, (batch, seq), generator=gen)
+
+
+def mpmd_state(full: dict, rank: int, size: int, base: llama.LlamaConfig,
+               device: DeviceLike) -> dict:
+    """Rank ``rank``'s slice of ``full`` (stacked pipeline params): its
+    stage's leaves, the embedding on rank 0, the final norm and the head on
+    the last rank, as leaves that require grad on ``device``."""
+    params: dict = {"stage": pipeline.layer_views(full["stages"])[rank]}
+    if rank == 0:
+        params["embed"] = full["embed"]
+    if rank == size - 1:
+        params["final_norm"] = full["final_norm"]
+        params["lm_head"] = full["lm_head"]
+    dev = resolve_device(device)
+    params = tree_map(lambda t: t.detach().to(dev, copy=True).requires_grad_(True), params)
+    return {"params": params, "base": base, "vocab": base.vocab_size, "rank": rank,
+            "size": size, "device": dev}
+
+
+def to_wire(t: torch.Tensor) -> np.ndarray:
+    """A stage tensor as the wire carries it: little-endian float32."""
+    return t.detach().to("cpu", torch.float32).numpy().astype(WIRE_DTYPE, copy=False)
+
+
+def from_wire(data: bytes, shape: list[int]) -> np.ndarray:
+    return np.frombuffer(data, WIRE_DTYPE).reshape(shape)
+
+
+def mpmd_forward(state: dict, tokens_mb: torch.Tensor, x_in: Optional[np.ndarray]):
+    """One microbatch through this rank's stage (the reference's
+    ``_mpmd_forward``), on the state's device:
+
+    * rank 0: ``(activation, graph)``, the graph for the params only;
+    * middle ranks: ``(activation, graph)`` for the params and the input;
+    * the last rank: ``(loss, param grads, input cotangent)``: the backward
+      starts here, so the loss and both gradients come from one call.
+
+    Activations and cotangents are wire arrays (:func:`to_wire`)."""
+    params, base, dev = state["params"], state["base"], state["device"]
+    rank, size = state["rank"], state["size"]
+    tokens = tokens_mb.to(dev)
+    mb, t = tokens.shape
+    positions = torch.arange(t, dtype=torch.int32, device=dev).expand(mb, t)
+    leaves = tree_leaves(params)
+    with torch.enable_grad():
+        if rank == 0:
+            x = params["embed"][tokens.long()].float()
+        else:
+            x = torch.from_numpy(np.array(x_in, np.float32)).to(dev).requires_grad_(True)
+        y = pipeline._stage_apply(params["stage"], x, positions, base)
+        if rank < size - 1:
+            inputs = leaves if rank == 0 else [*leaves, x]
+            return to_wire(y), StageGraph(y, inputs, rank > 0)
+        loss = pipeline.microbatch_nll(y, tokens, params, base) / (mb * (t - 1))
+        *g_params, g_x = torch.autograd.grad(loss, [*leaves, x])
+    return float(loss.detach()), g_params, to_wire(g_x)
+
+
+def mpmd_backward(graph: StageGraph, g_y: np.ndarray):
+    """Pull the received cotangent through this rank's forward: ``(param
+    grads, input cotangent)``, the cotangent ``None`` on rank 0.  The graph
+    is freed."""
+    g = torch.from_numpy(np.array(g_y, np.float32)).to(graph.y.device, graph.y.dtype)
+    grads = list(torch.autograd.grad(graph.y, graph.inputs, grad_outputs=g))
+    if not graph.with_input:
+        return grads, None
+    g_x = grads.pop()
+    return grads, to_wire(g_x)
+
+
+@torch.no_grad()
+def mpmd_sgd(state: dict, grads: list[torch.Tensor], lr: float) -> None:
+    """``p -= lr * g`` on this rank's leaves, in place."""
+    for p, g in zip(tree_leaves(state["params"]), grads):
+        p.sub_(lr * g)
 
 
 __all__ = ["GangRunner", "GangAborted"]

@@ -276,13 +276,10 @@ def make_gpu_handlers(compute: GPUCompute):
                 "(plus optional session_id/max_new_tokens/eos_token/stream)"
             )
         if op == "train":
-            try:  # a family this worker cannot train fails here, not on the executor
+            try:  # an unknown family fails here, not on the executor
                 model_config(str(payload.get("model", "llama-tiny")))
             except ValueError as e:
-                raise HandlerError(
-                    f"train: {e}; this worker trains the llama and moe families "
-                    "(ROADMAP A7, A8)"
-                ) from None
+                raise HandlerError(f"train: {e}") from None
             # the runner's loop runs on the worker's executor (threads pinned
             # to the worker's device); progress goes back to the loop, and
             # the cancel event is read before each step
@@ -511,13 +508,15 @@ def attach_default_gpu_worker(
     gang: bool = True,
     gang_rendezvous_timeout_s: float = 10.0,
     gang_peer_timeout_s: float = 30.0,
+    gang_addr: str = "",
     metrics=None,
     **kw,
 ) -> GPUCompute:
     """Wire the standard op handlers (and, by default, the micro-batcher
     over the batchable ops, the llm.generate serving engine and the gang
-    runner for gang member jobs) onto a worker, on the worker's device.
-    ``kw`` goes to :class:`GPUCompute` (configs, ``seed``, injected
+    runner for gang member jobs, advertising ``gang_addr`` for a serving
+    gang's rendezvous store when set) onto a worker, on the worker's
+    device.  ``kw`` goes to :class:`GPUCompute` (configs, ``seed``, injected
     params)."""
     compute = GPUCompute(device=worker.device, **kw)
     worker.register_default(make_gpu_handlers(compute))
@@ -550,5 +549,6 @@ def attach_default_gpu_worker(
             trainer=TrainRunner(ckpt_root=compute.ckpt_root, device=compute.device),
             rendezvous_timeout_s=gang_rendezvous_timeout_s,
             peer_timeout_s=gang_peer_timeout_s,
+            store_host=gang_addr,
         ), metrics=metrics)
     return compute

@@ -15,11 +15,14 @@ Job payload (the reference's keys)::
      "mesh": {"tp": 1, "sp": 1}, "microbatches": 2}
 
 Families: ``llama-tiny`` is ``LlamaConfig.tiny()``, ``llama`` is
-``LlamaConfig()``, ``moe`` and ``moe-tiny`` are both ``MoEConfig.tiny()``
-(as the reference builds them); ``pipeline*`` is not ported yet (ROADMAP
-A9) and raises ``ValueError``, as an unknown family does.  One card, so
-every mesh axis resolves to 1 (``tp``, ``sp`` and, for MoE, ``ep`` through
-the reference's ``safe``).
+``LlamaConfig()``, ``moe`` and ``moe-tiny`` are both ``MoEConfig.tiny()``,
+``pipeline*`` is ``PipelineConfig(base=LlamaConfig.tiny(), n_stages=pp,
+n_microbatches=microbatches)`` (as the reference builds them); an unknown
+family raises ``ValueError``.  One card, so every mesh axis resolves to 1
+(``tp``, ``sp``, for MoE ``ep`` and for the pipeline ``pp``, through the
+reference's ``safe``): the pipeline runs its microbatched schedule on the
+card.  Its batch is rounded up to ``dp × microbatches`` and microbatched
+before the step.
 
 Where the port departs from the reference on purpose:
 
@@ -48,7 +51,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..infra import logging as logx
-from ..models import llama, moe
+from ..models import llama, moe, pipeline
 from ..optim import tree_map
 from ..parallel.mesh import MeshSpec
 
@@ -121,16 +124,18 @@ def _restored_like(template: Any, value: Any) -> Any:
     return [_restored_like(t, v) for t, v in zip(template, value)]
 
 
-def model_config(model: str) -> "llama.LlamaConfig | moe.MoEConfig":
-    """The configuration of a ported model family; ``ValueError`` for the
-    families still to port and for unknown ones."""
+def model_config(model: str, *, pp: int = 1, microbatches: int = 2
+                 ) -> "llama.LlamaConfig | moe.MoEConfig | pipeline.PipelineConfig":
+    """The configuration of a model family (``pp`` and ``microbatches``: a
+    pipeline's stages and microbatches); ``ValueError`` for an unknown
+    family."""
     if model.startswith("llama"):
         return llama.LlamaConfig.tiny() if "tiny" in model else llama.LlamaConfig()
     if model.startswith("moe"):
         return moe.MoEConfig.tiny()
     if model.startswith("pipeline"):
-        raise ValueError(f"model family {model!r} is not ported to this worker yet "
-                         "(ROADMAP A9: pipeline and MPMD gangs)")
+        return pipeline.PipelineConfig(base=llama.LlamaConfig.tiny(), n_stages=pp,
+                                       n_microbatches=microbatches)
     raise ValueError(f"unknown model family {model!r}")
 
 
@@ -144,8 +149,10 @@ class TrainRunner:
 
     # -- model family registry ------------------------------------------
     def _build(self, payload: dict):
+        """``(init, step, mesh, vocab, model, microbatches)`` of the job's
+        family; ``microbatches`` is the pipeline's count, ``None`` for a
+        family whose step takes the batch whole."""
         model = str(payload.get("model", "llama-tiny"))
-        cfg = model_config(model)
         mesh_req = payload.get("mesh") or {}
         n_dev = 1  # one card
 
@@ -153,14 +160,19 @@ class TrainRunner:
             n = int(n)
             return n if n > 0 and n_dev % n == 0 else 1
 
-        tp, sp, ep = (safe(mesh_req.get(k, 1)) for k in ("tp", "sp", "ep"))
+        tp, sp, ep, pp = (safe(mesh_req.get(k, 1)) for k in ("tp", "sp", "ep", "pp"))
+        cfg = model_config(model, pp=pp, microbatches=int(payload.get("microbatches", 2)))
+        if isinstance(cfg, pipeline.PipelineConfig):
+            mesh = MeshSpec(dp=-1, pp=pp).resolve(n_dev)
+            init, step = pipeline.make_train_step(cfg, device=self.device)
+            return init, step, mesh, cfg.base.vocab_size, model, cfg.n_microbatches
         if isinstance(cfg, moe.MoEConfig):
             mesh = MeshSpec(dp=-1, tp=tp, ep=ep).resolve(n_dev)
             init, step = moe.make_train_step(cfg, device=self.device)
-            return init, step, mesh, cfg.base.vocab_size, model
+            return init, step, mesh, cfg.base.vocab_size, model, None
         mesh = MeshSpec(dp=-1, tp=tp, sp=sp).resolve(n_dev)
         init, step = llama.make_train_step(cfg, device=self.device)
-        return init, step, mesh, cfg.vocab_size, model
+        return init, step, mesh, cfg.vocab_size, model, None
 
     # -- the loop --------------------------------------------------------
     def train(self, payload: dict, *, cancelled: Optional[Callable[[], bool]] = None,
@@ -168,12 +180,13 @@ class TrainRunner:
         """Runs synchronously (call from the worker executor thread).
         ``cancelled``: callable → bool, checked before each step;
         ``progress``: callable(frac, msg), called after each step."""
-        init, step, mesh, vocab, model = self._build(payload)
+        init, step, mesh, vocab, model, mb = self._build(payload)
         steps = int(payload.get("steps", 10))
         dp = mesh["dp"]
         batch = int(payload.get("batch", max(2, dp * 2)))
-        # batch must divide dp: round up (no pipeline microbatches here)
-        batch = max(dp, ((batch + dp - 1) // dp) * dp)
+        # batch must divide dp (and microbatches for pipeline): round up
+        quantum = dp * (mb or 1)
+        batch = max(quantum, ((batch + quantum - 1) // quantum) * quantum)
         seq = int(payload.get("seq", 32))
         ckpt_every = int(payload.get("checkpoint_every", 0))
         run_name = str(payload.get("run_name", "default"))
@@ -205,6 +218,8 @@ class TrainRunner:
                 1000 if fixed_batch else 1000 + i)
             tokens = torch.randint(0, vocab, (batch, seq), generator=gen, device=self.device,
                                    dtype=torch.int32)
+            if mb is not None:
+                tokens = pipeline.microbatch(tokens, mb)
             params, opt_state, loss = step(params, opt_state, tokens)
             losses.append(float(loss))
             if ckpt is not None and (i + 1) % ckpt_every == 0:

@@ -268,7 +268,7 @@ def test_corrupt_checkpoint_starts_fresh_with_a_warning(tmp_path, caplog, corrup
     assert ckpt.latest_step() == 4  # step 2 saved beside it; 4 is still the newest
 
 
-@pytest.mark.parametrize("model, roadmap", [("pipeline", "A9"), ("gpt", "unknown")])
+@pytest.mark.parametrize("model, roadmap", [("gpt", "unknown")])
 def test_unported_families_raise(tmp_path, model, roadmap):
     runner = TrainRunner(ckpt_root=str(tmp_path), device=CPU)
     with pytest.raises(ValueError, match=roadmap):
@@ -360,8 +360,8 @@ def test_batch_defaults_and_rounding(tmp_path):
     build = runner._build
 
     def with_spy(payload):
-        init, _, mesh, vocab, model = build(payload)
-        return init, spy, mesh, vocab, model
+        init, _, *rest = build(payload)
+        return (init, spy, *rest)
 
     runner._build = with_spy
     runner.train({"model": "llama-tiny", "steps": 1, "seq": 8})
@@ -389,7 +389,8 @@ def test_import_scan_covers_the_training_slice():
     mods = {m.name for m in pkgutil.walk_packages(cordum_tpu_torch.__path__,
                                                    "cordum_tpu_torch.")}
     assert {"cordum_tpu_torch.parallel.mesh", "cordum_tpu_torch.optim",
-            "cordum_tpu_torch.worker.training",
+            "cordum_tpu_torch.worker.training", "cordum_tpu_torch.models.pipeline",
+            "cordum_tpu_torch.worker.gang",
             "cordum_tpu_torch.ops.dense_attention"} <= mods
 
 

@@ -118,22 +118,12 @@ async def test_op_table_matches_reference(computes, payload):
     ({"op": "llm.generate", "tokens": [1, 2]}, "requires the serving engine"),
     ({"op": "nope"}, "unknown op"),
     ({"op": "embed", "texts": "not a list"}, "requires texts"),
-    ({"op": "train", "model": "pipeline"}, "ROADMAP A7"),
+    ({"op": "train", "model": "gpt"}, "unknown model family 'gpt'"),
 ])
 async def test_op_table_errors(computes, payload, match):
     _, tc = computes
     with pytest.raises(th.HandlerError, match=match):
         await _call(th.make_gpu_handlers(tc), trt.JobContext, tt.JobRequest, payload)
-
-
-@pytest.mark.parametrize("model, item", [("pipeline", "ROADMAP A9")])
-async def test_train_op_names_the_roadmap_item_of_an_unported_family(computes, model, item):
-    """A family the port cannot train yet fails at intake, naming the item
-    that will port it beside the families it trains (llama, A7; moe, A8)."""
-    _, tc = computes
-    with pytest.raises(th.HandlerError, match=f"{item}.*ROADMAP A7, A8"):
-        await _call(th.make_gpu_handlers(tc), trt.JobContext, tt.JobRequest,
-                    {"op": "train", "model": model})
 
 
 @pytest.mark.parametrize("model", ["moe", "moe-tiny"])
