@@ -93,8 +93,9 @@ Every phase raises on failure.  Phases:
    versions and the library calls (``index_select`` for the dispatch,
    ``embedding_bag`` for d_out, the combine and the dispatch backward; no
    one call computes the route or d_w), and each row's device us per CUDA
-   kernel (the route's pick and place launches apart).  (2) An fp32
-   oracle at those
+   kernel (the route's pick and place launches apart); then the token
+   gathers at k 36 of E 40 (more than 32 kept slots a token) to their
+   n-term bound (``check_token_gathers``).  (2) An fp32 oracle at those
    widths, depth cut to 2 layers, B 2, T 256: ``moe.loss_fn`` and every
    gradient on the kernel path (B7 + B9) against the plain path, one copy
    of the params, no optimizer step; at capacity factor 1.25 and again at
@@ -168,6 +169,28 @@ Every phase raises on failure.  Phases:
     and said so, where it has none), and a serving gang job whose store
     rank 0 advertises there must be token-identical to the dense greedy
     run; SIGTERM drains both.
+12. Multi-rank training over a rank mesh (``TrainMesh``), once phase 11
+    is done: rank processes of this script (``--train-rank``), each
+    joining the mesh at a TCPStore, drawing its slice of the one-process
+    weights from the seed and taking the whole batch; every leg's
+    one-process step runs first on card 0 and is freed (its losses, first
+    gradients and last params written to files the ranks read), and each
+    rank is held to it.  (1) The pipeline at pp 2 x dp 1, 11.1's
+    configuration (fp32, Llama-3-8B widths, ``reduced``: n_layers 32 ->
+    2; M 2, B 2, T 256), one AdamW step, two processes sharing the card
+    over gloo.  (2) dp 2 x pp 2, fp32, ``LlamaConfig.tiny()`` with 4
+    layers, M 2, B 4, T 64, 3 steps on one batch, four processes; the
+    loss falls.  Every rank's B9 launches = its stage's layers x
+    microbatches x steps.  ``--cards`` (:func:`cards_train_legs`), one
+    rank a card over NCCL: (3) fp32 at 8B widths, 4 layers, B 4, T 256,
+    one step: pp 4 (M 4), dp 2 x pp 2 (M 2) and dense dp 4, each held to
+    its one-process step; (4) bf16 Llama-3-8B at all 32 layers, 8192
+    tokens a step (B 4, T 2048), 10 steps on one batch at pp 4 (M 4) and
+    dp 2 x pp 2 (M 2): the loss falls; step p50, tokens/s, tokens/s a
+    card, peak memory and host time in the collectives a rank, two steps
+    profiled on the first and last stage beside the bubble model; (5)
+    phase 7.3's run on card 0, then dense dp 4 at 7.3's configuration a
+    rank.
 
 Tolerances (kernel vs plain version, max abs error), paged attention:
 fp32 1e-4 — the sums run in another order over up to 8192 keys, on O(1)
@@ -216,11 +239,21 @@ in another order rounded once to the dtype, within 2^-22 of the sum of the
 terms' magnitudes plus one ulp of the dtype (2^-7 bf16, 2^-23 fp32,
 relative to the plain value); d_w, a D-long fp32 dot in another order,
 within 1e-4 of the sum of its products' magnitudes (two orders' worst case
-2 D 2^-24 = 4.9e-4 at D 4096, typical sqrt(D) 2^-24 = 3.8e-6).  fp32 MoE
+2 D 2^-24 = 4.9e-4 at D 4096, typical sqrt(D) 2^-24 = 3.8e-6).  At k 36
+the three token gathers are held to a bound for n terms instead
+(``moe_sum_limit``): per order n - 1 roundings of the running sum plus one
+of each product, each within 2^-24 of the terms' magnitudes, twice that
+for two orders, plus one ulp of the dtype; n is k for the two sums, D for
+d_w.  fp32 MoE
 oracle: the loss within 1e-5 relative, each gradient within 1e-4 of its
 largest |value| (B9's fp32 gate).  The fp32 pipeline oracle (phase 11)
 holds its loss and gradients to the same two gates; an MPMD gang's first
-loss is held to the one-process loss within 1e-5 relative.
+loss is held to the one-process loss within 1e-5 relative.  Phase 12's
+ranks against their one-process step: each loss within 1e-6 relative,
+each first-step gradient within 1e-4 of its largest |value| (11.1's
+gate: the token sums split at other places when dp cuts the rows), each
+param after the last step within 2 lr a step (an Adam update is about lr
+sign(g)); every rank returns the same losses.
 
 Near-tie rule of phase 3, fixed before any run: tokens are compared up to
 the first generated position where the oracle's top-2 logits differ by
@@ -2207,6 +2240,68 @@ def check_moe(torch, case, tag):
     return route, w, errs
 
 
+#: C3, the token gathers at any k (a token's kept slots): an fp32 sum of n
+#: terms in another order than the plain version's.  Per order, n - 1
+#: roundings of the running sum plus one of each product (an FMA skips it),
+#: each within 2^-24 of the terms' magnitudes; two orders apart by twice
+#: that; then the final cast to the dtype, one ulp of it (``MOE_ULP``).
+MOE_TERM_ROUNDING = 2.0**-24
+
+
+def moe_sum_limit(n_terms, mag, want, name):
+    """:data:`MOE_TERM_ROUNDING`'s bound on the difference of two fp32 sums
+    of ``n_terms`` terms whose magnitudes sum to ``mag``, cast to the
+    dtype ``name``: ``MOE_ULP[name] |want| + 2 n 2^-24 mag``."""
+    return MOE_ULP[name] * want.float().abs() + 2 * n_terms * MOE_TERM_ROUNDING * mag
+
+
+def check_token_gathers(torch, case, tag):
+    """C3: B7's three token gathers on one case, through their counted
+    wrappers on the case's route (``moe_route``: the kernel's on a card):
+    the combine forward and the dispatch backward (sums of a token's k
+    kept slots) and d_w (a D-long dot a slot), each against the plain
+    version (autograd of the reference's einsums) within
+    :func:`moe_sum_limit`.  Returns each one's max abs error and its worst
+    share of its limit."""
+    from cordum_tpu_torch.ops import moe_dispatch as md
+
+    probs, k, cap = case["probs"], case["k"], case["cap"]
+    tokens, expert_out, dy, d_ei = (case[x] for x in ("tokens", "expert_out", "dy", "d_ei"))
+    name = str(tokens.dtype).split(".")[-1]
+    route = md.moe_route(probs, k, cap)
+    w = routing_weights(torch, probs, route)
+    got = {"moe_token_gather": md.moe_token_gather(expert_out, route, w),
+           "moe_token_sum": md.moe_token_sum(d_ei, route),
+           "moe_token_dot": md.moe_token_dot(dy, expert_out, route)}
+    tok_p, out_p, w_p = (x.clone().requires_grad_() for x in (tokens, expert_out, w))
+    (d_tokens_p,) = torch.autograd.grad(md.moe_dispatch_reference(tok_p, route), tok_p, d_ei)
+    y_p = md.moe_combine_reference(out_p, w_p, route)
+    d_w_p = torch.autograd.grad(y_p, w_p, dy)[0]
+    rows = kept_rows(torch, expert_out, route).abs()
+    want = {
+        "moe_token_gather": (y_p.detach(), k, (rows * w.abs()[..., None]).sum(1)),
+        "moe_token_sum": (d_tokens_p, k, kept_rows(torch, d_ei, route).abs().sum(1)),
+        "moe_token_dot": (d_w_p, tokens.shape[1], (rows * dy.float().abs()[:, None, :]).sum(-1)),
+    }
+    out = {}
+    for mode, (plain, n_terms, mag) in want.items():
+        diff = (got[mode].float() - plain.float()).abs()
+        limit = moe_sum_limit(n_terms, mag, plain, "float32" if mode == "moe_token_dot"
+                              else name)
+        share = (diff / limit.clamp_min(1e-38)).max().item()
+        if not torch.isfinite(got[mode]).all() or not (diff <= limit).all():
+            worst = (diff - limit).argmax()
+            raise AssertionError(
+                f"moe {MOE_KERNELS[mode]} ({tag}): error {diff.flatten()[worst].item():.3e} "
+                f"beyond the {n_terms}-term bound {limit.flatten()[worst].item():.3e}")
+        out[mode] = (diff.max().item(), share)
+    log(f"[moe-wide] {tag}: N {tokens.shape[0]}, D {tokens.shape[1]}, E {probs.shape[1]}, k "
+        f"{k}, {int(route.keep.sum(1).max())} kept slots at most a token: " + ", ".join(
+            f"{MOE_KERNELS[m]} max abs err {e:.3e} ({share:.3f} of its bound)"
+            for m, (e, share) in out.items()))
+    return out
+
+
 def moe_work_of(route, n, d, e, cap, k, el):
     """(bytes, operations) of each B7 launch mode on this route: each input
     read once and each output written once, counting only the rows this
@@ -2346,6 +2441,9 @@ def phase_moe_kernel(torch, dev, card):
         name = str(dtype).split(".")[-1]
         for kernel, res in measure_moe(torch, dev, card, dtype, flush).items():
             rows.setdefault(kernel, {})[name] = res
+        # the token gathers above 32 kept slots a token, to their n-term bound
+        check_token_gathers(torch, moe_case(torch, dev, dtype, n=200, d=64, e=40, k=36,
+                                            seed=11), f"k 36 of E 40, {name}")
     del flush_buf
     return rows
 
@@ -3055,13 +3153,15 @@ def check_gang_oracle_ranks(card, ranks, oracle, served, *, where):
 
 
 def main_cards() -> int:
-    """``python3 chip_smoke.py --cards``, on a host with two or more cards,
-    one rank a card (NCCL), at tp 2 and, with four cards, tp 4: phase 3's
-    fp32 oracle on one card, then the fp32 gang of rank processes on its
-    weights and prompts, its tokens held to the oracle and to one rank
-    (:func:`check_gang_oracle_ranks`); then phase 4's serving run on one
-    card and phase 10.3's bf16 gang, with 10.3's gates (no token gate in
-    bf16, no speed gate).  Ends with the card line and the ``{"ok": true,
+    """``python3 chip_smoke.py --cards [--legs train,gang]``, on a host with
+    two or more cards, one rank a card (NCCL).  ``train``, with four
+    cards: phase 12.3-12.5 (:func:`cards_train_legs`).  ``gang``: at tp 2 and, with
+    four cards, tp 4: phase 3's fp32 oracle on one card, then the fp32 gang
+    of rank processes on its weights and prompts, its tokens held to the
+    oracle and to one rank (:func:`check_gang_oracle_ranks`); then phase
+    4's serving run on one card and phase 10.3's bf16 gang, with 10.3's
+    gates (no token gate in bf16, no speed gate).  Both legs unless
+    ``--legs`` names one.  Ends with the card line and the ``{"ok": true,
     ...}`` line, as the default run does."""
     import torch
 
@@ -3070,6 +3170,9 @@ def main_cards() -> int:
         return 2
     from cordum_tpu_torch.models import llama
 
+    legs = ("train", "gang")
+    if "--legs" in sys.argv:
+        legs = tuple(sys.argv[sys.argv.index("--legs") + 1].split(","))
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3077,9 +3180,28 @@ def main_cards() -> int:
     ).stdout.strip().splitlines()
     n = torch.cuda.device_count()
     card = f"{n} x {smi[0]}"
-    log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; legs {legs}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     build_kernels()
+    if "train" in legs:
+        if n < 4:
+            raise AssertionError(f"the training legs need four cards, this host has {n}")
+        cards_train_legs(torch, dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "gang" in legs:
+        cards_gang_legs(torch, dev, card, n)
+    print("\n".join(smi))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
+    return 0
+
+
+def cards_gang_legs(torch, dev, card, n):
+    """The serving gangs of :func:`main_cards`."""
+    from cordum_tpu_torch.models import llama
+
     tps = [tp for tp in (2, 4) if tp <= n]
     cfg32 = gang_rank_config(torch, llama, True, True)
     _, params, _, oracle, served = phase_oracle(torch, dev, card, cfg32)
@@ -3101,10 +3223,50 @@ def main_cards() -> int:
             raise AssertionError(f"tp{tp} over {tp} cards chose {ranks[0]['collective']}")
         check_gang_ranks(dev, card, ranks, single, n_new=32, where=f"{tp} cards",
                          tag="gang-cards")
-    print("\n".join(smi))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
-    return 0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def cards_train_legs(torch, dev, card):
+    """Phase 12 on four cards, one rank process a card over NCCL (every
+    leg must choose it).  12.3: fp32 at Llama-3-8B widths, 4 layers, B 4,
+    T 256, one AdamW step: pp 4 (M 4), dp 2 x pp 2 (M 2) and dense dp 4,
+    each held to its one-process step on card 0, run first and freed.
+    12.4: bf16 Llama-3-8B at all 32 layers, 8192 tokens a step (B 4, T
+    2048), 10 steps on one batch: pp 4 (M 4) and dp 2 x pp 2 (M 2); the
+    loss falls; step p50, tokens/s, peak memory, host time in the
+    collectives, and two profiled steps on the first and the last stage.
+    12.5: phase 7.3's bf16 run on card 0, then dense dp 4 at 7.3's
+    configuration a rank (2 layers, B 4 a rank, T 2048)."""
+    from cordum_tpu_torch.models import llama
+
+    gates = [mesh_job("pipeline", 1, 4, m=4, widths="8b", layers=4, dtype="float32", batch=4,
+                      seq=256, steps=1),
+             mesh_job("pipeline", 2, 2, m=2, widths="8b", layers=4, dtype="float32", batch=4,
+                      seq=256, steps=1),
+             mesh_job("llama", 4, 1, widths="8b", layers=4, dtype="float32", batch=4, seq=256,
+                      steps=1)]
+    for job in gates:
+        mesh_leg(torch, dev, card, job, oracle=True, collective="nccl", tag="mesh-cards")
+    for dp, pp, m in ((1, 4, 4), (2, 2, 2)):
+        job = mesh_job("pipeline", dp, pp, m=m, widths="8b", layers=32, dtype="bfloat16",
+                       batch=4, seq=2048, steps=10, profile=True)
+        docs, _ = mesh_leg(torch, dev, card, job, oracle=False, collective="nccl", falling=True,
+                           tag="mesh-8b")
+        mesh_numbers(card, job, docs, tag="mesh-8b")
+    _, one = phase_train_bf16(torch, dev, card,
+                              dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2))
+    gc.collect()
+    torch.cuda.empty_cache()
+    job = mesh_job("llama", 4, 1, widths="8b", layers=2, dtype="bfloat16", batch=16, seq=2048,
+                   steps=10, profile=True)
+    docs, _ = mesh_leg(torch, dev, card, job, oracle=False, collective="nccl", falling=True,
+                       tag="mesh-dp")
+    dp4 = mesh_numbers(card, job, docs, tag="mesh-dp")
+    log(f"[mesh-dp] dense dp 4 against phase 7.3's one card in this call: step p50 "
+        f"{dp4['p50_ms']:.2f} against {one['p50_ms']:.2f} ms, {dp4['tokens_s']:.1f} against "
+        f"{one['tokens_s']:.1f} tokens/s: {dp4['tokens_s'] / one['tokens_s']:.3f}x one card's "
+        f"tokens/s on 4 cards  [{card}]")
 
 
 class GangDispatcher:
@@ -3361,9 +3523,11 @@ MPMD_LOSS_REL = 1e-5
 
 def leaf_names(tree, prefix=""):
     """The names of a param tree's leaves in ``optim.tree_leaves`` order
-    (dict keys sorted)."""
+    (dict keys sorted, list items by index)."""
     if isinstance(tree, dict):
         return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [n for i, x in enumerate(tree) for n in leaf_names(x, f"{prefix}{i}/")]
     return [prefix.rstrip("/")]
 
 
@@ -3638,6 +3802,418 @@ def phase_pipeline(torch, dev, card, cfg8b, dense_step):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: multi-rank training over a rank mesh
+# ---------------------------------------------------------------------------
+
+MESH_LR = 3e-4
+#: 12.1-12.3: each rank against the one-process step on the same weights and
+#: batch.  The loss within 1e-6 relative (the same operations; the nll sum
+#: is split over ranks and summed again).  Each first-step gradient within
+#: the fp32 gradient gate of 9.2 and 11.1, 1e-4 of its largest |value|:
+#: where dp cuts the rows, the sums over the tokens run in another order
+#: (each rank's GEMM over its rows, then the all-reduce) and every layer's
+#: backward rounds at other places, as the kernel and plain paths of 11.1
+#: do; a wrong dp scale or microbatch is an error of order one.  Each
+#: param after the last step within 2 lr a step (:func:`mesh_param_atol`):
+#: an Adam update is about lr * sign(g), so a gradient within fp32 noise
+#: of zero may flip an update by 2 lr.
+MESH_LOSS_REL = 1e-6
+MESH_GRAD_REL = PIPE_GRAD_REL
+MESH_TIMEOUT_S = 300.0
+#: the batches' numpy seed
+MESH_TOKEN_SEED = SEED + 40
+
+
+def mesh_param_atol(steps):
+    return 2 * MESH_LR * steps
+
+
+def mesh_job(family, dp, pp, *, widths, layers, dtype, batch, seq, steps, m=1, device="cuda",
+             profile=False):
+    """A phase-12 job: what every rank process and the one-process oracle
+    of it are given (JSON).  ``widths`` ``"8b"`` (Llama-3-8B) or
+    ``"tiny"``; ``m`` the pipeline's microbatches."""
+    return {"family": family, "dp": dp, "pp": pp, "widths": widths, "layers": layers,
+            "dtype": dtype, "batch": batch, "seq": seq, "steps": steps, "m": m,
+            "device": device, "profile": profile, "oracle": None}
+
+
+def mesh_label(job):
+    cut = f"{job['layers']} layers" + (", Llama-3-8B widths" if job["widths"] == "8b" else
+                                       ", LlamaConfig.tiny() widths")
+    if job["family"] == "pipeline":
+        shape = f"pp {job['pp']} x dp {job['dp']}, M {job['m']}"
+    else:
+        shape = f"dense dp {job['dp']}"
+    return f"{shape}, {job['dtype']}, {cut}, B {job['batch']}, T {job['seq']}"
+
+
+def mesh_config(torch, job):
+    from cordum_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama3_8b() if job["widths"] == "8b" else llama.LlamaConfig.tiny()
+    return dataclasses.replace(cfg, n_layers=job["layers"], dtype=getattr(torch, job["dtype"]))
+
+
+def mesh_train_step(torch, job, dev, mesh=None):
+    """``(init, step, tokens, base config)`` of the job on ``dev``: the
+    pipeline's or the Llama family's ``make_train_step``, with ``mesh`` the
+    rank's step; the tokens are the whole batch (every rank is given it),
+    microbatched for the pipeline."""
+    from cordum_tpu_torch.models import llama, pipeline
+
+    base = mesh_config(torch, job)
+    rng = np.random.default_rng(MESH_TOKEN_SEED)
+    toks = torch.from_numpy(rng.integers(0, base.vocab_size, (job["batch"], job["seq"]))
+                            .astype(np.int32)).to(dev)
+    if job["family"] == "pipeline":
+        cfg = pipeline.PipelineConfig(base=base, n_stages=job["pp"], n_microbatches=job["m"])
+        init, step = pipeline.make_train_step(cfg, device=dev, mesh=mesh)
+        toks = pipeline.microbatch(toks, job["m"])
+    else:
+        init, step = llama.make_train_step(base, device=dev, mesh=mesh)
+    return init, step, toks, base
+
+
+def mesh_oracle(torch, dev, card, job, workdir):
+    """The one-process step of ``job`` on ``dev`` (the same seed, weights
+    and batch as its ranks): each step's loss, then the first step's
+    gradients and the params after the last step written under
+    ``workdir/oracle`` one leaf a file (CPU tensors), for the ranks to
+    hold theirs to; everything freed before it returns.  Returns the
+    directory."""
+    from cordum_tpu_torch import optim
+
+    out = os.path.join(workdir, "oracle")
+    os.makedirs(out, exist_ok=True)
+    init, step, toks, _ = mesh_train_step(torch, job, dev)
+    params, state = init(SEED)
+    names = leaf_names(params)
+    grads, losses = [], []
+    t0 = time.monotonic()
+    for i in range(job["steps"]):
+        _, state, loss = step(params, state, toks, grads_out=grads if i == 0 else None)
+        losses.append(loss.item())
+    step_s = time.monotonic() - t0
+    for name, g, p in zip(names, grads, optim.tree_leaves(params)):
+        torch.save(g.detach().cpu(), os.path.join(out, f"grad.{name.replace('/', '.')}.pt"))
+        torch.save(p.detach().cpu(), os.path.join(out, f"param.{name.replace('/', '.')}.pt"))
+    with open(os.path.join(out, "oracle.json"), "w") as f:
+        json.dump({"losses": losses, "names": names}, f)
+    log(f"[mesh-oracle] {mesh_label(job)}: one process, {job['steps']} steps in {step_s:.2f} s, "
+        f"losses {losses}; {len(names)} leaves written  [{card}]")
+    del params, state, grads, toks
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    job["oracle"] = out
+    return out
+
+
+def mesh_gate(torch, job, mesh, params, grads, losses):
+    """This rank against the oracle's files: the worst relative loss over
+    the steps, the worst first-step gradient (max abs error over the
+    oracle leaf's largest |value|) and the worst param after the last step
+    (max abs error), each with its leaf; a NaN or inf anywhere is inf.
+    The oracle's pipeline stage leaves are sliced to the rank's stage."""
+    from cordum_tpu_torch import optim
+
+    with open(os.path.join(job["oracle"], "oracle.json")) as f:
+        want = json.load(f)
+    loss_rel = max(abs(a - b) / abs(b) if math.isfinite(a) else math.inf
+                   for a, b in zip(losses, want["losses"]))
+    grad_worst, param_worst = (0.0, ""), (0.0, "")
+    names = leaf_names(params)
+    for name, g, p in zip(names, grads, optim.tree_leaves(params)):
+        got = {}
+        for kind in ("grad", "param"):
+            o = torch.load(os.path.join(job["oracle"], f"{kind}.{name.replace('/', '.')}.pt"),
+                           weights_only=True)
+            if name.startswith("stages/"):
+                o = o[mesh.pp_rank:mesh.pp_rank + 1]
+            got[kind] = o.to(p.device).float()
+        if tuple(got["param"].shape) != tuple(p.shape):
+            raise AssertionError(f"rank {mesh.rank}: leaf {name} {tuple(p.shape)} against the "
+                                 f"oracle's {tuple(got['param'].shape)}")
+        g_err = ((g.float() - got["grad"]).abs().max() / got["grad"].abs().max()
+                 .clamp_min(1e-30)).item()
+        p_err = (p.detach().float() - got["param"]).abs().max().item()
+        g_err = g_err if math.isfinite(g_err) else math.inf
+        p_err = p_err if math.isfinite(p_err) else math.inf
+        grad_worst = max(grad_worst, (g_err, name))
+        param_worst = max(param_worst, (p_err, name))
+    return {"loss_rel": loss_rel, "grad": list(grad_worst), "param": list(param_worst),
+            "oracle_losses": want["losses"], "names": names}
+
+
+def train_rank(job, rank, mesh=None):
+    """One rank of a phase-12 job: join the mesh (a TCPStore on
+    127.0.0.1 at the job's port, rank 0 hosting it) unless one is given
+    (the CPU tests' in-process meshes), draw the rank's params from the
+    seed, take ``steps`` steps on the one batch; with an oracle, hold the
+    rank to it (:func:`mesh_gate`); with ``profile``, two more steps, under
+    ``torch.profiler`` on the first and the last stage.  Returns the rank's
+    numbers."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from cordum_tpu_torch import optim
+    from cordum_tpu_torch.parallel.mesh import MeshSpec, TrainMesh
+
+    world = job["dp"] * job["pp"]
+    if job["device"] == "cuda":
+        # one rank a card where there are enough cards, else all on card 0
+        dev = torch.device("cuda", rank if torch.cuda.device_count() >= world else 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        dev = torch.device("cpu")
+    on_card = dev.type == "cuda"
+    own = mesh is None
+    if own:
+        store = dist.TCPStore("127.0.0.1", job["port"], world, rank == 0,
+                              datetime.timedelta(seconds=MESH_TIMEOUT_S), wait_for_workers=False)
+        mesh = TrainMesh.join(store, rank, world, dev, spec=MeshSpec(dp=job["dp"], pp=job["pp"]),
+                              timeout_s=MESH_TIMEOUT_S)
+    try:
+        init, step, toks, base = mesh_train_step(torch, job, dev, mesh)
+        t0 = time.monotonic()
+        params, state = init(SEED)
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        init_s = time.monotonic() - t0
+        param_bytes = sum(p.numel() * p.element_size() for p in optim.tree_leaves(params))
+        if own:
+            zero_launches()
+        grads, losses, secs = [], [], []
+        # the collectives' host time and calls of steps 2 on (a one-step run's
+        # all): the first step's calls also set the communicators up
+        first = {"host_s": dict.fromkeys(mesh.host_s, 0.0), "calls": dict.fromkeys(mesh.calls, 0)}
+        for i in range(job["steps"]):
+            if i == 1:
+                first = {k: dict(getattr(mesh, k)) for k in ("host_s", "calls")}
+            t0 = time.perf_counter()
+            _, state, loss = step(params, state, toks,
+                                  grads_out=grads if i == 0 and job["oracle"] else None)
+            losses.append(loss.item())  # waits for the step
+            secs.append(time.perf_counter() - t0)
+        n = read_launches()
+        doc = {"rank": rank, "coords": mesh.coords, "collective": mesh.backend,
+               "device": str(dev), "losses": losses, "step_s": secs, "init_s": init_s,
+               "param_bytes": param_bytes, "leaves": leaf_names(params),
+               **{k: {c: v - first[k][c] for c, v in getattr(mesh, k).items()}
+                  for k in ("host_s", "calls")},
+               "launches": [n["dense_attention_fwd"], n["dense_attention_bwd"]],
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else 0.0,
+               "n_layers": base.n_layers}
+        if job["oracle"]:
+            doc["gate"] = mesh_gate(torch, job, mesh, params, grads, losses)
+        del grads
+        if job["profile"]:
+            stage = mesh.coords["pp"]
+            ctx = None
+            if stage in (0, mesh.sizes["pp"] - 1) and mesh.coords["dp"] == 0:
+                ctx = gang_profile_start(torch, on_card)
+            for _ in range(2):
+                step(params, state, toks)
+            if ctx is not None:
+                doc["profile"] = gang_profile_stop(torch, on_card, ctx)
+        return doc
+    finally:
+        if own:
+            mesh.close()
+
+
+def train_rank_main(args):
+    """``python3 chip_smoke.py --train-rank R --train-job PATH``: one rank
+    process of a phase-12 job (:func:`train_rank`); the job's JSON names
+    the store's port and where the rank writes its numbers."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--train-rank", type=int, required=True)
+    ap.add_argument("--train-job", required=True)
+    a = ap.parse_args(args)
+    with open(a.train_job) as f:
+        job = json.load(f)
+    doc = train_rank(job, a.train_rank)
+    with open(os.path.join(job["out"], f"rank{a.train_rank}.json"), "w") as f:
+        json.dump(doc, f)
+    return 0
+
+
+def run_train_ranks(job, workdir):
+    """Spawn the job's ``dp x pp`` rank processes (rank r on card r where
+    the host has a card a rank, else all on card 0); returns each rank's
+    numbers.  A rank that
+    fails or outlives the deadline fails the run, with every rank's log
+    tail printed."""
+    world = job["dp"] * job["pp"]
+    job = dict(job, port=free_port(), out=workdir)
+    path = os.path.join(workdir, "job.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    procs, logs = [], []
+    try:
+        for rank in range(world):
+            logs.append(os.path.join(workdir, f"rank{rank}.log"))
+            with open(logs[-1], "w") as log_f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--train-rank", str(rank),
+                     "--train-job", path], stdout=log_f, stderr=subprocess.STDOUT))
+        # until all are done; a rank that fails ends the others at once
+        # (they would wait for it until their groups' timeout)
+        deadline = time.monotonic() + 2 * MESH_TIMEOUT_S
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if all(c is not None for c in codes) or any(c for c in codes):
+                break
+            time.sleep(0.2)
+    finally:
+        rcs = [stop_process(p, timeout_s=10) for p in procs]
+    if any(rcs):
+        for rank, path in enumerate(logs):
+            log(f"[mesh] rank {rank} log tail:\n" + open(path).read()[-3000:])
+        raise AssertionError(f"{mesh_label(job)}: rank processes exited {rcs}")
+    return [json.load(open(os.path.join(workdir, f"rank{r}.json"))) for r in range(world)]
+
+
+def mesh_launches(job, docs):
+    """Each rank's B9 launches must be its layers x microbatches x steps
+    (the pipeline: ``L/S`` layers a stage, M microbatches; dense dp: every
+    layer once a step), forward and backward; returns their sums."""
+    steps = job["steps"]
+    layers = docs[0]["n_layers"]
+    want = (layers // job["pp"] * job["m"] if job["family"] == "pipeline" else layers) * steps
+    for d in docs:
+        if d["launches"] != [want, want]:
+            raise AssertionError(f"{mesh_label(job)}: rank {d['rank']}'s B9 launches "
+                                 f"{d['launches']}, {want} each expected")
+    return [sum(d["launches"][0] for d in docs), sum(d["launches"][1] for d in docs)]
+
+
+def check_mesh_ranks(card, job, docs, *, collective=None, falling=False, tag="mesh"):
+    """Phase 12's gates on a job's ranks: every rank returns the same
+    losses, finite (and falling from the first step to the last with
+    ``falling``); with an oracle, each rank's loss, gradients and params
+    within ``MESH_*`` of it and every leaf of the oracle's tree held by a
+    rank of each dp index; the backend ``collective`` when given.  Then
+    the launches (:func:`mesh_launches`); returns them."""
+    label = mesh_label(job)
+    losses = docs[0]["losses"]
+    if any(d["losses"] != losses for d in docs) or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{label}: the ranks' losses {[d['losses'] for d in docs]} "
+                             f"(equal and finite expected)")
+    if falling and not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses} (falling expected)")
+    if collective and any(d["collective"] != collective for d in docs):
+        raise AssertionError(f"{label}: collectives {[d['collective'] for d in docs]}, "
+                             f"{collective} expected")
+    atol = mesh_param_atol(job["steps"])
+    if job["oracle"]:
+        for d in docs:
+            g = d["gate"]
+            if not (g["loss_rel"] <= MESH_LOSS_REL and g["grad"][0] <= MESH_GRAD_REL
+                    and g["param"][0] <= atol):
+                raise AssertionError(
+                    f"{label}: rank {d['rank']} {d['coords']} against the one-process step: "
+                    f"losses {d['losses']} vs {g['oracle_losses']} (rel {g['loss_rel']:.3e}, "
+                    f"tolerance {MESH_LOSS_REL:g}); worst gradient {g['grad']} (tolerance "
+                    f"{MESH_GRAD_REL:g} of its max); worst param {g['param']} (tolerance "
+                    f"{atol:g})")
+        with open(os.path.join(job["oracle"], "oracle.json")) as f:
+            names = json.load(f)["names"]
+        for dp in range(job["dp"]):
+            held = {n for d in docs if d["coords"]["dp"] == dp for n in d["gate"]["names"]}
+            if held != set(names):
+                raise AssertionError(f"{label}: the ranks of dp {dp} hold {sorted(held)}, the "
+                                     f"one-process tree {sorted(names)}")
+        log(f"[{tag}] {label}: {len(docs)} rank processes, collective {docs[0]['collective']}; "
+            f"losses {losses} against one process {docs[0]['gate']['oracle_losses']}: max rel "
+            f"{max(d['gate']['loss_rel'] for d in docs):.3e}; worst first-step gradient "
+            f"{max(tuple(d['gate']['grad']) for d in docs)} of its max, worst param after step "
+            f"{job['steps']} {max(tuple(d['gate']['param']) for d in docs)} (tolerances "
+            f"{MESH_LOSS_REL:g}, {MESH_GRAD_REL:g}, {atol:g}); every leaf held by a rank of each "
+            f"dp index  [{card}]")
+    return mesh_launches(job, docs)
+
+
+def mesh_numbers(card, job, docs, tag="mesh-train"):
+    """12.4 and 12.5's numbers: the loss, step p50 (steps 2 on; the ranks
+    step together, so the slowest rank's), tokens/s and tokens/s a card,
+    each rank's peak memory, parameter bytes and host ms inside P2P calls
+    and all-reduces a step, and the profiled stages' device busy share
+    beside the bubble model (a stage computes at most M / (M + S - 1) of
+    the time).  Returns step p50 ms and tokens/s."""
+    world, steps = len(docs), job["steps"]
+    p50 = max(statistics.median(d["step_s"][1:]) for d in docs)
+    tokens = job["batch"] * job["seq"]
+    losses = docs[0]["losses"]
+    log(f"[{tag}] {mesh_label(job)}, {steps} steps on one batch over {world} rank processes "
+        f"({docs[0]['collective']}): loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"({', '.join(f'{x:.4f}' for x in losses)}); step p50 {p50 * 1e3:.2f} ms (steps "
+        f"2-{steps}, the slowest rank), first step {max(d['step_s'][0] for d in docs) * 1e3:.2f} "
+        f"ms; {tokens / p50:.1f} tokens/s, {tokens / p50 / world:.1f} tokens/s a card  [{card}]")
+    for d in docs:
+        per = {k: d["host_s"][k] / (steps - 1) * 1e3 for k in ("p2p", "all_reduce")}
+        log(f"[{tag}] rank {d['rank']} {d['coords']['dp']},{d['coords']['pp']} (dp,pp): peak "
+            f"{d['peak_gib']:.2f} GiB, parameters {d['param_bytes'] / 2**30:.2f} GiB, drawn in "
+            f"{d['init_s']:.1f} s; host ms a step (steps 2-{steps}) inside P2P "
+            f"{per['p2p']:.2f} ({d['calls']['p2p'] // (steps - 1)} calls), inside all-reduces "
+            f"{per['all_reduce']:.2f} ({d['calls']['all_reduce'] // (steps - 1)} calls)  "
+            f"[{card}]")
+        prof = d.get("profile")
+        if prof:
+            s, m = job["pp"], job["m"] if job["family"] == "pipeline" else 1
+            busy = prof["device_ms"] / prof["wall_ms"]
+            compute = (prof["device_ms"] - prof["collective_ms"]) / prof["wall_ms"]
+            log(f"[{tag}] rank {d['rank']} (stage {d['coords']['pp']}) profiled 2 steps: wall "
+                f"{prof['wall_ms']:.1f} ms, device busy {100 * busy:.1f}%, of it NCCL kernels "
+                f"(which also wait for their peers) {prof['collective_ms']:.1f} ms; compute "
+                f"{100 * compute:.1f}% of wall against the bubble model's bound M / (M + S - 1) "
+                f"= {m}/{m + s - 1} = {100 * m / (m + s - 1):.1f}%  [{card}]")
+    return {"p50_ms": p50 * 1e3, "tokens_s": tokens / p50}
+
+
+def mesh_leg(torch, dev, card, job, *, oracle, collective=None, falling=False, tag="mesh"):
+    """One job: its one-process oracle on ``dev`` first (freed before the
+    ranks start) when ``oracle``, then its rank processes, gated.  Returns
+    the ranks' numbers and their B9 launches."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="cordum-mesh-") as workdir:
+        if oracle:
+            mesh_oracle(torch, dev, card, job, workdir)
+        docs = run_train_ranks(job, workdir)
+        launches = check_mesh_ranks(card, job, docs, collective=collective, falling=falling,
+                                    tag=tag)
+    return docs, launches
+
+
+def phase_mesh(torch, dev, card):
+    """12.1-12.2 on the one card (gloo rank processes sharing it).
+    Returns B9's launches, forward and backward (fp32)."""
+    jobs = [
+        # 12.1: 11.1's configuration over two ranks, one AdamW step
+        mesh_job("pipeline", 1, 2, widths="8b", layers=2, dtype="float32", batch=2, seq=256,
+                 steps=1, m=2),
+        # 12.2: dp 2 x pp 2, four processes, a falling loss over 3 steps
+        mesh_job("pipeline", 2, 2, widths="tiny", layers=4, dtype="float32", batch=4, seq=64,
+                 steps=3, m=2),
+    ]
+    fwd = bwd = 0
+    for job, falling in zip(jobs, (False, True)):
+        _, (f, b) = mesh_leg(torch, dev, card, job, oracle=True, collective="gloo",
+                             falling=falling)
+        fwd, bwd = fwd + f, bwd + b
+    return fwd, bwd
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_kernels():
@@ -3667,6 +4243,8 @@ def build_kernels():
 def main() -> int:
     if "--gang-rank" in sys.argv:
         return gang_rank_main(sys.argv[1:])
+    if "--train-rank" in sys.argv:
+        return train_rank_main(sys.argv[1:])
     if "--cards" in sys.argv:
         return main_cards()
     import torch
@@ -3724,6 +4302,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     pipe, pipe_b1 = phase_pipeline(torch, dev, smi, cfg8b, dense_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_fwd, mesh_bwd = phase_mesh(torch, dev, smi)
 
     # phase 8's worker process serves an fp32 Llama and the bf16 embedder
     launches = {
@@ -3744,6 +4325,9 @@ def main() -> int:
     }
     # phase 11.4's serving leg runs B1 at full heads (fp32)
     launches["paged_attention"]["float32"] += pipe_b1
+    # phase 12's rank processes (fp32)
+    launches["dense_attention_fwd"]["float32"] += mesh_fwd
+    launches["dense_attention_bwd"]["float32"] += mesh_bwd
     # phase 9's MoE runs and phase 11's pipeline runs launch B9 too
     for name in ("dense_attention_fwd", "dense_attention_bwd"):
         for dtype in ("float32", "bfloat16"):

@@ -37,6 +37,7 @@ from .. import optim
 from ..device import DeviceLike, resolve_device
 from ..ops.dense_attention import dense_attention, gqa_attention
 from ..ops.paged_attention import AttentionPlan, paged_attention
+from ..parallel.mesh import TrainMesh
 
 Params = dict
 
@@ -54,7 +55,7 @@ class LlamaConfig:
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
     # long-context ring attention over a sequence-parallel mesh: kept for
-    # field parity with the JAX config; this package has no mesh yet
+    # field parity with the JAX config; this package has no sp axis yet
     use_ring_attention: bool = False
 
     @property
@@ -373,8 +374,9 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def make_train_step(cfg: LlamaConfig, optimizer: Optional[tuple[Callable, Callable]] = None,
-                    *, device: DeviceLike = None, attention=_attention):
-    """The single-card train step: ``init(seed) -> (params, opt_state)`` and
+                    *, device: DeviceLike = None, attention=_attention,
+                    mesh: Optional[TrainMesh] = None):
+    """The train step: ``init(seed) -> (params, opt_state)`` and
     ``step(params, opt_state, tokens) -> (params, opt_state, loss)``, with
     ``optimizer`` an ``(init(params), update(grads, state, params))`` pair,
     by default :func:`optim.adamw_init` and :func:`optim.adamw_update`.
@@ -385,22 +387,71 @@ def make_train_step(cfg: LlamaConfig, optimizer: Optional[tuple[Callable, Callab
     updates the params and the optimizer state IN PLACE under
     ``torch.no_grad()`` (it returns the same objects): this takes the place
     of the JAX step's buffer donation (``donated_train_step``), so one copy
-    of the params and the moments lives on the card.  There is no mesh:
-    one card (ROADMAP A6/A11 for more)."""
-    return train_step_of(
-        lambda gen, dev: init_params(cfg, generator=gen, device=dev),
-        lambda params, tokens: loss_fn(params, tokens, cfg, attention=attention),
-        optimizer, device)
+    of the params and the moments lives on the card.
+
+    ``mesh`` (a :class:`TrainMesh` of dp ranks; tp and sp
+    come with ROADMAP A14) makes it a data-parallel rank's step: every rank
+    holds the whole params (the same draw from the same seed), takes its
+    ``B / dp`` rows of the batch (the reference's ``P('dp', 'sp')``) and
+    mean-reduces the gradients and the loss over dp before the update
+    (:func:`make_dp_grad`), so every rank returns the global loss.  No
+    mesh, or one of one rank: one card."""
+    def init_fn(gen, dev):
+        return init_params(cfg, generator=gen, device=dev)
+
+    if mesh is None or mesh.size == 1:
+        return train_step_of(init_fn,
+                             lambda params, tokens: loss_fn(params, tokens, cfg,
+                                                            attention=attention),
+                             optimizer, device)
+    return train_step_of(init_fn, None, optimizer, mesh.device if device is None else device,
+                         value_and_grad=make_dp_grad(cfg, mesh, attention=attention))
 
 
-def train_step_of(init_fn: Callable, loss: Callable,
+def make_dp_grad(cfg: LlamaConfig, mesh: TrainMesh, *, attention=_attention):
+    """``value_and_grad(params, tokens [B, T]) -> (loss, grads)`` of one
+    data-parallel rank: :func:`loss_fn` on the rank's block of ``B / dp``
+    rows and its gradients, then the mean of both over dp
+    (:func:`_dp_mean`): the reference's ``loss_fn`` is a mean over equal
+    shards, so the mean of the ranks' means is the global mean.
+    ``ValueError`` for a mesh with pp above 1 (that is the pipeline
+    family's) or a batch dp does not split."""
+    if mesh.pp != 1:
+        raise ValueError(f"the llama family has no pipeline stages (mesh pp {mesh.pp}); "
+                         "the pipeline family trains over pp")
+
+    def value_and_grad(params: Params, tokens: torch.Tensor):
+        value = loss_fn(params, mesh.dp_rows(tokens), cfg, attention=attention)
+        grads = torch.autograd.grad(value, optim.tree_leaves(params))
+        return _dp_mean(value.detach(), grads, mesh)
+
+    return value_and_grad
+
+
+def _dp_mean(value: torch.Tensor, grads, mesh: TrainMesh):
+    """The loss and every gradient summed over dp and divided by dp, in
+    place (the gradients)."""
+    for g in grads:
+        mesh.all_reduce(g, "dp").div_(mesh.dp)
+    return mesh.all_reduce(value.clone(), "dp") / mesh.dp, grads
+
+
+def train_step_of(init_fn: Callable, loss: Optional[Callable],
                   optimizer: Optional[tuple[Callable, Callable]] = None,
-                  device: DeviceLike = None):
+                  device: DeviceLike = None, *, value_and_grad: Optional[Callable] = None):
     """The ``(init, step)`` pair of :func:`make_train_step` for any model:
     ``init_fn(generator, device)`` draws the params, ``loss(params,
-    tokens)`` is the scalar the step differentiates."""
+    tokens)`` is the scalar the step differentiates, or
+    ``value_and_grad(params, tokens) -> (loss, grads)`` (grads in
+    ``optim.tree_leaves`` order) computes both, as a mesh rank's program
+    does.  ``step(..., grads_out=list)`` also appends the gradients the
+    update took to ``grads_out``."""
     opt_init, opt_update = optimizer or (optim.adamw_init, optim.adamw_update)
     dev = resolve_device(device)
+    if value_and_grad is None:
+        def value_and_grad(params: Params, tokens: torch.Tensor):
+            value = loss(params, tokens)
+            return value, torch.autograd.grad(value, optim.tree_leaves(params))
 
     def init(seed: int):
         gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -409,10 +460,11 @@ def train_step_of(init_fn: Callable, loss: Callable,
             p.requires_grad_(True)
         return params, opt_init(params)
 
-    def step(params: Params, opt_state: dict, tokens: torch.Tensor):
-        leaves = optim.tree_leaves(params)
-        value = loss(params, tokens.to(dev))
-        grads = torch.autograd.grad(value, leaves)
+    def step(params: Params, opt_state: dict, tokens: torch.Tensor, *,
+             grads_out: Optional[list] = None):
+        value, grads = value_and_grad(params, tokens.to(dev))
+        if grads_out is not None:
+            grads_out.extend(grads)
         with torch.no_grad():
             opt_update(grads, opt_state, params)
         return params, opt_state, value.detach()

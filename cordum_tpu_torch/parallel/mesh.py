@@ -20,17 +20,25 @@ distinct CUDA card and gloo otherwise (CPU ranks, or ranks that share one
 card).  The reference's ``simple_mesh`` and ``rank_mesh`` have nothing to
 map onto: they build ``jax.sharding.Mesh`` objects for GSPMD, which places
 arrays over the devices it sees; here each rank holds its own slices and
-the sums across ranks are explicit all-reduces.  Meshes for training over
-several ranks (dp, tp, sp, ep, pp) come with ROADMAP A9b, A14, A12 and
-A11.
+the sums across ranks are explicit all-reduces.
+
+:class:`TrainMesh` is the training counterpart of the reference's
+``build_mesh(MeshSpec(...))``: one rank's coordinates on the (dp, tp, sp,
+ep, pp) grid, pp fastest, as ``np.array(devices).reshape(shape)`` lays the
+devices out, with a world group and one group per axis line (the dp line
+of the rank's stage, the pp line of its dp index), built from one store as
+:meth:`TPGroup.join` builds its group.  It sums over any of them and sends
+and receives between pp neighbours.  Only dp and pp may exceed 1 for now:
+tp and sp come with ROADMAP A14 (A10 for ring attention), ep with A12.
 """
 from __future__ import annotations
 
 import datetime
 import math
 import threading
-from dataclasses import dataclass
-from typing import Any, Optional
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -106,6 +114,27 @@ def choose_backend(device_ids: list[str]) -> str:
     return "gloo"
 
 
+def _agree_backend(store: Any, rank: int, size: int, device: torch.device,
+                   timeout: datetime.timedelta) -> str:
+    """Publish this rank's device on ``store``, read every rank's and
+    choose the backend (:func:`choose_backend`)."""
+    store.set_timeout(timeout)
+    store.set(f"dev/{rank}", _device_id(device))
+    return choose_backend([store.get(f"dev/{r}").decode() for r in range(size)])
+
+
+def _process_group(store: Any, rank: int, size: int, backend: str,
+                   timeout: datetime.timedelta) -> Any:
+    """A bare ``torch.distributed`` process group of ``size`` ranks over
+    ``store`` (not registered as the process's default group)."""
+    pg_store = dist.PrefixStore(backend, store)
+    if backend == "nccl":
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = timeout
+        return dist.ProcessGroupNCCL(pg_store, rank, size, opts)
+    return dist.ProcessGroupGloo(pg_store, rank, size, timeout)
+
+
 @dataclass
 class TPGroup:
     """One rank's view of a tensor-parallel group: its ``rank`` of
@@ -147,17 +176,8 @@ class TPGroup:
         included) alive until it is closed.  Blocks until all ``size``
         ranks have joined or ``timeout_s`` passes."""
         timeout = datetime.timedelta(seconds=timeout_s)
-        store.set_timeout(timeout)
-        store.set(f"dev/{rank}", _device_id(device))
-        ids = [store.get(f"dev/{r}").decode() for r in range(size)]
-        backend = choose_backend(ids)
-        pg_store = dist.PrefixStore(backend, store)
-        if backend == "nccl":
-            opts = dist.ProcessGroupNCCL.Options()
-            opts._timeout = timeout
-            pg = dist.ProcessGroupNCCL(pg_store, rank, size, opts)
-        else:
-            pg = dist.ProcessGroupGloo(pg_store, rank, size, timeout)
+        backend = _agree_backend(store, rank, size, device, timeout)
+        pg = _process_group(store, rank, size, backend, timeout)
         logx.info("tensor-parallel group joined", rank=rank, size=size,
                   collective=backend, device=str(device))
         return cls(rank=rank, size=size, pg=pg, backend=backend, device=device)
@@ -214,3 +234,221 @@ def in_process_groups(size: int, device: torch.device, *, timeout_s: float) -> l
                 g.close()
         raise RuntimeError(f"in-process group of {size} ranks did not form: {errors}")
     return groups
+
+
+# ---------------------------------------------------------------------------
+# the rank mesh of a training job
+# ---------------------------------------------------------------------------
+
+#: the reference's axis order (``build_mesh``); the last axis varies fastest
+AXES = (AXIS_DP, AXIS_TP, AXIS_SP, AXIS_EP, AXIS_PP)
+#: the axes a training mesh cannot have above 1 yet, and the items that bring them
+LATER_AXES = {AXIS_TP: "ROADMAP A14", AXIS_SP: "ROADMAP A14 (A10 for ring attention)",
+              AXIS_EP: "ROADMAP A12"}
+
+
+def mesh_coords(sizes: dict[str, int], rank: int) -> dict[str, int]:
+    """``rank``'s index on each axis of a grid of ``sizes``, in the order
+    of :data:`AXES` with pp fastest: where device ``rank`` sits in the
+    reference's ``np.array(devices).reshape(shape)``."""
+    coords = {}
+    for axis in reversed(AXES):
+        rank, coords[axis] = divmod(rank, sizes[axis])
+    return {axis: coords[axis] for axis in AXES}
+
+
+def mesh_rank(sizes: dict[str, int], coords: dict[str, int]) -> int:
+    """The inverse of :func:`mesh_coords`."""
+    rank = 0
+    for axis in AXES:
+        rank = rank * sizes[axis] + coords[axis]
+    return rank
+
+
+def line_ranks(sizes: dict[str, int], rank: int, axis: str) -> list[int]:
+    """The world ranks of ``rank``'s line along ``axis``: the ranks whose
+    coordinates differ from its own on that axis alone, by their index on
+    it (a rank's index in its line is its coordinate on the axis)."""
+    coords = mesh_coords(sizes, rank)
+    return [mesh_rank(sizes, {**coords, axis: i}) for i in range(sizes[axis])]
+
+
+@dataclass
+class TrainMesh:
+    """One rank of a training mesh: its ``rank`` on the grid of ``sizes``
+    (:func:`mesh_coords`), the ``backend`` every group uses (NCCL when each
+    rank owns its own card, :func:`choose_backend`), the rank's ``device``
+    and its process groups: ``world``, and the ``dp`` and ``pp`` lines
+    through the rank (:func:`line_ranks`; ``None`` for a line of one
+    rank; a line that spans the world is the world group).  Like
+    :class:`TPGroup`'s, the groups are bare process groups, not the
+    process's default group, and every call waits at most the caller's
+    ``timeout_s``.  ``host_s`` and ``calls`` count the host seconds spent
+    inside, and the number of, point-to-point calls (``p2p``) and
+    all-reduces (``all_reduce``); over NCCL a call returns once the
+    operation is queued on the card, over gloo once it is done."""
+
+    sizes: dict[str, int]
+    rank: int
+    backend: str
+    device: torch.device
+    groups: dict[str, Any]
+    host_s: dict[str, float] = field(default_factory=lambda: {"p2p": 0.0, "all_reduce": 0.0})
+    calls: dict[str, int] = field(default_factory=lambda: {"p2p": 0, "all_reduce": 0})
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes.values())
+
+    @property
+    def coords(self) -> dict[str, int]:
+        return mesh_coords(self.sizes, self.rank)
+
+    @property
+    def dp(self) -> int:
+        return self.sizes[AXIS_DP]
+
+    @property
+    def pp(self) -> int:
+        return self.sizes[AXIS_PP]
+
+    @property
+    def dp_rank(self) -> int:
+        return self.coords[AXIS_DP]
+
+    @property
+    def pp_rank(self) -> int:
+        return self.coords[AXIS_PP]
+
+    def dp_rows(self, tokens: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """This rank's block of ``tokens`` along ``axis``: the reference
+        shards the batch over dp in contiguous blocks.  ``ValueError``
+        when dp does not divide it."""
+        n, dp = tokens.shape[axis], self.dp
+        if n % dp:
+            raise ValueError(f"{n} rows do not split over dp {dp}")
+        return tokens.narrow(axis, self.dp_rank * (n // dp), n // dp)
+
+    def _group(self, over: str) -> Any:
+        if over not in self.groups:
+            raise ValueError(f"no group {over!r}: world, dp or pp")
+        pg = self.groups[over]
+        if pg is None and (self.size if over == "world" else self.sizes[over]) > 1:
+            raise RuntimeError(f"rank {self.rank}: the mesh was closed")
+        return pg
+
+    def _timed(self, kind: str, fn: Callable[[], Any]) -> Any:
+        t0 = time.perf_counter()
+        out = fn()
+        self.host_s[kind] += time.perf_counter() - t0
+        self.calls[kind] += 1
+        return out
+
+    def all_reduce(self, t: torch.Tensor, over: str = AXIS_DP) -> torch.Tensor:
+        """Sum ``t`` in place over ``over`` (``"dp"``, ``"pp"`` or
+        ``"world"``); returns ``t``.  A line of one rank leaves it as it
+        is."""
+        pg = self._group(over)
+        if pg is not None:
+            self._timed("all_reduce", lambda: pg.allreduce([t]).wait())
+        return t
+
+    def send(self, t: torch.Tensor, stage: int, tag: int) -> None:
+        """Send ``t`` to the rank of pp index ``stage`` on this rank's pp
+        line.  gloo has no send of a CUDA tensor: it goes through host
+        memory."""
+        pg = self._group(AXIS_PP)
+        buf = t.detach().contiguous()
+        if self.backend == "gloo" and buf.is_cuda:
+            buf = buf.cpu()
+        self._timed("p2p", lambda: pg.send([buf], stage, tag).wait())
+
+    def recv(self, shape: tuple, dtype: torch.dtype, stage: int, tag: int) -> torch.Tensor:
+        """Receive a tensor of ``shape`` and ``dtype`` on this rank's
+        device from the rank of pp index ``stage`` on its pp line."""
+        pg = self._group(AXIS_PP)
+        staged = self.backend == "gloo" and self.device.type == "cuda"
+        buf = torch.empty(shape, dtype=dtype, device="cpu" if staged else self.device)
+        self._timed("p2p", lambda: pg.recv([buf], stage, tag).wait())
+        return buf.to(self.device) if staged else buf
+
+    def close(self) -> None:
+        """Abort every group (idempotent): a peer blocked in a call with
+        this rank fails at once instead of at its timeout."""
+        groups, self.groups = self.groups, {k: None for k in self.groups}
+        for pg in {id(pg): pg for pg in groups.values() if pg is not None}.values():
+            pg.abort()
+
+    # -- construction ----------------------------------------------------
+    @classmethod
+    def join(cls, store: Any, rank: int, world: int, device: torch.device, *,
+             spec: MeshSpec, timeout_s: float) -> "TrainMesh":
+        """Join the mesh ``spec`` over ``world`` ranks (:meth:`MeshSpec.resolve`)
+        as ``rank``, over ``store``: agree the backend, then build the world
+        group and this rank's dp and pp lines, each under its own prefix of
+        the store.  Blocks until every rank of each group has joined or
+        ``timeout_s`` passes.  ``ValueError`` for a mesh with tp, sp or ep
+        above 1, naming the ROADMAP item that brings the axis."""
+        sizes = spec.resolve(world)
+        for axis, item in LATER_AXES.items():
+            if sizes[axis] != 1:
+                raise ValueError(f"a training mesh with {axis} {sizes[axis]} is not supported "
+                                 f"yet ({item}); dp and pp only")
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside a world of {world}")
+        timeout = datetime.timedelta(seconds=timeout_s)
+        if world == 1:
+            return cls(sizes=sizes, rank=rank, backend="none", device=device,
+                       groups={"world": None, AXIS_DP: None, AXIS_PP: None})
+        backend = _agree_backend(store, rank, world, device, timeout)
+        world_pg = _process_group(dist.PrefixStore("world", store), rank, world, backend, timeout)
+        groups = {"world": world_pg}
+        for axis in (AXIS_DP, AXIS_PP):
+            line = line_ranks(sizes, rank, axis)
+            if len(line) == 1:
+                groups[axis] = None
+            elif len(line) == world:
+                groups[axis] = world_pg
+            else:
+                name = f"{axis}/{min(line)}"  # the line's first rank names it
+                groups[axis] = _process_group(dist.PrefixStore(name, store), line.index(rank),
+                                              len(line), backend, timeout)
+        logx.info("training mesh joined", rank=rank, size=world,
+                  mesh={k: v for k, v in sizes.items() if v > 1}, collective=backend,
+                  device=str(device))
+        return cls(sizes=sizes, rank=rank, backend=backend, device=device, groups=groups)
+
+
+def in_process_meshes(spec: MeshSpec, world: int, device: torch.device, *,
+                      timeout_s: float) -> list[TrainMesh]:
+    """``world`` ranks of the mesh ``spec`` in one process, one a thread,
+    over a shared ``HashStore`` (gloo: the ranks share the device); built
+    in parallel threads, as gloo's rendezvous needs every rank at once.
+    The CPU tests' mesh."""
+    store = dist.HashStore()
+    meshes: list[Any] = [None] * world
+    errors: list[BaseException] = []
+
+    def build(r: int) -> None:
+        try:
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+            meshes[r] = TrainMesh.join(dist.PrefixStore("train", store), r, world, device,
+                                       spec=spec, timeout_s=timeout_s)
+        except BaseException as e:  # noqa: BLE001 - re-raised below, in the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(r,), name=f"mesh-join-{r}")
+               for r in range(world)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout_s + 5.0)
+    if errors or any(m is None for m in meshes):
+        for m in meshes:
+            if m is not None:
+                m.close()
+        if errors and isinstance(errors[0], ValueError):
+            raise errors[0]
+        raise RuntimeError(f"in-process mesh of {world} ranks did not form: {errors}")
+    return meshes
