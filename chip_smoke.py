@@ -311,6 +311,11 @@ KERNELS = {
     "embed_attention": ("embed_attention", "cordum_tpu/models/embedder.py:123"),
     "dense_attention_fwd": ("dense_attention", "cordum_tpu/models/llama.py:179-197"),
     "dense_attention_bwd": ("dense_attention", "cordum_tpu/models/llama.py:179-197"),
+    # B9 at a sequence-parallel rank's shapes (phase 12.6): a chunk of Tq
+    # queries at their global positions against the gathered Tk keys, as
+    # _block calls _attention over an sp mesh (llama.py:216-222)
+    "dense_attention_fwd_sp": ("dense_attention", "cordum_tpu/models/llama.py:179-197"),
+    "dense_attention_bwd_sp": ("dense_attention", "cordum_tpu/models/llama.py:179-197"),
     **{name: ("moe_dispatch", "cordum_tpu/models/moe.py:73-113") for name in MOE_KERNELS},
 }
 
@@ -1047,13 +1052,29 @@ def launch_counters():
             "moe_token_dot": md.moe_token_dot}
 
 
+#: the kernel rows that count a subset of a wrapper's launches: B9's
+#: launches whose queries and keys differ in length (``chunk_launches``)
+CHUNK_ROWS = {"dense_attention_fwd_sp": "dense_attention_fwd",
+              "dense_attention_bwd_sp": "dense_attention_bwd"}
+
+
+def set_launches(counts=None):
+    """Every counter to ``counts`` (a :func:`read_launches` dict), or 0."""
+    fns = launch_counters()
+    for name, fn in fns.items():
+        fn.launches = counts[name] if counts else 0
+    for name, of in CHUNK_ROWS.items():
+        fns[of].chunk_launches = counts[name] if counts else 0
+
+
 def zero_launches():
-    for fn in launch_counters().values():
-        fn.launches = 0
+    set_launches()
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in launch_counters().items()}
+    fns = launch_counters()
+    return {**{name: fn.launches for name, fn in fns.items()},
+            **{name: fns[of].chunk_launches for name, of in CHUNK_ROWS.items()}}
 
 
 def check_worker_launches(n_layers_embed, n_layers_llama, steps, *, infer):
@@ -1256,11 +1277,27 @@ DENSE_GRAD_REL = 1e-4
 DENSE_ROW_FLOOR = 2.0**-8
 DENSE_ROW_FACTOR = 2.0
 DENSE_ROW_SLACK = 2.0**-9
+#: out's and dq's query rows with more live keys than this are also held
+#: apart, to the plain version's worst such row: on a row of two or three
+#: keys dP - D cancels, and there the plain version's worst dq row is ten
+#: times its worst longer row (0.179 against 0.0217 at LlamaConfig()'s
+#: shape on the card, a row at position 1), which left every longer row a
+#: limit ten times too loose (ROADMAP C2)
+SHORT_ROW_KEYS = 3
 #: (tag, B, T, H, KVH, hd): phase 7's main shape (Llama-3-8B heads; its
 #: numbers go into the kernel line), ``LlamaConfig()``'s, the ``train``
 #: job's, and one microbatch of phase 11.2's bf16 pipeline run
 DENSE_SHAPES = (("llama3-8b", 4, 2048, 32, 8, 128), ("llama-default", 8, 2048, 8, 4, 64),
                 ("pipeline-mb", 1, 2048, 32, 8, 128))
+#: phase 12.6, (tag, B, Tq, H, KVH, hd, Tk, first position): B9 at a
+#: sequence-parallel rank's shapes at Llama-3-8B and T 8192, Tq queries at
+#: positions first .. first + Tq against all Tk keys: tp 2 x sp 2 (16 of
+#: the 32 heads, the first and the second chunk; the second's numbers go
+#: into the kernel line) and sp 4 (all heads, the last chunk)
+SP_CHUNK_SHAPES = (("tp2-sp2-chunk0", 1, 4096, 16, 4, 128, 8192, 0),
+                   ("tp2-sp2-chunk1", 1, 4096, 16, 4, 128, 8192, 4096),
+                   ("sp4-chunk3", 1, 2048, 32, 8, 128, 8192, 6144))
+SP_CHUNK_ROW = "tp2-sp2-chunk1"
 #: phase 7.2, the B9 path against the plain-attention path: each step's
 #: loss (relative); every param element within six learning rates (each of
 #: three Adam steps moves an element by about lr * sign(g), so a gradient
@@ -1276,52 +1313,58 @@ TRAIN_RESULT_KEYS = {"model", "mesh", "resumed_from", "steps_done", "completed",
                      "final_loss", "loss_first", "seconds", "checkpointed"}
 
 
-def dense_case(torch, dev, b, t, h, kvh, hd, dtype, seed=SEED):
-    """Seeded q, k, v and dO in ``dtype``, positions ``arange(T)`` as
-    ``forward`` passes them."""
+def dense_case(torch, dev, b, t, h, kvh, hd, dtype, seed=SEED, *, tk=None, first=0):
+    """Seeded q ``[B, T]``, k and v ``[B, tk]`` (default T) and dO in
+    ``dtype``, positions ``first + arange(T)`` as ``forward`` passes them
+    (a sequence-parallel rank's chunk starts at ``first``)."""
+    tk = t if tk is None else tk
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, t, h, hd), generator=g, device=dev).to(dtype)
-    k = torch.randn((b, t, kvh, hd), generator=g, device=dev).to(dtype)
-    v = torch.randn((b, t, kvh, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, tk, kvh, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, tk, kvh, hd), generator=g, device=dev).to(dtype)
     do = torch.randn((b, t, h, hd), generator=g, device=dev).to(dtype)
-    pos = torch.arange(t, dtype=torch.int32, device=dev).expand(b, t).contiguous()
+    pos = torch.arange(first, first + t, dtype=torch.int32, device=dev).expand(b, t).contiguous()
     return q, k, v, do, pos
 
 
-def dense_work_of(b, t, h, kvh, hd, el, positions):
-    """(bytes, operations) of the forward and of the backward: each input
-    read once and each output written once (q, k, v, positions, out, lse;
-    the backward also dO, dq, dk, dv); QK and PV, 4 hd a live (query, key)
-    pair, forward; QK again, dP, dV, dK and dQ, 10 hd a pair, backward —
-    over the pairs these positions make live (a row at a negative position
-    attends to all T keys).  The bf16 kernels' D pass (S and dP once more) is
-    a means of theirs, not the function's, and is not counted."""
+def dense_work_of(b, t, h, kvh, hd, el, positions, tk=None):
+    """(bytes, operations) of the forward and of the backward of T queries
+    against ``tk`` keys (default T): each input read once and each output
+    written once (q, k, v, positions, out, lse; the backward also dO, dq,
+    dk, dv); QK and PV, 4 hd a live (query, key) pair, forward; QK again,
+    dP, dV, dK and dQ, 10 hd a pair, backward — over the pairs these
+    positions make live (a row at a negative position attends to all
+    ``tk`` keys).  The bf16 kernels' D pass (S and dP once more) is a means
+    of theirs, not the function's, and is not counted."""
+    tk = t if tk is None else tk
     pos = positions.long().cpu()
-    live = (pos + 1).clamp(max=t)
-    live[pos < 0] = t
+    live = (pos + 1).clamp(max=tk)
+    live[pos < 0] = tk
     pairs = int(live.sum())
-    q_el, kv_el = b * t * h * hd, b * t * kvh * hd
+    q_el, kv_el = b * t * h * hd, b * tk * kvh * hd
     small = 4 * b * t + 4 * b * h * t
     fwd = (el * (2 * q_el + 2 * kv_el) + small, 4 * hd * h * pairs)
     bwd = (el * (4 * q_el + 4 * kv_el) + small, 10 * hd * h * pairs)
     return fwd, bwd
 
 
-def worst_row(got, exact, scale):
-    """The largest over rows (the last axis) of a row's max ``|got -
+def worst_row(got, exact, scale, rows=None):
+    """The largest over rows (the last axis; those ``rows`` selects, a
+    boolean mask of the leading axes, when given) of a row's max ``|got -
     exact|`` over the larger of the row's largest ``|exact|`` and
     ``DENSE_ROW_FLOOR * scale``."""
     exact = exact.float()
     big = exact.abs().amax(-1)
     diff = (got.float() - exact).abs().amax(-1)
-    return (diff / big.clamp(min=max(DENSE_ROW_FLOOR * scale, 1e-30))).max().item()
+    err = diff / big.clamp(min=max(DENSE_ROW_FLOOR * scale, 1e-30))
+    return (err if rows is None else err[rows]).max().item()
 
 
 #: upper ends of the live-key buckets of :func:`dq_fails_by_live_keys`
 LIVE_KEY_BUCKETS = (1, 2, 3, 7, 63, 511)
 
 
-def dq_fails_by_live_keys(dq, exact_dq, scale, limit, pos):
+def dq_fails_by_live_keys(dq, exact_dq, scale, limit, pos, tk=None):
     """How many dq rows (a query position of one head) are each beyond the
     bf16 row gate's ``limit`` on their own (their error measured as
     :func:`worst_row` measures a row), counted by the row's number of live
@@ -1329,7 +1372,7 @@ def dq_fails_by_live_keys(dq, exact_dq, scale, limit, pos):
     exact = exact_dq.float()
     big = exact.abs().amax(-1).clamp(min=max(DENSE_ROW_FLOOR * scale, 1e-30))
     bad = ((dq.float() - exact).abs().amax(-1) / big > limit).cpu()  # [B, T, H]
-    live = (pos.long().cpu() + 1).clamp(min=0, max=pos.shape[1])  # [B, T]
+    live = (pos.long().cpu() + 1).clamp(min=0, max=tk or pos.shape[1])  # [B, T]
     counts, lo = {}, 1
     for hi in LIVE_KEY_BUCKETS + (None,):
         sel = live >= lo if hi is None else (live >= lo) & (live <= hi)
@@ -1346,11 +1389,14 @@ def dense_grads(torch, fn, q, k, v, pos, do):
     return (out.detach(), *torch.autograd.grad(out, (qr, kr, vr), do))
 
 
-def bf16_row_gate(got, plain, exact):
+def bf16_row_gate(got, plain, exact, pos=None):
     """Each of out, dq, dk, dv: the kernel's and the plain version's worst
     row (:func:`worst_row`, scaled by the tensor's largest ``|exact|``, or
     dv's where the tensor is exactly 0: dq and dk at T 1), the limit, and
-    whether the kernel is within."""
+    whether the kernel is within.  With the positions ``pos [B, Tq]``,
+    out's and dq's rows of more than :data:`SHORT_ROW_KEYS` live keys are
+    also held to a limit of their own (``long``: the plain version's worst
+    such row), never wider than the first."""
     res = {}
     dv_scale = exact[3].abs().max().item()
     for name, g, p, e in zip(("out", "dq", "dk", "dv"), got, plain, exact):
@@ -1358,6 +1404,14 @@ def bf16_row_gate(got, plain, exact):
         kernel, ref = worst_row(g, e, scale), worst_row(p, e, scale)
         limit = DENSE_ROW_FACTOR * ref + DENSE_ROW_SLACK
         res[name] = dict(kernel=kernel, plain=ref, limit=limit, ok=kernel <= limit)
+        if pos is None or name not in ("out", "dq"):
+            continue
+        rows = (pos.to(g.device).long() + 1 > SHORT_ROW_KEYS)[..., None].expand(g.shape[:-1])
+        if bool(rows.any()):
+            k_long, p_long = worst_row(g, e, scale, rows), worst_row(p, e, scale, rows)
+            lim_long = DENSE_ROW_FACTOR * p_long + DENSE_ROW_SLACK
+            res[name]["long"] = dict(kernel=k_long, plain=p_long, limit=lim_long)
+            res[name]["ok"] = res[name]["ok"] and k_long <= lim_long
     return res
 
 
@@ -1419,14 +1473,18 @@ def measure_dense(torch, dev, card, shape, dtype, flush):
     case (fp32: against autograd of it, on the absolute and max-relative
     tolerances; bf16: the row gate against the exact result, which must also
     refuse three planted faults), then kernel, plain and SDPA times (forward
-    alone; backward alone on a kept graph) and the bounds."""
+    alone; backward alone on a kept graph) and the bounds.  ``shape`` is a
+    :data:`DENSE_SHAPES` row, or a :data:`SP_CHUNK_SHAPES` row (Tq queries
+    from a first position against Tk keys; the planted faults, which the
+    7.1 shapes check the gate with, are not repeated there)."""
     import torch.nn.functional as F
 
     from cordum_tpu_torch.ops import dense_attention as da
 
-    tag, b, t, h, kvh, hd = shape
+    tag, b, t, h, kvh, hd = shape[:6]
+    tk, first = shape[6:] if len(shape) > 6 else (t, 0)
     name = str(dtype).split(".")[-1]
-    q, k, v, do, pos = dense_case(torch, dev, b, t, h, kvh, hd, dtype)
+    q, k, v, do, pos = dense_case(torch, dev, b, t, h, kvh, hd, dtype, tk=tk, first=first)
     fwd = da.dense_attention_fwd(q, k, v, pos)  # an older tree's (chip_ab.py) returns three
     out = fwd[0]
     grads = da.dense_attention_bwd(q, k, v, pos, *fwd, do)
@@ -1461,30 +1519,36 @@ def measure_dense(torch, dev, card, shape, dtype, flush):
         plain = (ref.detach(), *ref_grads)
         exact = dense_grads(torch, da.dense_attention_reference,
                             *(x.float() for x in (q, k, v)), pos, do.float())
-        gate = bf16_row_gate((out, *grads), plain, exact)
+        gate = bf16_row_gate((out, *grads), plain, exact, pos)
         fails = dq_fails_by_live_keys(grads[0], exact[1], exact[1].abs().max().item(),
-                                      gate["dq"]["limit"], pos)
+                                      gate["dq"]["limit"], pos, tk)
         log(f"[dense-gate] {tag} {name}: dq rows beyond the row gate's limit "
             f"({gate['dq']['limit']:.3e}) each, by live keys: {fails}  [{card}]")
         if not all(g["ok"] for g in gate.values()):
             raise AssertionError(f"dense_attention {name} ({tag}): bf16 row gate {gate}")
-        dense_gate_controls(torch, q, k, v, pos, do, plain, exact)
+        if tk == t and first == 0:
+            dense_gate_controls(torch, q, k, v, pos, do, plain, exact)
         gate_msg = ("worst row's err from exact over its max |exact| (kernel / plain bf16 / "
-                    "limit): " + ", ".join(
+                    "limit; rows past " + str(SHORT_ROW_KEYS) + " live keys apart): " + ", ".join(
                         f"{g} {r['kernel']:.3e} / {r['plain']:.3e} / {r['limit']:.3e}"
+                        + (f" (long rows {r['long']['kernel']:.3e} / {r['long']['plain']:.3e} / "
+                           f"{r['long']['limit']:.3e})" if "long" in r else "")
                         for g, r in gate.items())
                     + f"; against plain bf16: out max abs {errs['out']:.3e}, gradients' max "
                     f"err over their max dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, dv "
                     f"{errs['dv']:.3e}")
         del plain, exact
     # the library yardstick: SDPA on [B, H, T, hd] copies, K/V expanded to
-    # the query heads (the copies are left out of its time)
+    # the query heads (the copies are left out of its time); causal, or a
+    # boolean [Tq, Tk] mask from the chunk's positions
     rep = h // kvh
     qh = q.transpose(1, 2).contiguous().requires_grad_()
     kh = k.repeat_interleave(rep, 2).transpose(1, 2).contiguous().requires_grad_()
     vh = v.repeat_interleave(rep, 2).transpose(1, 2).contiguous().requires_grad_()
     doh = do.transpose(1, 2).contiguous()
-    lib = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    sdpa_kw = {"is_causal": True} if tk == t and first == 0 else {
+        "attn_mask": pos[0][:, None] >= torch.arange(tk, device=dev)[None, :]}
+    lib = F.scaled_dot_product_attention(qh, kh, vh, **sdpa_kw)
     lib_err = (lib.detach().transpose(1, 2).float() - ref.detach().float()).abs().max().item()
     kernel_fwd = time_ms(torch, lambda: da.dense_attention_fwd(q, k, v, pos), iters=20,
                          flush=flush)
@@ -1493,8 +1557,7 @@ def measure_dense(torch, dev, card, shape, dtype, flush):
     with torch.no_grad():
         plain_fwd = time_ms(torch, lambda: da.dense_attention_reference(q, k, v, pos), iters=5,
                             flush=flush)
-        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                                        is_causal=True),
+        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, **sdpa_kw),
                           iters=10, flush=flush)
     plain_bwd = time_ms(torch, lambda: torch.autograd.grad(ref, (qr, kr, vr), do,
                                                            retain_graph=True),
@@ -1503,7 +1566,7 @@ def measure_dense(torch, dev, card, shape, dtype, flush):
                                                          retain_graph=True),
                       iters=10, flush=flush)
     split = device_split(torch, lambda: da.dense_attention_bwd(q, k, v, pos, *fwd, do), flush)
-    fwd_work, bwd_work = dense_work_of(b, t, h, kvh, hd, q.element_size(), pos)
+    fwd_work, bwd_work = dense_work_of(b, t, h, kvh, hd, q.element_size(), pos, tk)
     res = {"dq_fails": fails} if dtype == torch.bfloat16 else {}
     for kind, ms, plain_ms, lib_ms, (nbytes, ops), err in (
             ("fwd", kernel_fwd, plain_fwd, lib_fwd, fwd_work, errs["out"]),
@@ -1517,10 +1580,11 @@ def measure_dense(torch, dev, card, shape, dtype, flush):
             f"library_ms {lib_ms:.4f}  bound_ms {res[kind]['bound_ms']:.4f} "
             f"({res[kind]['bound_by']}: {nbytes} bytes, {ops} ops), share of bound "
             f"{res[kind]['bound_ms'] / ms:.3f}  [{card}]")
-    log(f"[dense-kernel] {tag} {name} (B {b}, T {t}, H {h}, KVH {kvh}, hd {hd}): {gate_msg}; "
+    chunk = f", Tk {tk}, positions {first}..{first + t - 1}" if (tk, first) != (t, 0) else ""
+    log(f"[dense-kernel] {tag} {name} (B {b}, T {t}, H {h}, KVH {kvh}, hd {hd}{chunk}): {gate_msg}; "
         f"sdpa vs plain {lib_err:.3e}; backward bits equal on two calls: {same_bits}; "
         f"backward device us per call: {split}")
-    del q, k, v, do, fwd, out, grads, qr, kr, vr, ref, ref_grads, qh, kh, vh, doh, lib
+    del q, k, v, do, fwd, out, grads, qr, kr, vr, ref, ref_grads, qh, kh, vh, doh, lib, sdpa_kw
     torch.cuda.empty_cache()
     return res
 
@@ -1599,6 +1663,28 @@ def phase_dense_kernel(torch, dev, card):
                 rows["dense_attention_fwd"][name] = res["fwd"]
                 rows["dense_attention_bwd"][name] = res["bwd"]
     del flush_buf
+    return rows
+
+
+def phase_sp_chunk_kernel(torch, dev, card):
+    """12.6: B9 at a sequence-parallel rank's shapes (:data:`SP_CHUNK_SHAPES`)
+    against its plain version, in both dtypes, by phase 7.1's gates
+    (:func:`measure_dense`); returns the :data:`SP_CHUNK_ROW` shape's rows."""
+    flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    rows = {"dense_attention_fwd_sp": {}, "dense_attention_bwd_sp": {}}
+    for shape in SP_CHUNK_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            res = measure_dense(torch, dev, card, shape, dtype, flush)
+            if shape[0] == SP_CHUNK_ROW:
+                name = str(dtype).split(".")[-1]
+                rows["dense_attention_fwd_sp"][name] = res["fwd"]
+                rows["dense_attention_bwd_sp"][name] = res["bwd"]
+    del flush_buf
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1731,8 +1817,7 @@ def profile_train(torch, card, one_step, *, steps=2, families=("dense_attention"
             one_step()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    for name, fn in launch_counters().items():
-        fn.launches = saved[name]
+    set_launches(saved)
     rows = kernel_rows(prof)
     total = sum(r[1] for r in rows)
     if not total:
@@ -3155,7 +3240,7 @@ def check_gang_oracle_ranks(card, ranks, oracle, served, *, where):
 def main_cards() -> int:
     """``python3 chip_smoke.py --cards [--legs train,gang]``, on a host with
     two or more cards, one rank a card (NCCL).  ``train``, with four
-    cards: phase 12.3-12.5 (:func:`cards_train_legs`).  ``gang``: at tp 2 and, with
+    cards: phase 12.3-12.5, 12.9 and 12.10 (:func:`cards_train_legs`).  ``gang``: at tp 2 and, with
     four cards, tp 4: phase 3's fp32 oracle on one card, then the fp32 gang
     of rank processes on its weights and prompts, its tokens held to the
     oracle and to one rank (:func:`check_gang_oracle_ranks`); then phase
@@ -3237,23 +3322,44 @@ def cards_train_legs(torch, dev, card):
     loss falls; step p50, tokens/s, peak memory, host time in the
     collectives, and two profiled steps on the first and the last stage.
     12.5: phase 7.3's bf16 run on card 0, then dense dp 4 at 7.3's
-    configuration a rank (2 layers, B 4 a rank, T 2048)."""
+    configuration a rank (2 layers, B 4 a rank, T 2048).  12.9: the dense
+    family over tp 4, sp 4, tp 2 x sp 2 and dp 2 x tp 2 at 12.3's fp32
+    configuration, held to the one-process step 12.3's dense dp 4 was (one
+    oracle for the five).  12.10: bf16 Llama-3-8B at all 32 layers, 10
+    steps on one batch, at tp 4 (B 4, T 2048) and tp 2 x sp 2 (B 1, T
+    8192): a falling loss and 12.4's numbers, beside 12.4's legs.  The
+    legs new in 12.9 and 12.10 run first."""
+    import tempfile
+
     from cordum_tpu_torch.models import llama
 
-    gates = [mesh_job("pipeline", 1, 4, m=4, widths="8b", layers=4, dtype="float32", batch=4,
+    dense = dict(widths="8b", layers=4, dtype="float32", batch=4, seq=256, steps=1)
+    gates = [mesh_job("llama", 1, 1, tp=4, **dense), mesh_job("llama", 1, 1, sp=4, **dense),
+             mesh_job("llama", 1, 1, tp=2, sp=2, **dense), mesh_job("llama", 2, 1, tp=2, **dense),
+             mesh_job("llama", 4, 1, **dense),
+             mesh_job("pipeline", 1, 4, m=4, widths="8b", layers=4, dtype="float32", batch=4,
                       seq=256, steps=1),
              mesh_job("pipeline", 2, 2, m=2, widths="8b", layers=4, dtype="float32", batch=4,
-                      seq=256, steps=1),
-             mesh_job("llama", 4, 1, widths="8b", layers=4, dtype="float32", batch=4, seq=256,
-                      steps=1)]
-    for job in gates:
-        mesh_leg(torch, dev, card, job, oracle=True, collective="nccl", tag="mesh-cards")
-    for dp, pp, m in ((1, 4, 4), (2, 2, 2)):
-        job = mesh_job("pipeline", dp, pp, m=m, widths="8b", layers=32, dtype="bfloat16",
-                       batch=4, seq=2048, steps=10, profile=True)
+                      seq=256, steps=1)]
+    with tempfile.TemporaryDirectory(prefix="cordum-mesh-oracle-") as workdir:
+        oracle = mesh_oracle(torch, dev, card, mesh_job("llama", 1, 1, **dense), workdir)
+        for job in gates:
+            mine = oracle if job["family"] == "llama" else True
+            mesh_leg(torch, dev, card, job, oracle=mine, collective="nccl", tag="mesh-cards")
+    numbers = {}
+    big = [("llama", dict(tp=4, batch=4, seq=2048)), ("llama", dict(tp=2, sp=2, batch=1, seq=8192)),
+           ("pipeline", dict(pp=4, m=4, batch=4, seq=2048)),
+           ("pipeline", dict(dp=2, pp=2, m=2, batch=4, seq=2048))]
+    for family, kw in big:
+        dp, pp = kw.pop("dp", 1), kw.pop("pp", 1)
+        job = mesh_job(family, dp, pp, widths="8b", layers=32, dtype="bfloat16", steps=10,
+                       profile=family == "pipeline", **kw)
         docs, _ = mesh_leg(torch, dev, card, job, oracle=False, collective="nccl", falling=True,
                            tag="mesh-8b")
-        mesh_numbers(card, job, docs, tag="mesh-8b")
+        numbers[mesh_label(job)] = mesh_numbers(card, job, docs, tag="mesh-8b")
+    log("[mesh-8b] bf16 Llama-3-8B, 32 layers, four cards, in this call: " + "; ".join(
+        f"{label}: step p50 {n['p50_ms']:.2f} ms, {n['tokens_s']:.1f} tokens/s, "
+        f"{n['tokens_s'] / 4:.1f} a card" for label, n in numbers.items()) + f"  [{card}]")
     _, one = phase_train_bf16(torch, dev, card,
                               dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2))
     gc.collect()
@@ -3829,13 +3935,18 @@ def mesh_param_atol(steps):
 
 
 def mesh_job(family, dp, pp, *, widths, layers, dtype, batch, seq, steps, m=1, device="cuda",
-             profile=False):
+             profile=False, tp=1, sp=1):
     """A phase-12 job: what every rank process and the one-process oracle
     of it are given (JSON).  ``widths`` ``"8b"`` (Llama-3-8B) or
-    ``"tiny"``; ``m`` the pipeline's microbatches."""
-    return {"family": family, "dp": dp, "pp": pp, "widths": widths, "layers": layers,
-            "dtype": dtype, "batch": batch, "seq": seq, "steps": steps, "m": m,
-            "device": device, "profile": profile, "oracle": None}
+    ``"tiny"``; ``m`` the pipeline's microbatches; ``tp`` and ``sp`` the
+    Llama family's tensor- and sequence-parallel axes."""
+    return {"family": family, "dp": dp, "tp": tp, "sp": sp, "pp": pp, "widths": widths,
+            "layers": layers, "dtype": dtype, "batch": batch, "seq": seq, "steps": steps,
+            "m": m, "device": device, "profile": profile, "oracle": None}
+
+
+def mesh_world(job):
+    return job["dp"] * job["tp"] * job["sp"] * job["pp"]
 
 
 def mesh_label(job):
@@ -3844,7 +3955,8 @@ def mesh_label(job):
     if job["family"] == "pipeline":
         shape = f"pp {job['pp']} x dp {job['dp']}, M {job['m']}"
     else:
-        shape = f"dense dp {job['dp']}"
+        shape = "dense " + " x ".join(f"{a} {job[a]}" for a in ("dp", "tp", "sp")
+                                      if a == "dp" or job[a] > 1)
     return f"{shape}, {job['dtype']}, {cut}, B {job['batch']}, T {job['seq']}"
 
 
@@ -3915,8 +4027,13 @@ def mesh_gate(torch, job, mesh, params, grads, losses):
     the steps, the worst first-step gradient (max abs error over the
     oracle leaf's largest |value|) and the worst param after the last step
     (max abs error), each with its leaf; a NaN or inf anywhere is inf.
-    The oracle's pipeline stage leaves are sliced to the rank's stage."""
+    The oracle's pipeline stage leaves are sliced to the rank's stage, its
+    layer weights to the rank's tensor-parallel slice (``param_specs``),
+    slice against slice."""
     from cordum_tpu_torch import optim
+    from cordum_tpu_torch.models import llama
+
+    split = llama.param_specs(mesh_config(torch, job))["layers"][0]
 
     with open(os.path.join(job["oracle"], "oracle.json")) as f:
         want = json.load(f)
@@ -3931,6 +4048,9 @@ def mesh_gate(torch, job, mesh, params, grads, losses):
                            weights_only=True)
             if name.startswith("stages/"):
                 o = o[mesh.pp_rank:mesh.pp_rank + 1]
+            axis = split.get(name.split("/")[-1]) if name.startswith("layers/") else None
+            if mesh.tp > 1 and axis is not None:
+                o = llama._slice(o, axis, mesh.tp_rank, mesh.tp)
             got[kind] = o.to(p.device).float()
         if tuple(got["param"].shape) != tuple(p.shape):
             raise AssertionError(f"rank {mesh.rank}: leaf {name} {tuple(p.shape)} against the "
@@ -3962,7 +4082,7 @@ def train_rank(job, rank, mesh=None):
     from cordum_tpu_torch import optim
     from cordum_tpu_torch.parallel.mesh import MeshSpec, TrainMesh
 
-    world = job["dp"] * job["pp"]
+    world = mesh_world(job)
     if job["device"] == "cuda":
         # one rank a card where there are enough cards, else all on card 0
         dev = torch.device("cuda", rank if torch.cuda.device_count() >= world else 0)
@@ -3976,8 +4096,8 @@ def train_rank(job, rank, mesh=None):
     if own:
         store = dist.TCPStore("127.0.0.1", job["port"], world, rank == 0,
                               datetime.timedelta(seconds=MESH_TIMEOUT_S), wait_for_workers=False)
-        mesh = TrainMesh.join(store, rank, world, dev, spec=MeshSpec(dp=job["dp"], pp=job["pp"]),
-                              timeout_s=MESH_TIMEOUT_S)
+        spec = MeshSpec(dp=job["dp"], tp=job["tp"], sp=job["sp"], pp=job["pp"])
+        mesh = TrainMesh.join(store, rank, world, dev, spec=spec, timeout_s=MESH_TIMEOUT_S)
     try:
         init, step, toks, base = mesh_train_step(torch, job, dev, mesh)
         t0 = time.monotonic()
@@ -4008,6 +4128,7 @@ def train_rank(job, rank, mesh=None):
                **{k: {c: v - first[k][c] for c, v in getattr(mesh, k).items()}
                   for k in ("host_s", "calls")},
                "launches": [n["dense_attention_fwd"], n["dense_attention_bwd"]],
+               "chunk_launches": [n["dense_attention_fwd_sp"], n["dense_attention_bwd_sp"]],
                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else 0.0,
                "n_layers": base.n_layers}
         if job["oracle"]:
@@ -4047,12 +4168,11 @@ def train_rank_main(args):
 
 
 def run_train_ranks(job, workdir):
-    """Spawn the job's ``dp x pp`` rank processes (rank r on card r where
-    the host has a card a rank, else all on card 0); returns each rank's
-    numbers.  A rank that
-    fails or outlives the deadline fails the run, with every rank's log
-    tail printed."""
-    world = job["dp"] * job["pp"]
+    """Spawn the job's rank processes, one a mesh rank (rank r on card r
+    where the host has a card a rank, else all on card 0); returns each
+    rank's numbers.  A rank that fails or outlives the deadline fails the
+    run, with every rank's log tail printed."""
+    world = mesh_world(job)
     job = dict(job, port=free_port(), out=workdir)
     path = os.path.join(workdir, "job.json")
     with open(path, "w") as f:
@@ -4084,15 +4204,20 @@ def run_train_ranks(job, workdir):
 
 def mesh_launches(job, docs):
     """Each rank's B9 launches must be its layers x microbatches x steps
-    (the pipeline: ``L/S`` layers a stage, M microbatches; dense dp: every
-    layer once a step), forward and backward; returns their sums."""
+    (the pipeline: ``L/S`` layers a stage, M microbatches; the dense
+    family: every layer once a step), forward and backward; with sp above
+    1 every one of them a chunk's (queries and keys of other lengths), else
+    none (so a chunk's launches sum to the returned sums where sp is
+    above 1).  Returns their sums."""
     steps = job["steps"]
     layers = docs[0]["n_layers"]
     want = (layers // job["pp"] * job["m"] if job["family"] == "pipeline" else layers) * steps
+    chunk = want if job["sp"] > 1 else 0
     for d in docs:
-        if d["launches"] != [want, want]:
+        if d["launches"] != [want, want] or d["chunk_launches"] != [chunk, chunk]:
             raise AssertionError(f"{mesh_label(job)}: rank {d['rank']}'s B9 launches "
-                                 f"{d['launches']}, {want} each expected")
+                                 f"{d['launches']}, of them a chunk's {d['chunk_launches']}; "
+                                 f"{want} each expected, {chunk} a chunk's")
     return [sum(d["launches"][0] for d in docs), sum(d["launches"][1] for d in docs)]
 
 
@@ -4143,10 +4268,10 @@ def check_mesh_ranks(card, job, docs, *, collective=None, falling=False, tag="me
 
 
 def mesh_numbers(card, job, docs, tag="mesh-train"):
-    """12.4 and 12.5's numbers: the loss, step p50 (steps 2 on; the ranks
-    step together, so the slowest rank's), tokens/s and tokens/s a card,
-    each rank's peak memory, parameter bytes and host ms inside P2P calls
-    and all-reduces a step, and the profiled stages' device busy share
+    """12.4, 12.5 and 12.9's numbers: the loss, step p50 (steps 2 on; the
+    ranks step together, so the slowest rank's), tokens/s and tokens/s a
+    card, each rank's peak memory, parameter bytes and host ms inside each
+    kind of collective a step, and the profiled stages' device busy share
     beside the bubble model (a stage computes at most M / (M + S - 1) of
     the time).  Returns step p50 ms and tokens/s."""
     world, steps = len(docs), job["steps"]
@@ -4159,13 +4284,13 @@ def mesh_numbers(card, job, docs, tag="mesh-train"):
         f"2-{steps}, the slowest rank), first step {max(d['step_s'][0] for d in docs) * 1e3:.2f} "
         f"ms; {tokens / p50:.1f} tokens/s, {tokens / p50 / world:.1f} tokens/s a card  [{card}]")
     for d in docs:
-        per = {k: d["host_s"][k] / (steps - 1) * 1e3 for k in ("p2p", "all_reduce")}
-        log(f"[{tag}] rank {d['rank']} {d['coords']['dp']},{d['coords']['pp']} (dp,pp): peak "
+        where = ",".join(str(d["coords"][a]) for a in ("dp", "tp", "sp", "pp"))
+        inside = ", ".join(
+            f"{kind} {d['host_s'][kind] / (steps - 1) * 1e3:.2f} "
+            f"({d['calls'][kind] // (steps - 1)} calls)" for kind in d["host_s"])
+        log(f"[{tag}] rank {d['rank']} {where} (dp,tp,sp,pp): peak "
             f"{d['peak_gib']:.2f} GiB, parameters {d['param_bytes'] / 2**30:.2f} GiB, drawn in "
-            f"{d['init_s']:.1f} s; host ms a step (steps 2-{steps}) inside P2P "
-            f"{per['p2p']:.2f} ({d['calls']['p2p'] // (steps - 1)} calls), inside all-reduces "
-            f"{per['all_reduce']:.2f} ({d['calls']['all_reduce'] // (steps - 1)} calls)  "
-            f"[{card}]")
+            f"{d['init_s']:.1f} s; host ms a step (steps 2-{steps}) inside {inside}  [{card}]")
         prof = d.get("profile")
         if prof:
             s, m = job["pp"], job["m"] if job["family"] == "pipeline" else 1
@@ -4181,13 +4306,17 @@ def mesh_numbers(card, job, docs, tag="mesh-train"):
 
 def mesh_leg(torch, dev, card, job, *, oracle, collective=None, falling=False, tag="mesh"):
     """One job: its one-process oracle on ``dev`` first (freed before the
-    ranks start) when ``oracle``, then its rank processes, gated.  Returns
-    the ranks' numbers and their B9 launches."""
+    ranks start) when ``oracle`` is True, the oracle directory of an
+    earlier job of the same model, batch and steps when it is a path; then
+    its rank processes, gated.  Returns the ranks' numbers and their B9
+    launches."""
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="cordum-mesh-") as workdir:
-        if oracle:
+        if oracle is True:
             mesh_oracle(torch, dev, card, job, workdir)
+        elif oracle:
+            job["oracle"] = oracle
         docs = run_train_ranks(job, workdir)
         launches = check_mesh_ranks(card, job, docs, collective=collective, falling=falling,
                                     tag=tag)
@@ -4195,22 +4324,35 @@ def mesh_leg(torch, dev, card, job, *, oracle, collective=None, falling=False, t
 
 
 def phase_mesh(torch, dev, card):
-    """12.1-12.2 on the one card (gloo rank processes sharing it).
-    Returns B9's launches, forward and backward (fp32)."""
+    """12.1, 12.2, 12.7 and 12.8 on the one card (gloo rank processes
+    sharing it).  Returns B9's launches by kernel row and dtype (the sp
+    rows: the chunks' launches, 12.7's and 12.8's)."""
     jobs = [
         # 12.1: 11.1's configuration over two ranks, one AdamW step
-        mesh_job("pipeline", 1, 2, widths="8b", layers=2, dtype="float32", batch=2, seq=256,
-                 steps=1, m=2),
+        (mesh_job("pipeline", 1, 2, widths="8b", layers=2, dtype="float32", batch=2, seq=256,
+                  steps=1, m=2), True, False),
         # 12.2: dp 2 x pp 2, four processes, a falling loss over 3 steps
-        mesh_job("pipeline", 2, 2, widths="tiny", layers=4, dtype="float32", batch=4, seq=64,
-                 steps=3, m=2),
+        (mesh_job("pipeline", 2, 2, widths="tiny", layers=4, dtype="float32", batch=4, seq=64,
+                  steps=3, m=2), True, True),
+        # 12.7: dense tp 2 x sp 2, four processes, held to the one-process step
+        (mesh_job("llama", 1, 1, tp=2, sp=2, widths="tiny", layers=4, dtype="float32",
+                  batch=4, seq=64, steps=3), True, True),
+        # 12.8: the same mesh in bf16 at Llama-3-8B widths, 2 layers, T 4096
+        # (half the --cards leg's sequence: four ranks share the card): a
+        # falling loss
+        (mesh_job("llama", 1, 1, tp=2, sp=2, widths="8b", layers=2, dtype="bfloat16",
+                  batch=1, seq=4096, steps=3), False, True),
     ]
-    fwd = bwd = 0
-    for job, falling in zip(jobs, (False, True)):
-        _, (f, b) = mesh_leg(torch, dev, card, job, oracle=True, collective="gloo",
+    launches = {row: {"float32": 0, "bfloat16": 0} for row in
+                ("dense_attention_fwd", "dense_attention_bwd", *CHUNK_ROWS)}
+    for job, oracle, falling in jobs:
+        _, (f, b) = mesh_leg(torch, dev, card, job, oracle=oracle, collective="gloo",
                              falling=falling)
-        fwd, bwd = fwd + f, bwd + b
-    return fwd, bwd
+        for row, n in zip(("dense_attention_fwd", "dense_attention_bwd"), (f, b)):
+            launches[row][job["dtype"]] += n
+            if job["sp"] > 1:
+                launches[row + "_sp"][job["dtype"]] += n
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4304,7 +4446,8 @@ def main() -> int:
     pipe, pipe_b1 = phase_pipeline(torch, dev, smi, cfg8b, dense_step)
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_fwd, mesh_bwd = phase_mesh(torch, dev, smi)
+    kernel.update(phase_sp_chunk_kernel(torch, dev, smi))
+    mesh = phase_mesh(torch, dev, smi)
 
     # phase 8's worker process serves an fp32 Llama and the bf16 embedder
     launches = {
@@ -4320,14 +4463,17 @@ def main() -> int:
             "bfloat16": train["dense_attention_fwd"]["bfloat16"]
             + worker["bfloat16"]["dense_attention_fwd"]},
         "dense_attention_bwd": train["dense_attention_bwd"],
+        # the sequence chunks' launches: phase 12.7's and 12.8's ranks
+        **{name: mesh[name] for name in CHUNK_ROWS},
         **{name: moe[name] for name in MOE_KERNELS},
         "paged_attention_tp2": gang,
     }
     # phase 11.4's serving leg runs B1 at full heads (fp32)
     launches["paged_attention"]["float32"] += pipe_b1
-    # phase 12's rank processes (fp32)
-    launches["dense_attention_fwd"]["float32"] += mesh_fwd
-    launches["dense_attention_bwd"]["float32"] += mesh_bwd
+    # phase 12's rank processes
+    for name in ("dense_attention_fwd", "dense_attention_bwd"):
+        for dtype in ("float32", "bfloat16"):
+            launches[name][dtype] += mesh[name][dtype]
     # phase 9's MoE runs and phase 11's pipeline runs launch B9 too
     for name in ("dense_attention_fwd", "dense_attention_bwd"):
         for dtype in ("float32", "bfloat16"):

@@ -5,7 +5,10 @@
 // (cordum_tpu/models/llama.py, _attention: the `scores` einsum, the causal
 // -1e30 mask, the fp32 softmax and the `probs @ v` einsum) as _block calls it
 // with q_offset = positions, and the gradient XLA derives for it under
-// jax.value_and_grad in loss_fn.  XLA keeps [B, H, T, T] fp32 scores and
+// jax.value_and_grad in loss_fn.  That includes the sequence-parallel call
+// (_block's all-gather flavour over an sp mesh axis): a rank's queries are
+// its Tq = T / sp chunk at their global positions, its keys and values the
+// whole gathered Tk = T; so queries and keys have lengths of their own.  XLA keeps [B, H, T, T] fp32 scores and
 // probabilities in device memory (and autograd keeps them for every layer);
 // here a block's scores never leave it, and the backward recomputes them from
 // the row statistics the forward saves (lse = max + log(sum), fp32 [B, H, T]).
@@ -15,11 +18,12 @@
 //     reference's einsum output), then cast to fp32 and multiplied by
 //     1/sqrt(head_dim) (the reference divides; the two differ by at most one
 //     fp32 ulp);
-//   * the mask is k_index <= positions[b, q]; a masked score is left out of
+//   * the mask is k_index <= positions[b, q] (k_index < Tk: a position at or
+//     past Tk reaches every key); a masked score is left out of
 //     the softmax (weight exactly 0, which is what exp(-1e30 - max) gives
 //     the reference when the row has a live key).  A row whose position is
-//     negative has no live key: the reference's softmax over T equal -1e30s
-//     is uniform over all T keys, and so it is here (every score counts as
+//     negative has no live key: the reference's softmax over Tk equal -1e30s
+//     is uniform over all Tk keys, and so it is here (every score counts as
 //     0), with no gradient into q or k (the reference's `where` blocks it);
 //   * an fp32 online softmax (running max and sum per row); the weights
 //     exp(s - max) are rounded to the input dtype before the PV product and
@@ -35,7 +39,10 @@
 //     pass: the dQ sweep without its product, before dK/dV and dQ).  D =
 //     rowsum(dO * O) equals it only in exact arithmetic: the bf16 output is
 //     built from weights rounded to bf16, and on a three-key row the dq it
-//     gives is twice the plain version's worst row from exact.  fp32 keeps
+//     gives is twice the plain version's worst row from exact.  A sequence
+//     chunk's row sees all its live keys (K and V are the gathered whole),
+//     so its D is the row's own, as at Tq == Tk; a ring chunk's would not
+//     be.  fp32 keeps
 //     D = rowsum(dO * O) (a pre-pass, one warp a row), where O carries the
 //     fp32 weights.
 //
@@ -45,7 +52,8 @@
 // gradients, so the kernels are bound by the tensor cores in bf16 and by the
 // CUDA cores in fp32.  Key tiles past a block's largest position (wholly
 // above the causal diagonal) are neither loaded nor multiplied, which halves
-// the work; only tiles that cross a row's position (or T) are masked.  The
+// the work; only tiles that cross a row's position (or Tk, for keys) are
+// masked, and rows past Tq are neither stored nor counted.  The
 // backward recomputes P in both of its passes (14 * head_dim a pair; bf16's
 // D pass forms S and dP once more, 18 * head_dim).  In bf16 two more costs
 // rival the products: the softmax's exponentials (the special-function units
@@ -70,7 +78,7 @@
 //     conversion of one value is a slow instruction, and with it the
 //     softmax, not the products, set the forward's pace).
 //     - forward: a block per (batch, g query heads of one KV head, 128 / g
-//       positions); a consumer's 64 rows are (position, head) pairs, g heads
+//       query positions of Tq); a consumer's 64 rows are (position, head) pairs, g heads
 //       a position (g the largest power of two dividing H / KVH, at most 16:
 //       rows (t, head) of one KV head are adjacent in [B, T, H, hd]), so
 //       each K/V tile feeds the group's heads at once.  S = Q K^T with wgmma
@@ -79,7 +87,7 @@
 //       registers of O += P V (B the V tile, transposed by the instruction).
 //       128-key tiles; K and V in rings of their own (2 and 4 stages): a K
 //       tile is free as soon as QK^T has read it, a V tile a step later.
-//     - dK/dV: a block per (batch, KV head, 128 keys), 64 keys a consumer,
+//     - dK/dV: a block per (batch, KV head, 128 keys of Tk), 64 keys a consumer,
 //       K and V resident in shared memory.  The producer streams the 32-row
 //       Q and dO tiles of every query head of the group that reach those
 //       keys (marked per tile from `positions`), with their positions,
@@ -122,10 +130,12 @@
 //     the same blocks and key tiles, a row's sum reduced across its quad;
 //     in fp32 a pre-pass, one warp per (batch, position, head) row.
 //
-// Layouts: q [B, T, H, hd], k and v [B, T, KVH, hd], contiguous; positions
-// [B, T] int32; out, dO and dq [B, T, H, hd]; dk, dv [B, T, KVH, hd]; lse
-// and D [B, H, T] fp32.  head_dim 16, 64 or 128; any T >= 1.  The TMA maps are encoded on the host at every call
-// (cuTensorMapEncodeTiled found through the CUDA runtime: no libcuda link).
+// Layouts: q [B, Tq, H, hd], k and v [B, Tk, KVH, hd], contiguous; positions
+// [B, Tq] int32; out, dO and dq [B, Tq, H, hd]; dk, dv [B, Tk, KVH, hd]; lse
+// and D [B, H, Tq] fp32.  head_dim 16, 64 or 128; any Tq, Tk >= 1.  The TMA
+// maps are encoded on the host at every call, Q, out and dO over Tq rows, K
+// and V over Tk (cuTensorMapEncodeTiled found through the CUDA runtime: no
+// libcuda link).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -216,20 +226,20 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long base,
   }
 }
 
-// The positions of query rows q0 .. q0 + n into s_pos (0 past T) and the
-// number of keys they reach: T when a row has no live key (it attends to
-// all), else the largest position + 1, at most T.  NT threads; ends with a
+// The positions of query rows q0 .. q0 + n into s_pos (0 past Tq) and the
+// number of keys they reach: Tk when a row has no live key (it attends to
+// all), else the largest position + 1, at most Tk.  NT threads; ends with a
 // barrier.
 template <int NT>
-__device__ __forceinline__ int key_span(const int* pos_b, int q0, int n, int T_len, int* s_pos,
-                                        int* s_span) {
+__device__ __forceinline__ int key_span(const int* pos_b, int q0, int n, int Tq, int Tk,
+                                        int* s_pos, int* s_span) {
   if (threadIdx.x == 0) {
     s_span[0] = -1;
     s_span[1] = 0;
   }
   __syncthreads();
   for (int r = threadIdx.x; r < n; r += NT) {
-    const bool ok = q0 + r < T_len;
+    const bool ok = q0 + r < Tq;
     const int p = ok ? pos_b[q0 + r] : 0;
     s_pos[r] = p;
     if (ok) {
@@ -238,15 +248,15 @@ __device__ __forceinline__ int key_span(const int* pos_b, int q0, int n, int T_l
     }
   }
   __syncthreads();
-  return s_span[1] ? T_len : min(T_len, s_span[0] + 1);
+  return s_span[1] ? Tk : min(Tk, s_span[0] + 1);
 }
 
-// Which of the n_qt query tiles of `tile` rows reach keys from k0 on (a row
-// with no live key reaches all), a bit each in `need`; by NT threads of
-// warps, ends with a barrier.
+// Which of the n_qt query tiles of `tile` rows (of Tq) reach keys from k0 on
+// (a row with no live key reaches all), a bit each in `need`; by NT threads
+// of warps, ends with a barrier.
 template <int NT>
 __device__ __forceinline__ void mark_tiles(unsigned* need, const int* pos_b, int n_qt, int tile,
-                                           int k0, int T_len) {
+                                           int k0, int Tq) {
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   for (int w = threadIdx.x; w < (n_qt + 31) / 32; w += NT) need[w] = 0u;
   __syncthreads();
@@ -254,8 +264,8 @@ __device__ __forceinline__ void mark_tiles(unsigned* need, const int* pos_b, int
     bool reach = false;
     for (int i = lane; i < tile; i += kWarp) {
       const int r = t * tile + i;
-      const int p = r < T_len ? pos_b[r] : 0;
-      reach |= r < T_len && (p < 0 || p >= k0);
+      const int p = r < Tq ? pos_b[r] : 0;
+      reach |= r < Tq && (p < 0 || p >= k0);
     }
     if (__any_sync(~0u, reach) && lane == 0) atomicOr(&need[t / 32], 1u << (t % 32));
   }
@@ -335,7 +345,7 @@ template <int HD>
 __global__ void __launch_bounds__(kMmaThreads)
 dense_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const int* __restrict__ pos, bf16* __restrict__ out,
-               float* __restrict__ lse, int T_len, int H, int KVH, float scale) {
+               float* __restrict__ lse, int Tq, int Tk, int H, int KVH, float scale) {
   constexpr int S = kSrow<bf16, HD>;
   constexpr int NT = kFwdKeys / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -349,15 +359,15 @@ dense_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the longest rows first
   const int kvh = h / (H / KVH);
   const long long qstride = (long long)H * HD, kstride = (long long)KVH * HD;
-  const long long qbase = (long long)b * T_len * qstride + (long long)h * HD;
-  const long long kbase = (long long)b * T_len * kstride + (long long)kvh * HD;
+  const long long qbase = (long long)b * Tq * qstride + (long long)h * HD;
+  const long long kbase = (long long)b * Tk * kstride + (long long)kvh * HD;
 
-  load_rows<bf16, HD, kMmaThreads>(qs, q, qbase, qstride, q0, kRows, T_len);
+  load_rows<bf16, HD, kMmaThreads>(qs, q, qbase, qstride, q0, kRows, Tq);
   const int kv_end =
-      key_span<kMmaThreads>(pos + (long long)b * T_len, q0, kRows, T_len, s_pos, s_span);
+      key_span<kMmaThreads>(pos + (long long)b * Tq, q0, kRows, Tq, Tk, s_pos, s_span);
   const int n_tiles = (kv_end + kFwdKeys - 1) / kFwdKeys;
-  load_rows<bf16, HD, kMmaThreads>(ks, k, kbase, kstride, 0, kFwdKeys, T_len);
-  load_rows<bf16, HD, kMmaThreads>(vs, v, kbase, kstride, 0, kFwdKeys, T_len);
+  load_rows<bf16, HD, kMmaThreads>(ks, k, kbase, kstride, 0, kFwdKeys, Tk);
+  load_rows<bf16, HD, kMmaThreads>(vs, v, kbase, kstride, 0, kFwdKeys, Tk);
   cp_async_commit();
 
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
@@ -372,9 +382,9 @@ dense_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
     const int buf = j & 1;
     if (j + 1 < n_tiles) {
       load_rows<bf16, HD, kMmaThreads>(ks + (buf ^ 1) * kFwdKeys * S, k, kbase, kstride,
-                                       (j + 1) * kFwdKeys, kFwdKeys, T_len);
+                                       (j + 1) * kFwdKeys, kFwdKeys, Tk);
       load_rows<bf16, HD, kMmaThreads>(vs + (buf ^ 1) * kFwdKeys * S, v, kbase, kstride,
-                                       (j + 1) * kFwdKeys, kFwdKeys, T_len);
+                                       (j + 1) * kFwdKeys, kFwdKeys, Tk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -393,7 +403,7 @@ dense_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
         const int key = j * kFwdKeys + n * 8 + (lane % 4) * 2 + (e & 1);
         const int p = prow[e / 2];
         float x;
-        if (key >= T_len) x = -INFINITY;  // not a key
+        if (key >= Tk) x = -INFINITY;  // not a key
         else if (p < 0) x = 0.f;          // no live key: uniform, as the reference
         else x = key <= p ? round_bf16(s[n][e]) * scale : -INFINITY;
         s[n][e] = x;
@@ -435,13 +445,13 @@ dense_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = q0 + ra + 8 * half;
-    if (row >= T_len) continue;
+    if (row >= Tq) continue;
     const float inv = 1.f / l[half];
     const long long at = qbase + (long long)row * qstride + (lane % 4) * 2;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
       store2(out + at + n * 8, acc[n][2 * half] * inv, acc[n][2 * half + 1] * inv);
-    if (lane % 4 == 0) lse[((long long)b * H + h) * T_len + row] = m[half] + logf(l[half]);
+    if (lane % 4 == 0) lse[((long long)b * H + h) * Tq + row] = m[half] + logf(l[half]);
   }
 }
 
@@ -457,7 +467,7 @@ dense_attention_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
                const bf16* __restrict__ v, const int* __restrict__ pos,
                const bf16* __restrict__ dout, const float* __restrict__ lse,
                const float* __restrict__ D, bf16* __restrict__ dk, bf16* __restrict__ dv,
-               int T_len, int H, int KVH, float scale) {
+               int Tq, int Tk, int H, int KVH, float scale) {
   constexpr int S = kSrow<bf16, HD>;
   constexpr int QT = kBwdTile;
   constexpr int NT = QT / 8;
@@ -473,14 +483,14 @@ dense_attention_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
   const int b = blockIdx.z, kvh = blockIdx.y;
   const int k0 = blockIdx.x * kRows;  // the keys most queries reach first
   const int rep = H / KVH;
-  const int n_qt = (T_len + QT - 1) / QT;
+  const int n_qt = (Tq + QT - 1) / QT;
   const int total = rep * n_qt;  // (query head of the group, query tile) items
-  const int* pos_b = pos + (long long)b * T_len;
+  const int* pos_b = pos + (long long)b * Tq;
   const long long qstride = (long long)H * HD, kstride = (long long)KVH * HD;
-  const long long kbase = (long long)b * T_len * kstride + (long long)kvh * HD;
+  const long long kbase = (long long)b * Tk * kstride + (long long)kvh * HD;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
 
-  mark_tiles<kMmaThreads>(need, pos_b, n_qt, QT, k0, T_len);
+  mark_tiles<kMmaThreads>(need, pos_b, n_qt, QT, k0, Tq);
   auto next_item = [&](int item) {
     for (++item; item < total; ++item) {
       const int t = item % n_qt;
@@ -490,21 +500,21 @@ dense_attention_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
   };
   auto stage = [&](int item, int buf) {
     const int h = kvh * rep + item / n_qt, r0 = (item % n_qt) * QT;
-    const long long qbase = (long long)b * T_len * qstride + (long long)h * HD;
-    load_rows<bf16, HD, kMmaThreads>(qs + buf * QT * S, q, qbase, qstride, r0, QT, T_len);
-    load_rows<bf16, HD, kMmaThreads>(dos + buf * QT * S, dout, qbase, qstride, r0, QT, T_len);
+    const long long qbase = (long long)b * Tq * qstride + (long long)h * HD;
+    load_rows<bf16, HD, kMmaThreads>(qs + buf * QT * S, q, qbase, qstride, r0, QT, Tq);
+    load_rows<bf16, HD, kMmaThreads>(dos + buf * QT * S, dout, qbase, qstride, r0, QT, Tq);
     for (int i = threadIdx.x; i < QT; i += kMmaThreads) {
       const int r = r0 + i;
-      const bool ok = r < T_len;
-      const long long at = ((long long)b * H + h) * T_len + r;
+      const bool ok = r < Tq;
+      const long long at = ((long long)b * H + h) * Tq + r;
       rowpos[buf * QT + i] = ok ? pos_b[r] : 0;
       rowf[buf * 2 * QT + i] = ok ? lse[at] : 0.f;
       rowf[buf * 2 * QT + QT + i] = ok ? D[at] : 0.f;
     }
   };
 
-  load_rows<bf16, HD, kMmaThreads>(ks, k, kbase, kstride, k0, kRows, T_len);
-  load_rows<bf16, HD, kMmaThreads>(vs, v, kbase, kstride, k0, kRows, T_len);
+  load_rows<bf16, HD, kMmaThreads>(ks, k, kbase, kstride, k0, kRows, Tk);
+  load_rows<bf16, HD, kMmaThreads>(vs, v, kbase, kstride, k0, kRows, Tk);
   int item = next_item(-1);
   if (item < total) stage(item, 0);
   cp_async_commit();
@@ -547,7 +557,7 @@ dense_attention_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
         const int qi = n * 8 + (lane % 4) * 2 + (e & 1);
         const int kj = key[e / 2];
         const int p = pos_s[qi];
-        const bool valid = r0 + qi < T_len && kj < T_len;
+        const bool valid = r0 + qi < Tq && kj < Tk;
         const bool live = valid && p >= 0 && kj <= p;
         const float x = live ? round_bf16(st[n][e]) * scale : 0.f;
         const float prob = (live || (valid && p < 0)) ? __expf(x - lse_s[qi]) : 0.f;
@@ -562,7 +572,7 @@ dense_attention_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
   }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    if (key[half] >= T_len) continue;
+    if (key[half] >= Tk) continue;
     const long long at = kbase + (long long)key[half] * kstride + (lane % 4) * 2;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
@@ -584,7 +594,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 dense_attention_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const int* __restrict__ pos,
               const bf16* __restrict__ dout, const float* __restrict__ lse,
-              float* __restrict__ D, bf16* __restrict__ dq, int T_len, int H, int KVH,
+              float* __restrict__ D, bf16* __restrict__ dq, int Tq, int Tk, int H, int KVH,
               float scale) {
   constexpr int S = kSrow<bf16, HD>;
   constexpr int KT = kBwdTile;
@@ -601,16 +611,16 @@ dense_attention_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
   const int kvh = h / (H / KVH);
   const long long qstride = (long long)H * HD, kstride = (long long)KVH * HD;
-  const long long qbase = (long long)b * T_len * qstride + (long long)h * HD;
-  const long long kbase = (long long)b * T_len * kstride + (long long)kvh * HD;
+  const long long qbase = (long long)b * Tq * qstride + (long long)h * HD;
+  const long long kbase = (long long)b * Tk * kstride + (long long)kvh * HD;
 
-  load_rows<bf16, HD, kMmaThreads>(qs, q, qbase, qstride, q0, kRows, T_len);
-  load_rows<bf16, HD, kMmaThreads>(dos, dout, qbase, qstride, q0, kRows, T_len);
+  load_rows<bf16, HD, kMmaThreads>(qs, q, qbase, qstride, q0, kRows, Tq);
+  load_rows<bf16, HD, kMmaThreads>(dos, dout, qbase, qstride, q0, kRows, Tq);
   const int kv_end =
-      key_span<kMmaThreads>(pos + (long long)b * T_len, q0, kRows, T_len, s_pos, s_span);
+      key_span<kMmaThreads>(pos + (long long)b * Tq, q0, kRows, Tq, Tk, s_pos, s_span);
   const int n_tiles = (kv_end + KT - 1) / KT;
-  load_rows<bf16, HD, kMmaThreads>(ks, k, kbase, kstride, 0, KT, T_len);
-  load_rows<bf16, HD, kMmaThreads>(vs, v, kbase, kstride, 0, KT, T_len);
+  load_rows<bf16, HD, kMmaThreads>(ks, k, kbase, kstride, 0, KT, Tk);
+  load_rows<bf16, HD, kMmaThreads>(vs, v, kbase, kstride, 0, KT, Tk);
   cp_async_commit();
 
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
@@ -621,9 +631,9 @@ dense_attention_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + ra + 8 * i;
-    vrow[i] = row < T_len;
+    vrow[i] = row < Tq;
     prow[i] = s_pos[ra + 8 * i];
-    const long long at = ((long long)b * H + h) * T_len + row;
+    const long long at = ((long long)b * H + h) * Tq + row;
     lrow[i] = vrow[i] ? lse[at] : 0.f;
     drow[i] = vrow[i] && !kD ? D[at] : 0.f;
   }
@@ -636,9 +646,9 @@ dense_attention_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
     const int buf = j & 1;
     if (j + 1 < n_tiles) {
       load_rows<bf16, HD, kMmaThreads>(ks + (buf ^ 1) * KT * S, k, kbase, kstride,
-                                       (j + 1) * KT, KT, T_len);
+                                       (j + 1) * KT, KT, Tk);
       load_rows<bf16, HD, kMmaThreads>(vs + (buf ^ 1) * KT * S, v, kbase, kstride,
-                                       (j + 1) * KT, KT, T_len);
+                                       (j + 1) * KT, KT, Tk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -658,7 +668,7 @@ dense_attention_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
       for (int e = 0; e < 4; ++e) {
         const int kj = j * KT + n * 8 + (lane % 4) * 2 + (e & 1);
         const int i = e / 2;
-        const bool live = vrow[i] && kj < T_len && prow[i] >= 0 && kj <= prow[i];
+        const bool live = vrow[i] && kj < Tk && prow[i] >= 0 && kj <= prow[i];
         const float prob = live ? __expf(round_bf16(s[n][e]) * scale - lrow[i]) : 0.f;
         if constexpr (kD) dsum[i] = fmaf(prob, dp[n][e], dsum[i]);
         s[n][e] = live ? prob * (dp[n][e] - drow[i]) * scale : 0.f;
@@ -672,7 +682,7 @@ dense_attention_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
       dsum[i] += __shfl_xor_sync(~0u, dsum[i], 1);
       dsum[i] += __shfl_xor_sync(~0u, dsum[i], 2);
       const int row = q0 + ra + 8 * i;
-      if (vrow[i] && lane % 4 == 0) D[((long long)b * H + h) * T_len + row] = dsum[i];
+      if (vrow[i] && lane % 4 == 0) D[((long long)b * H + h) * Tq + row] = dsum[i];
     }
     return;
   }
@@ -803,7 +813,7 @@ template <int HD>
 __global__ void __launch_bounds__(kF32Threads)
 dense_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const int* __restrict__ pos,
-               float* __restrict__ out, float* __restrict__ lse, int T_len, int H, int KVH,
+               float* __restrict__ out, float* __restrict__ lse, int Tq, int Tk, int H, int KVH,
                float scale) {
   constexpr int S = kSrow<float, HD>;
   constexpr int KT = kF32FwdKeys<HD>, NJ = KT / 16;
@@ -819,15 +829,15 @@ dense_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restr
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kF32Rows;  // the longest rows first
   const int kvh = h / (H / KVH);
   const long long qstride = (long long)H * HD, kstride = (long long)KVH * HD;
-  const long long qbase = (long long)b * T_len * qstride + (long long)h * HD;
-  const long long kbase = (long long)b * T_len * kstride + (long long)kvh * HD;
+  const long long qbase = (long long)b * Tq * qstride + (long long)h * HD;
+  const long long kbase = (long long)b * Tk * kstride + (long long)kvh * HD;
 
-  load_rows<float, HD, kF32Threads>(qs, q, qbase, qstride, q0, kF32Rows, T_len);
+  load_rows<float, HD, kF32Threads>(qs, q, qbase, qstride, q0, kF32Rows, Tq);
   const int kv_end =
-      key_span<kF32Threads>(pos + (long long)b * T_len, q0, kF32Rows, T_len, s_pos, s_span);
+      key_span<kF32Threads>(pos + (long long)b * Tq, q0, kF32Rows, Tq, Tk, s_pos, s_span);
   const int n_tiles = (kv_end + KT - 1) / KT;
-  load_rows<float, HD, kF32Threads>(ks, k, kbase, kstride, 0, KT, T_len);
-  load_rows<float, HD, kF32Threads>(vs, v, kbase, kstride, 0, KT, T_len);
+  load_rows<float, HD, kF32Threads>(ks, k, kbase, kstride, 0, KT, Tk);
+  load_rows<float, HD, kF32Threads>(vs, v, kbase, kstride, 0, KT, Tk);
   cp_async_commit();
 
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
@@ -847,9 +857,9 @@ dense_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restr
     const int buf = j & 1;
     if (j + 1 < n_tiles) {
       load_rows<float, HD, kF32Threads>(ks + (buf ^ 1) * KT * S, k, kbase, kstride,
-                                        (j + 1) * KT, KT, T_len);
+                                        (j + 1) * KT, KT, Tk);
       load_rows<float, HD, kF32Threads>(vs + (buf ^ 1) * KT * S, v, kbase, kstride,
-                                        (j + 1) * KT, KT, T_len);
+                                        (j + 1) * KT, KT, Tk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -871,7 +881,7 @@ dense_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restr
         const int key = j * KT + tc + 16 * jj;
         const int p = prow[i];
         float x;
-        if (key >= T_len) x = -INFINITY;  // not a key
+        if (key >= Tk) x = -INFINITY;  // not a key
         else if (p < 0) x = 0.f;          // no live key: uniform, as the reference
         else x = key <= p ? s[i][jj] * scale : -INFINITY;
         s[i][jj] = x;
@@ -904,9 +914,9 @@ dense_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restr
     for (int o = 1; o < 16; o <<= 1) l[i] += __shfl_xor_sync(~0u, l[i], o);
     inv[i] = 1.f / l[i];
     const int row = q0 + tr * 4 + i;
-    if (tc == 0 && row < T_len) lse[((long long)b * H + h) * T_len + row] = m[i] + logf(l[i]);
+    if (tc == 0 && row < Tq) lse[((long long)b * H + h) * Tq + row] = m[i] + logf(l[i]);
   }
-  f32_store_rows<HD>(out + qbase, qstride, acc, q0 + tr * 4, T_len, tc, inv);
+  f32_store_rows<HD>(out + qbase, qstride, acc, q0 + tr * 4, Tq, tc, inv);
 }
 
 template <int HD>
@@ -920,7 +930,7 @@ __global__ void __launch_bounds__(kF32Threads, 1)  // shared memory allows one b
 dense_attention_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const int* __restrict__ pos,
               const float* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ D, float* __restrict__ dq, int T_len, int H, int KVH,
+              const float* __restrict__ D, float* __restrict__ dq, int Tq, int Tk, int H, int KVH,
               float scale) {
   constexpr int S = kSrow<float, HD>;
   constexpr int KT = kF32DqKeys<HD>, NJ = KT / 16;
@@ -937,16 +947,16 @@ dense_attention_dq_f32_kernel(const float* __restrict__ q, const float* __restri
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kF32Rows;
   const int kvh = h / (H / KVH);
   const long long qstride = (long long)H * HD, kstride = (long long)KVH * HD;
-  const long long qbase = (long long)b * T_len * qstride + (long long)h * HD;
-  const long long kbase = (long long)b * T_len * kstride + (long long)kvh * HD;
+  const long long qbase = (long long)b * Tq * qstride + (long long)h * HD;
+  const long long kbase = (long long)b * Tk * kstride + (long long)kvh * HD;
 
-  load_rows<float, HD, kF32Threads>(qs, q, qbase, qstride, q0, kF32Rows, T_len);
-  load_rows<float, HD, kF32Threads>(dos, dout, qbase, qstride, q0, kF32Rows, T_len);
+  load_rows<float, HD, kF32Threads>(qs, q, qbase, qstride, q0, kF32Rows, Tq);
+  load_rows<float, HD, kF32Threads>(dos, dout, qbase, qstride, q0, kF32Rows, Tq);
   const int kv_end =
-      key_span<kF32Threads>(pos + (long long)b * T_len, q0, kF32Rows, T_len, s_pos, s_span);
+      key_span<kF32Threads>(pos + (long long)b * Tq, q0, kF32Rows, Tq, Tk, s_pos, s_span);
   const int n_tiles = (kv_end + KT - 1) / KT;
-  load_rows<float, HD, kF32Threads>(ks, k, kbase, kstride, 0, KT, T_len);
-  load_rows<float, HD, kF32Threads>(vs, v, kbase, kstride, 0, KT, T_len);
+  load_rows<float, HD, kF32Threads>(ks, k, kbase, kstride, 0, KT, Tk);
+  load_rows<float, HD, kF32Threads>(vs, v, kbase, kstride, 0, KT, Tk);
   cp_async_commit();
 
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
@@ -956,9 +966,9 @@ dense_attention_dq_f32_kernel(const float* __restrict__ q, const float* __restri
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + tr * 4 + i;
-    vrow[i] = row < T_len;
+    vrow[i] = row < Tq;
     prow[i] = s_pos[tr * 4 + i];
-    const long long at = ((long long)b * H + h) * T_len + row;
+    const long long at = ((long long)b * H + h) * Tq + row;
     lrow[i] = vrow[i] ? lse[at] : 0.f;
     drow[i] = vrow[i] ? D[at] : 0.f;
 #pragma unroll
@@ -969,9 +979,9 @@ dense_attention_dq_f32_kernel(const float* __restrict__ q, const float* __restri
     const int buf = j & 1;
     if (j + 1 < n_tiles) {
       load_rows<float, HD, kF32Threads>(ks + (buf ^ 1) * KT * S, k, kbase, kstride,
-                                        (j + 1) * KT, KT, T_len);
+                                        (j + 1) * KT, KT, Tk);
       load_rows<float, HD, kF32Threads>(vs + (buf ^ 1) * KT * S, v, kbase, kstride,
-                                        (j + 1) * KT, KT, T_len);
+                                        (j + 1) * KT, KT, Tk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -990,7 +1000,7 @@ dense_attention_dq_f32_kernel(const float* __restrict__ q, const float* __restri
 #pragma unroll
       for (int jj = 0; jj < NJ; ++jj) {
         const int kj = j * KT + tc + 16 * jj;
-        const bool live = vrow[i] && kj < T_len && prow[i] >= 0 && kj <= prow[i];
+        const bool live = vrow[i] && kj < Tk && prow[i] >= 0 && kj <= prow[i];
         const float prob = live ? expf(s[i][jj] * scale - lrow[i]) : 0.f;
         s[i][jj] = live ? prob * (dp[i][jj] - drow[i]) * scale : 0.f;
       }
@@ -999,7 +1009,7 @@ dense_attention_dq_f32_kernel(const float* __restrict__ q, const float* __restri
     f32_nn<HD, KT>(acc, wt + tr * 4, ks + buf * KT * S + f32_col<HD>(tc, 0));  // dQ += dS K
     __syncthreads();
   }
-  f32_store_rows<HD>(dq + qbase, qstride, acc, q0 + tr * 4, T_len, tc, nullptr);
+  f32_store_rows<HD>(dq + qbase, qstride, acc, q0 + tr * 4, Tq, tc, nullptr);
 }
 
 template <int HD>
@@ -1015,7 +1025,7 @@ dense_attention_dkv_f32_kernel(const float* __restrict__ q, const float* __restr
                const float* __restrict__ v, const int* __restrict__ pos,
                const float* __restrict__ dout, const float* __restrict__ lse,
                const float* __restrict__ D, float* __restrict__ dk, float* __restrict__ dv,
-               int T_len, int H, int KVH, float scale) {
+               int Tq, int Tk, int H, int KVH, float scale) {
   constexpr int S = kSrow<float, HD>;
   constexpr int QT = kF32DkvRows<HD>, NJ = QT / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1032,13 +1042,13 @@ dense_attention_dkv_f32_kernel(const float* __restrict__ q, const float* __restr
   const int b = blockIdx.z, kvh = blockIdx.y;
   const int k0 = blockIdx.x * kF32Rows;  // the keys most queries reach first
   const int rep = H / KVH;
-  const int n_qt = (T_len + QT - 1) / QT;
+  const int n_qt = (Tq + QT - 1) / QT;
   const int total = rep * n_qt;
-  const int* pos_b = pos + (long long)b * T_len;
+  const int* pos_b = pos + (long long)b * Tq;
   const long long qstride = (long long)H * HD, kstride = (long long)KVH * HD;
-  const long long kbase = (long long)b * T_len * kstride + (long long)kvh * HD;
+  const long long kbase = (long long)b * Tk * kstride + (long long)kvh * HD;
 
-  mark_tiles<kF32Threads>(need, pos_b, n_qt, QT, k0, T_len);
+  mark_tiles<kF32Threads>(need, pos_b, n_qt, QT, k0, Tq);
   auto next_item = [&](int item) {
     for (++item; item < total; ++item) {
       const int t = item % n_qt;
@@ -1048,21 +1058,21 @@ dense_attention_dkv_f32_kernel(const float* __restrict__ q, const float* __restr
   };
   auto stage = [&](int item, int buf) {
     const int h = kvh * rep + item / n_qt, r0 = (item % n_qt) * QT;
-    const long long qbase = (long long)b * T_len * qstride + (long long)h * HD;
-    load_rows<float, HD, kF32Threads>(qs + buf * QT * S, q, qbase, qstride, r0, QT, T_len);
-    load_rows<float, HD, kF32Threads>(dos + buf * QT * S, dout, qbase, qstride, r0, QT, T_len);
+    const long long qbase = (long long)b * Tq * qstride + (long long)h * HD;
+    load_rows<float, HD, kF32Threads>(qs + buf * QT * S, q, qbase, qstride, r0, QT, Tq);
+    load_rows<float, HD, kF32Threads>(dos + buf * QT * S, dout, qbase, qstride, r0, QT, Tq);
     for (int i = threadIdx.x; i < QT; i += kF32Threads) {
       const int r = r0 + i;
-      const bool ok = r < T_len;
-      const long long at = ((long long)b * H + h) * T_len + r;
+      const bool ok = r < Tq;
+      const long long at = ((long long)b * H + h) * Tq + r;
       rowpos[buf * QT + i] = ok ? pos_b[r] : 0;
       rowf[buf * 2 * QT + i] = ok ? lse[at] : 0.f;
       rowf[buf * 2 * QT + QT + i] = ok ? D[at] : 0.f;
     }
   };
 
-  load_rows<float, HD, kF32Threads>(ks, k, kbase, kstride, k0, kF32Rows, T_len);
-  load_rows<float, HD, kF32Threads>(vs, v, kbase, kstride, k0, kF32Rows, T_len);
+  load_rows<float, HD, kF32Threads>(ks, k, kbase, kstride, k0, kF32Rows, Tk);
+  load_rows<float, HD, kF32Threads>(vs, v, kbase, kstride, k0, kF32Rows, Tk);
   int item = next_item(-1);
   if (item < total) stage(item, 0);
   cp_async_commit();
@@ -1105,7 +1115,7 @@ dense_attention_dkv_f32_kernel(const float* __restrict__ q, const float* __restr
         const int qi = tc + 16 * jj;
         const int kj = k0 + tr * 4 + i;
         const int p = pos_s[qi];
-        const bool valid = r0 + qi < T_len && kj < T_len;
+        const bool valid = r0 + qi < Tq && kj < Tk;
         const bool live = valid && p >= 0 && kj <= p;
         const float x = live ? st[i][jj] * scale : 0.f;
         const float prob = (live || (valid && p < 0)) ? expf(x - lse_s[qi]) : 0.f;
@@ -1121,8 +1131,8 @@ dense_attention_dkv_f32_kernel(const float* __restrict__ q, const float* __restr
     item = nxt;
     buf ^= 1;
   }
-  f32_store_rows<HD>(dk + kbase, kstride, dk_acc, k0 + tr * 4, T_len, tc, nullptr);
-  f32_store_rows<HD>(dv + kbase, kstride, dv_acc, k0 + tr * 4, T_len, tc, nullptr);
+  f32_store_rows<HD>(dk + kbase, kstride, dk_acc, k0 + tr * 4, Tk, tc, nullptr);
+  f32_store_rows<HD>(dv + kbase, kstride, dv_acc, k0 + tr * 4, Tk, tc, nullptr);
 }
 
 // ===========================================================================
@@ -1384,14 +1394,15 @@ __device__ __forceinline__ T* align1024(unsigned char* p) {
 // The forward and dQ blocks: two consumers of 64 rows, each row a (position,
 // head) pair with g heads a position.  Per consumer: the smallest position
 // over its rows (any row with no live key makes it negative) and its key
-// span (largest position + 1, or T when a row has no live key, at most T;
-// in dQ rows at a negative position are left out: they send no gradient).
+// span (largest position + 1, or Tk when a row has no live key, at most Tk;
+// in dQ rows at a negative position are left out: they send no gradient);
+// rows at or past Tq are not rows.
 struct RowStats {
   int lo[2], span[2];
 };
 
 __device__ __forceinline__ void row_stats(RowStats* st, const int* pos_b, int t0, int per_wg,
-                                          int T_len, bool dq) {
+                                          int Tq, int Tk, bool dq) {
   if (threadIdx.x < 2) {
     st->lo[threadIdx.x] = INT_MAX;
     st->span[threadIdx.x] = 0;
@@ -1399,10 +1410,10 @@ __device__ __forceinline__ void row_stats(RowStats* st, const int* pos_b, int t0
   __syncthreads();
   for (int r = threadIdx.x; r < 2 * per_wg; r += kHopperThreads) {
     const int t = t0 + r;
-    if (t >= T_len) continue;
+    if (t >= Tq) continue;
     const int p = pos_b[t], c = r / per_wg;
     atomicMin(&st->lo[c], p);
-    atomicMax(&st->span[c], p < 0 ? (dq ? 0 : T_len) : min(T_len, p + 1));
+    atomicMax(&st->span[c], p < 0 ? (dq ? 0 : Tk) : min(Tk, p + 1));
   }
   __syncthreads();
 }
@@ -1416,11 +1427,11 @@ __device__ __forceinline__ void row_stats(RowStats* st, const int* pos_b, int t0
 template <int BN>
 __device__ __forceinline__ void tile_softmax(float (&sc)[BN / 2], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2],
-                                             int key0, int T_len, int lo, const int (&prow)[2],
+                                             int key0, int Tk, int lo, const int (&prow)[2],
                                              int lane, float scale, float sl2) {
 #pragma unroll
   for (int i = 0; i < BN / 4; ++i) round2_bf16(sc[2 * i], sc[2 * i + 1]);
-  if (!(key0 + BN <= T_len && key0 + BN - 1 <= lo)) {  // a key of the tile is dead for a row
+  if (!(key0 + BN <= Tk && key0 + BN - 1 <= lo)) {  // a key of the tile is dead for a row
 #pragma unroll
     for (int n = 0; n < BN / 8; ++n)
 #pragma unroll
@@ -1428,8 +1439,8 @@ __device__ __forceinline__ void tile_softmax(float (&sc)[BN / 2], float (&m)[2],
         const int key = key0 + n * 8 + (lane % 4) * 2 + (e & 1);
         const int p = prow[e / 2];
         float& x = sc[4 * n + e];
-        // past T: not a key; p < 0: no live key, uniform as the reference
-        x = key >= T_len ? -INFINITY : p < 0 ? 0.f : key <= p ? x : -INFINITY;
+        // past Tk: not a key; p < 0: no live key, uniform as the reference
+        x = key >= Tk ? -INFINITY : p < 0 ? 0.f : key <= p ? x : -INFINITY;
       }
   }
   float mx[2] = {-INFINITY, -INFINITY};
@@ -1461,12 +1472,12 @@ __device__ __forceinline__ void tile_softmax(float (&sc)[BN / 2], float (&m)[2],
 // weights).  lrow is lse * log2 e.
 template <int BK>
 __device__ __forceinline__ void tile_ds(float (&sc)[BK / 2], const float (&dp)[BK / 2],
-                                        int key0, int T_len, int lo,
+                                        int key0, int Tk, int lo,
                                         const int (&prow)[2], const float (&lrow)[2],
                                         const float (&drow)[2], int lane, float scale, float sl2) {
 #pragma unroll
   for (int i = 0; i < BK / 4; ++i) round2_bf16(sc[2 * i], sc[2 * i + 1]);
-  if (key0 + BK <= T_len && key0 + BK - 1 <= lo) {  // every key of the tile live for every row
+  if (key0 + BK <= Tk && key0 + BK - 1 <= lo) {  // every key of the tile live for every row
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       const int h = (i / 2) % 2;
@@ -1479,7 +1490,7 @@ __device__ __forceinline__ void tile_ds(float (&sc)[BK / 2], const float (&dp)[B
       for (int e = 0; e < 4; ++e) {
         const int i = 4 * n + e, h = e / 2;
         const int kj = key0 + n * 8 + (lane % 4) * 2 + (e & 1);
-        const bool live = kj < T_len && prow[h] >= 0 && kj <= prow[h];
+        const bool live = kj < Tk && prow[h] >= 0 && kj <= prow[h];
         const float ds = ex2(fmaf(sc[i], sl2, -lrow[h])) * (dp[i] - drow[h]) * scale;
         sc[i] = live ? ds : 0.f;
       }
@@ -1505,7 +1516,7 @@ template <int HD>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 dense_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const int* __restrict__ pos,
-                  bf16* __restrict__ out, float* __restrict__ lse, int T_len, int H, int KVH,
+                  bf16* __restrict__ out, float* __restrict__ lse, int Tq, int Tk, int H, int KVH,
                   int g, float scale) {
   using C = HopperFwd<HD>;
   constexpr int BN = C::BN;
@@ -1523,9 +1534,9 @@ dense_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const _
   const int per_wg = 64 / g;  // positions of a consumer's rows
   const int b = blockIdx.z, h0 = blockIdx.y * g, kvh = h0 / (H / KVH);
   const int t0 = (gridDim.x - 1 - blockIdx.x) * 2 * per_wg;  // the longest rows first
-  const int* pos_b = pos + (long long)b * T_len;
-  const int n_wg = t0 + per_wg < T_len ? 2 : 1;  // consumers with rows
-  row_stats(&st, pos_b, t0, per_wg, T_len, false);
+  const int* pos_b = pos + (long long)b * Tq;
+  const int n_wg = t0 + per_wg < Tq ? 2 : 1;  // consumers with rows
+  row_stats(&st, pos_b, t0, per_wg, Tq, Tk, false);
   const int n_tiles = uniform((max(st.span[0], st.span[1]) + BN - 1) / BN);
   if (threadIdx.x == 0) {
     mbar_init(&q_full[0], 1);
@@ -1580,7 +1591,7 @@ dense_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const _
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = tw0 + (warp * 16 + lane / 4 + 8 * i) / g;
-    prow[i] = t < T_len ? pos_b[t] : 0;
+    prow[i] = t < Tq ? pos_b[t] : 0;
   }
   const bf16* qc = qs + c * C::Q_EL;
   float o[HD / 2];
@@ -1605,7 +1616,7 @@ dense_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const _
   wg_wait<0>();
   keep(sc);
   release(&k_empty[0], lane);
-  tile_softmax<BN>(sc, m, l, alpha, 0, T_len, lo, prow, lane, scale, sl2);
+  tile_softmax<BN>(sc, m, l, alpha, 0, Tk, lo, prow, lane, scale, sl2);
   to_a<BN>(pc, sc);
   for (int j = 1; j < n_mine; ++j) {
     const int sk = j % C::KSTAGES, pv = (j - 1) % C::VSTAGES;
@@ -1627,7 +1638,7 @@ dense_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const _
     wg_wait<1>();
     keep(sc);
     release(&k_empty[sk], lane);
-    tile_softmax<BN>(sc, m, l, alpha, j * BN, T_len, lo, prow, lane, scale, sl2);
+    tile_softmax<BN>(sc, m, l, alpha, j * BN, Tk, lo, prow, lane, scale, sl2);
     wg_wait<0>();
     keep(o);
     keep(pc);
@@ -1669,13 +1680,13 @@ dense_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const _
   for (int half = 0; half < 2; ++half) {
     const int r = warp * 16 + lane / 4 + 8 * half;
     const int t = tw0 + r / g, head = h0 + r % g;
-    if (t >= T_len) continue;
+    if (t >= Tq) continue;
     const float inv = 1.f / l[half];
-    const long long at = (((long long)b * T_len + t) * H + head) * HD + (lane % 4) * 2;
+    const long long at = (((long long)b * Tq + t) * H + head) * HD + (lane % 4) * 2;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
       store2(out + at + n * 8, o[4 * n + 2 * half] * inv, o[4 * n + 2 * half + 1] * inv);
-    if (lane % 4 == 0) lse[((long long)b * H + head) * T_len + t] = m[half] + logf(l[half]);
+    if (lane % 4 == 0) lse[((long long)b * H + head) * Tq + t] = m[half] + logf(l[half]);
   }
 }
 
@@ -1702,7 +1713,7 @@ dense_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const _
                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                   const int* __restrict__ pos, const float* __restrict__ lse,
                   const float* __restrict__ D, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                  int T_len, int H, int KVH, float scale) {
+                  int Tq, int Tk, int H, int KVH, float scale) {
   using C = HopperDkv<HD>;
   constexpr int BQ = C::BQ;
   extern __shared__ unsigned char smem_raw[];
@@ -1722,10 +1733,10 @@ dense_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const _
   const int b = blockIdx.z, kvh = blockIdx.y;
   const int k0 = blockIdx.x * C::BK;  // the keys most queries reach first
   const int rep = H / KVH;
-  const int n_qt = (T_len + BQ - 1) / BQ;
-  const int* pos_b = pos + (long long)b * T_len;
-  const int n_wg = k0 + 64 < T_len ? 2 : 1;  // consumers with keys
-  mark_tiles<kHopperThreads>(need, pos_b, n_qt, BQ, k0, T_len);
+  const int n_qt = (Tq + BQ - 1) / BQ;
+  const int* pos_b = pos + (long long)b * Tq;
+  const int n_wg = k0 + 64 < Tk ? 2 : 1;  // consumers with keys
+  mark_tiles<kHopperThreads>(need, pos_b, n_qt, BQ, k0, Tq);
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     for (int s = 0; s < C::STAGES; ++s) {
@@ -1758,9 +1769,9 @@ dense_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const _
         int lo = INT_MAX;
         for (int i = lane; i < BQ; i += kWarp) {
           const int row = qt * BQ + i;
-          const bool ok = row < T_len;
+          const bool ok = row < Tq;
           const int p = ok ? pos_b[row] : 0;
-          const long long at = ((long long)b * H + h) * T_len + row;
+          const long long at = ((long long)b * H + h) * Tq + row;
           rpos[s * BQ + i] = p;
           rlse[s * BQ + i] = ok ? lse[at] * kLog2e : 0.f;
           rd[s * BQ + i] = ok ? D[at] : 0.f;
@@ -1769,7 +1780,7 @@ dense_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const _
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) lo = min(lo, __shfl_xor_sync(~0u, lo, o));
         if (lane == 0) {
-          rlo[s] = lo;  // the smallest position (-1 where the tile passes T)
+          rlo[s] = lo;  // the smallest position (-1 where the tile passes Tq)
           mbar_expect_tx(&full[s], 2 * C::T_EL * sizeof(bf16));
           for (int x = 0; x < HD / kBox; ++x) {
             tma_load(qs + s * C::T_EL + x * BQ * kBox, &tq, &full[s], x * kBox, h, qt * BQ, b);
@@ -1843,8 +1854,8 @@ dense_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const _
       const int* pq = rpos + s * BQ;
       const float* lq = rlse + s * BQ;
       const float* dd = rd + s * BQ;  // D of the tile's rows
-      // every row of the tile is in T and reaches every key of this consumer
-      const bool open = lo >= kc + 63 && kc + 63 < T_len;
+      // every row of the tile is in Tq and reaches every key of this consumer
+      const bool open = lo >= kc + 63 && kc + 63 < Tk;
       const int q0 = qt * BQ;
       unsigned dead = 0u;  // a bit per weight that sends no dS
 #pragma unroll
@@ -1863,7 +1874,7 @@ dense_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const _
             const int qi = n * 8 + (lane % 4) * 2 + (e & 1);
             const int i = 4 * n + e;
             const int kj = key[e / 2], p = pq[qi];
-            const bool valid = q0 + qi < T_len && kj < T_len;
+            const bool valid = q0 + qi < Tq && kj < Tk;
             const bool live = valid && p >= 0 && kj <= p;
             // a row without a live key (p < 0) attends uniformly (score 0)
             // but sends no dS
@@ -1904,10 +1915,10 @@ dense_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const _
   keep(da);
   if (ps >= 0) release(&empty[ps], lane);
   const long long kstride = (long long)KVH * HD;
-  const long long kbase = (long long)b * T_len * kstride + (long long)kvh * HD;
+  const long long kbase = (long long)b * Tk * kstride + (long long)kvh * HD;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    if (key[half] >= T_len) continue;
+    if (key[half] >= Tk) continue;
     const long long at = kbase + (long long)key[half] * kstride + (lane % 4) * 2;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
@@ -1921,19 +1932,19 @@ dense_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const _
 // over the tile's live keys, added into dsum, from the same P as tile_ds.
 template <int BK>
 __device__ __forceinline__ void tile_dsum(float (&dsum)[2], float (&sc)[BK / 2],
-                                          const float (&dp)[BK / 2], int key0, int T_len, int lo,
+                                          const float (&dp)[BK / 2], int key0, int Tk, int lo,
                                           const int (&prow)[2], const float (&lrow)[2], int lane,
                                           float sl2) {
 #pragma unroll
   for (int i = 0; i < BK / 4; ++i) round2_bf16(sc[2 * i], sc[2 * i + 1]);
-  const bool open = key0 + BK <= T_len && key0 + BK - 1 <= lo;
+  const bool open = key0 + BK <= Tk && key0 + BK - 1 <= lo;
 #pragma unroll
   for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = 4 * n + e, h = e / 2;
       const int kj = key0 + n * 8 + (lane % 4) * 2 + (e & 1);
-      const bool live = open || (kj < T_len && prow[h] >= 0 && kj <= prow[h]);
+      const bool live = open || (kj < Tk && prow[h] >= 0 && kj <= prow[h]);
       const float pdp = ex2(fmaf(sc[i], sl2, -lrow[h])) * dp[i];
       dsum[h] += live ? pdp : 0.f;
     }
@@ -1957,7 +1968,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 dense_attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                  const int* __restrict__ pos, const float* __restrict__ lse,
-                 float* __restrict__ D, bf16* __restrict__ dq, int T_len, int H, int KVH,
+                 float* __restrict__ D, bf16* __restrict__ dq, int Tq, int Tk, int H, int KVH,
                  int g, float scale) {
   using C = HopperDq<HD>;
   constexpr int BK = C::BK;
@@ -1974,9 +1985,9 @@ dense_attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __
   const int per_wg = 64 / g;
   const int b = blockIdx.z, h0 = blockIdx.y * g, kvh = h0 / (H / KVH);
   const int t0 = (gridDim.x - 1 - blockIdx.x) * 2 * per_wg;
-  const int* pos_b = pos + (long long)b * T_len;
-  const int n_wg = t0 + per_wg < T_len ? 2 : 1;
-  row_stats(&st, pos_b, t0, per_wg, T_len, true);
+  const int* pos_b = pos + (long long)b * Tq;
+  const int n_wg = t0 + per_wg < Tq ? 2 : 1;
+  row_stats(&st, pos_b, t0, per_wg, Tq, Tk, true);
   const int n_tiles = uniform((max(st.span[0], st.span[1]) + BK - 1) / BK);
   if (threadIdx.x == 0) {
     mbar_init(&q_full[0], 1);
@@ -2029,9 +2040,9 @@ dense_attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __
     const int r = warp * 16 + lane / 4 + 8 * i;
     trow[i] = tw0 + r / g;
     hrow[i] = h0 + r % g;
-    const bool ok = trow[i] < T_len;
-    const long long at = ((long long)b * H + hrow[i]) * T_len + trow[i];
-    prow[i] = ok ? pos_b[trow[i]] : -1;  // a row past T takes no key
+    const bool ok = trow[i] < Tq;
+    const long long at = ((long long)b * H + hrow[i]) * Tq + trow[i];
+    prow[i] = ok ? pos_b[trow[i]] : -1;  // a row past Tq takes no key
     lrow[i] = ok ? lse[at] * kLog2e : 0.f;
     drow[i] = ok && !kD ? D[at] : 0.f;
   }
@@ -2063,7 +2074,7 @@ dense_attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __
       keep(s_);
       keep(d_);
       release(&empty[j % C::STAGES], lane);
-      tile_dsum<BK>(dsum, s_, d_, j * BK, T_len, lo, prow, lrow, lane, sl2);
+      tile_dsum<BK>(dsum, s_, d_, j * BK, Tk, lo, prow, lrow, lane, sl2);
     };
     if (n_mine > 0) {
       issue(sc, dp, 0);
@@ -2095,8 +2106,8 @@ dense_attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __
     for (int i = 0; i < 2; ++i) {
       dsum[i] += __shfl_xor_sync(~0u, dsum[i], 1);
       dsum[i] += __shfl_xor_sync(~0u, dsum[i], 2);
-      if (trow[i] < T_len && lane % 4 == 0)
-        D[((long long)b * H + hrow[i]) * T_len + trow[i]] = dsum[i];
+      if (trow[i] < Tq && lane % 4 == 0)
+        D[((long long)b * H + hrow[i]) * Tq + trow[i]] = dsum[i];
     }
     return;
   }
@@ -2120,7 +2131,7 @@ dense_attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __
     wg_wait<0>();
     keep(sc);
     keep(dp);
-    tile_ds<BK>(sc, dp, 0, T_len, lo, prow, lrow, drow, lane, scale, sl2);
+    tile_ds<BK>(sc, dp, 0, Tk, lo, prow, lrow, drow, lane, scale, sl2);
     to_a<BK>(dc, sc);
     for (int j = 1; j < n_mine; ++j) {
       const int s = j % C::STAGES, ps = (j - 1) % C::STAGES;
@@ -2145,7 +2156,7 @@ dense_attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __
       wg_wait<1>();
       keep(sc);
       keep(dp);
-      tile_ds<BK>(sc, dp, j * BK, T_len, lo, prow, lrow, drow, lane, scale, sl2);
+      tile_ds<BK>(sc, dp, j * BK, Tk, lo, prow, lrow, drow, lane, scale, sl2);
       wg_wait<0>();
       keep(acc);
       keep(dc);
@@ -2168,8 +2179,8 @@ dense_attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __
   }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    if (trow[half] >= T_len) continue;
-    bf16* dst = dq + (((long long)b * T_len + trow[half]) * H + hrow[half]) * HD + (lane % 4) * 2;
+    if (trow[half] >= Tq) continue;
+    bf16* dst = dq + (((long long)b * Tq + trow[half]) * H + hrow[half]) * HD + (lane % 4) * 2;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
       store2(dst + n * 8, acc[4 * n + 2 * half], acc[4 * n + 2 * half + 1]);
@@ -2186,7 +2197,7 @@ constexpr int kPreWarps = 8;
 template <int HD>
 __global__ void __launch_bounds__(kPreWarps * kWarp)
 dense_attention_pre_kernel(const float* __restrict__ out, const float* __restrict__ dout,
-                           float* __restrict__ D, long long rows, int T_len, int H) {
+                           float* __restrict__ D, long long rows, int Tq, int H) {
   const long long row = (long long)blockIdx.x * kPreWarps + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (row >= rows) return;
@@ -2197,8 +2208,8 @@ dense_attention_pre_kernel(const float* __restrict__ out, const float* __restric
   if (lane == 0) {
     const int h = (int)(row % H);
     const long long bt = row / H;
-    const long long b = bt / T_len, t = bt % T_len;
-    D[(b * H + h) * T_len + t] = acc;
+    const long long b = bt / Tq, t = bt % Tq;
+    D[(b * H + h) * Tq + t] = acc;
   }
 }
 
@@ -2226,17 +2237,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map over a bf16 [B, T, heads, HD] tensor whose boxes are 64 columns x
-// box_heads heads x box_rows positions of one batch row, 128-byte swizzled;
-// positions past T read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int HD, int heads, int T_len, int B,
+// A map over a bf16 [B, rows, heads, HD] tensor (rows Tq for Q, out and dO,
+// Tk for K and V) whose boxes are 64 columns x box_heads heads x box_rows
+// positions of one batch row, 128-byte swizzled; positions past the rows
+// read as zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int HD, int heads, int rows, int B,
               int box_heads, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)T_len,
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)rows,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)heads * HD * 2,
-                                 (cuuint64_t)T_len * heads * HD * 2};
+                                 (cuuint64_t)rows * heads * HD * 2};
   const cuuint32_t box[4] = {(cuuint32_t)kBox, (cuuint32_t)box_heads, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
@@ -2253,41 +2265,41 @@ int group_of(int H, int KVH) {
 
 template <int HD>
 int launch_fwd_bf16(const void* q, const void* k, const void* v, const int* pos, void* out,
-                    float* lse, int B, int T_len, int H, int KVH, float scale, cudaStream_t s) {
+                    float* lse, int B, int Tq, int Tk, int H, int KVH, float scale, cudaStream_t s) {
   if constexpr (HD == 16) {
     constexpr size_t smem = mma_fwd_smem<HD>();
     cudaError_t e = set_smem((const void*)dense_attention_fwd_mma_kernel<HD>, smem);
     if (e != cudaSuccess) return (int)e;
-    dense_attention_fwd_mma_kernel<HD><<<dim3((T_len + kRows - 1) / kRows, H, B), kMmaThreads, smem, s>>>(
+    dense_attention_fwd_mma_kernel<HD><<<dim3((Tq + kRows - 1) / kRows, H, B), kMmaThreads, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        pos, static_cast<bf16*>(out), lse, T_len, H, KVH, scale);
+        pos, static_cast<bf16*>(out), lse, Tq, Tk, H, KVH, scale);
   } else {
     using C = HopperFwd<HD>;
     const int g = group_of(H, KVH);
     CUtensorMap tq, tk, tv;
-    if (!make_map(&tq, q, HD, H, T_len, B, g, 64 / g) ||
-        !make_map(&tk, k, HD, KVH, T_len, B, 1, C::BN) ||
-        !make_map(&tv, v, HD, KVH, T_len, B, 1, C::BN))
+    if (!make_map(&tq, q, HD, H, Tq, B, g, 64 / g) ||
+        !make_map(&tk, k, HD, KVH, Tk, B, 1, C::BN) ||
+        !make_map(&tv, v, HD, KVH, Tk, B, 1, C::BN))
       return (int)cudaErrorInvalidValue;
     cudaError_t e = set_smem((const void*)dense_attention_fwd_wgmma_kernel<HD>, C::smem());
     if (e != cudaSuccess) return (int)e;
     const int rows_t = 128 / g;  // positions a block covers
-    dense_attention_fwd_wgmma_kernel<HD><<<dim3((T_len + rows_t - 1) / rows_t, H / g, B), kHopperThreads,
+    dense_attention_fwd_wgmma_kernel<HD><<<dim3((Tq + rows_t - 1) / rows_t, H / g, B), kHopperThreads,
                             C::smem(), s>>>(tq, tk, tv, pos, static_cast<bf16*>(out), lse,
-                                            T_len, H, KVH, g, scale);
+                                            Tq, Tk, H, KVH, g, scale);
   }
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_fwd_f32(const void* q, const void* k, const void* v, const int* pos, void* out,
-                   float* lse, int B, int T_len, int H, int KVH, float scale, cudaStream_t s) {
+                   float* lse, int B, int Tq, int Tk, int H, int KVH, float scale, cudaStream_t s) {
   constexpr size_t smem = f32_fwd_smem<HD>();
   cudaError_t e = set_smem((const void*)dense_attention_fwd_f32_kernel<HD>, smem);
   if (e != cudaSuccess) return (int)e;
-  dense_attention_fwd_f32_kernel<HD><<<dim3((T_len + kF32Rows - 1) / kF32Rows, H, B), kF32Threads, smem, s>>>(
+  dense_attention_fwd_f32_kernel<HD><<<dim3((Tq + kF32Rows - 1) / kF32Rows, H, B), kF32Threads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      pos, static_cast<float*>(out), lse, T_len, H, KVH, scale);
+      pos, static_cast<float*>(out), lse, Tq, Tk, H, KVH, scale);
   return (int)cudaGetLastError();
 }
 
@@ -2295,69 +2307,69 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, const int* pos, 
 template <int HD>
 int launch_bwd_bf16(const void* q, const void* k, const void* v, const int* pos,
                     const void* dout, const float* lse, float* D, void* dq, void* dk, void* dv,
-                    int B, int T_len, int H, int KVH, float scale, cudaStream_t s) {
+                    int B, int Tq, int Tk, int H, int KVH, float scale, cudaStream_t s) {
   cudaError_t e;
   if constexpr (HD == 16) {
     constexpr size_t dqs = mma_dq_smem<HD>();
-    const dim3 dq_grid((T_len + kRows - 1) / kRows, H, B);
+    const dim3 dq_grid((Tq + kRows - 1) / kRows, H, B);
     e = set_smem((const void*)dense_attention_dq_mma_kernel<HD, true>, dqs);
     if (e != cudaSuccess) return (int)e;
     dense_attention_dq_mma_kernel<HD, true><<<dq_grid, kMmaThreads, dqs, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        pos, static_cast<const bf16*>(dout), lse, D, nullptr, T_len, H, KVH, scale);
+        pos, static_cast<const bf16*>(dout), lse, D, nullptr, Tq, Tk, H, KVH, scale);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    const int n_qt = (T_len + kBwdTile - 1) / kBwdTile;
+    const int n_qt = (Tq + kBwdTile - 1) / kBwdTile;
     const size_t dkv = mma_dkv_smem_fixed<HD>() + sizeof(unsigned) * ((n_qt + 31) / 32);
     e = set_smem((const void*)dense_attention_dkv_mma_kernel<HD>, dkv);
     if (e != cudaSuccess) return (int)e;
-    dense_attention_dkv_mma_kernel<HD><<<dim3((T_len + kRows - 1) / kRows, KVH, B), kMmaThreads, dkv, s>>>(
+    dense_attention_dkv_mma_kernel<HD><<<dim3((Tk + kRows - 1) / kRows, KVH, B), kMmaThreads, dkv, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         pos, static_cast<const bf16*>(dout), lse, D, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), T_len, H, KVH, scale);
+        static_cast<bf16*>(dv), Tq, Tk, H, KVH, scale);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     e = set_smem((const void*)dense_attention_dq_mma_kernel<HD, false>, dqs);
     if (e != cudaSuccess) return (int)e;
     dense_attention_dq_mma_kernel<HD, false><<<dq_grid, kMmaThreads, dqs, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        pos, static_cast<const bf16*>(dout), lse, D, static_cast<bf16*>(dq), T_len, H, KVH,
+        pos, static_cast<const bf16*>(dout), lse, D, static_cast<bf16*>(dq), Tq, Tk, H, KVH,
         scale);
   } else {
     using K = HopperDkv<HD>;
     using Q = HopperDq<HD>;
     const int g = group_of(H, KVH);
     CUtensorMap tq1, tdo1, tkb, tvb, tqg, tdog, tkt, tvt;
-    if (!make_map(&tq1, q, HD, H, T_len, B, 1, K::BQ) ||
-        !make_map(&tdo1, dout, HD, H, T_len, B, 1, K::BQ) ||
-        !make_map(&tkb, k, HD, KVH, T_len, B, 1, K::BK) ||
-        !make_map(&tvb, v, HD, KVH, T_len, B, 1, K::BK) ||
-        !make_map(&tqg, q, HD, H, T_len, B, g, 64 / g) ||
-        !make_map(&tdog, dout, HD, H, T_len, B, g, 64 / g) ||
-        !make_map(&tkt, k, HD, KVH, T_len, B, 1, Q::BK) ||
-        !make_map(&tvt, v, HD, KVH, T_len, B, 1, Q::BK))
+    if (!make_map(&tq1, q, HD, H, Tq, B, 1, K::BQ) ||
+        !make_map(&tdo1, dout, HD, H, Tq, B, 1, K::BQ) ||
+        !make_map(&tkb, k, HD, KVH, Tk, B, 1, K::BK) ||
+        !make_map(&tvb, v, HD, KVH, Tk, B, 1, K::BK) ||
+        !make_map(&tqg, q, HD, H, Tq, B, g, 64 / g) ||
+        !make_map(&tdog, dout, HD, H, Tq, B, g, 64 / g) ||
+        !make_map(&tkt, k, HD, KVH, Tk, B, 1, Q::BK) ||
+        !make_map(&tvt, v, HD, KVH, Tk, B, 1, Q::BK))
       return (int)cudaErrorInvalidValue;
     const int rows_t = 128 / g;
-    const dim3 dq_grid((T_len + rows_t - 1) / rows_t, H / g, B);
+    const dim3 dq_grid((Tq + rows_t - 1) / rows_t, H / g, B);
     e = set_smem((const void*)dense_attention_dq_wgmma_kernel<HD, true>, Q::smem());
     if (e != cudaSuccess) return (int)e;
     dense_attention_dq_wgmma_kernel<HD, true><<<dq_grid, kHopperThreads, Q::smem(), s>>>(
-        tqg, tkt, tvt, tdog, pos, lse, D, nullptr, T_len, H, KVH, g, scale);
+        tqg, tkt, tvt, tdog, pos, lse, D, nullptr, Tq, Tk, H, KVH, g, scale);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    const int n_qt = (T_len + K::BQ - 1) / K::BQ;
+    const int n_qt = (Tq + K::BQ - 1) / K::BQ;
     const size_t dkv = K::fixed() + sizeof(unsigned) * ((n_qt + 31) / 32);
     e = set_smem((const void*)dense_attention_dkv_wgmma_kernel<HD>, dkv);
     if (e != cudaSuccess) return (int)e;
-    dense_attention_dkv_wgmma_kernel<HD><<<dim3((T_len + K::BK - 1) / K::BK, KVH, B), kHopperThreads, dkv, s>>>(
-        tq1, tkb, tvb, tdo1, pos, lse, D, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T_len,
-        H, KVH, scale);
+    dense_attention_dkv_wgmma_kernel<HD><<<dim3((Tk + K::BK - 1) / K::BK, KVH, B), kHopperThreads, dkv, s>>>(
+        tq1, tkb, tvb, tdo1, pos, lse, D, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq,
+        Tk, H, KVH, scale);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     e = set_smem((const void*)dense_attention_dq_wgmma_kernel<HD, false>, Q::smem());
     if (e != cudaSuccess) return (int)e;
     dense_attention_dq_wgmma_kernel<HD, false><<<dq_grid, kHopperThreads, Q::smem(), s>>>(
-        tqg, tkt, tvt, tdog, pos, lse, D, static_cast<bf16*>(dq), T_len, H, KVH, g, scale);
+        tqg, tkt, tvt, tdog, pos, lse, D, static_cast<bf16*>(dq), Tq, Tk, H, KVH, g, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -2365,36 +2377,36 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v, const int* pos,
 template <int HD>
 int launch_bwd_f32(const void* q, const void* k, const void* v, const int* pos, const void* out,
                    const void* dout, const float* lse, float* D, void* dq, void* dk, void* dv,
-                   int B, int T_len, int H, int KVH, float scale, cudaStream_t s) {
-  const long long rows = (long long)B * T_len * H;
+                   int B, int Tq, int Tk, int H, int KVH, float scale, cudaStream_t s) {
+  const long long rows = (long long)B * Tq * H;
   dense_attention_pre_kernel<HD><<<(unsigned)((rows + kPreWarps - 1) / kPreWarps),
                                    kPreWarps * kWarp, 0, s>>>(
-      static_cast<const float*>(out), static_cast<const float*>(dout), D, rows, T_len, H);
+      static_cast<const float*>(out), static_cast<const float*>(dout), D, rows, Tq, H);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int n_qt = (T_len + kF32DkvRows<HD> - 1) / kF32DkvRows<HD>;
+  const int n_qt = (Tq + kF32DkvRows<HD> - 1) / kF32DkvRows<HD>;
   const size_t dkv = f32_dkv_smem_fixed<HD>() + sizeof(unsigned) * ((n_qt + 31) / 32);
   e = set_smem((const void*)dense_attention_dkv_f32_kernel<HD>, dkv);
   if (e != cudaSuccess) return (int)e;
-  dense_attention_dkv_f32_kernel<HD><<<dim3((T_len + kF32Rows - 1) / kF32Rows, KVH, B), kF32Threads, dkv, s>>>(
+  dense_attention_dkv_f32_kernel<HD><<<dim3((Tk + kF32Rows - 1) / kF32Rows, KVH, B), kF32Threads, dkv, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       pos, static_cast<const float*>(dout), lse, D, static_cast<float*>(dk),
-      static_cast<float*>(dv), T_len, H, KVH, scale);
+      static_cast<float*>(dv), Tq, Tk, H, KVH, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   constexpr size_t dqs = f32_dq_smem<HD>();
   e = set_smem((const void*)dense_attention_dq_f32_kernel<HD>, dqs);
   if (e != cudaSuccess) return (int)e;
-  dense_attention_dq_f32_kernel<HD><<<dim3((T_len + kF32Rows - 1) / kF32Rows, H, B), kF32Threads, dqs, s>>>(
+  dense_attention_dq_f32_kernel<HD><<<dim3((Tq + kF32Rows - 1) / kF32Rows, H, B), kF32Threads, dqs, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      pos, static_cast<const float*>(dout), lse, D, static_cast<float*>(dq), T_len, H, KVH,
+      pos, static_cast<const float*>(dout), lse, D, static_cast<float*>(dq), Tq, Tk, H, KVH,
       scale);
   return (int)cudaGetLastError();
 }
 
-bool args_ok(int dtype, int head_dim, int B, int T_len, int H, int KVH) {
+bool args_ok(int dtype, int head_dim, int B, int Tq, int Tk, int H, int KVH) {
   return (dtype == 0 || dtype == 1) && (head_dim == 16 || head_dim == 64 || head_dim == 128) &&
-         B >= 1 && B <= 65535 && T_len >= 1 && H >= 1 && H <= 65535 && KVH >= 1 &&
+         B >= 1 && B <= 65535 && Tq >= 1 && Tk >= 1 && H >= 1 && H <= 65535 && KVH >= 1 &&
          H % KVH == 0;
 }
 
@@ -2407,49 +2419,49 @@ bool args_ok(int dtype, int head_dim, int B, int T_len, int H, int KVH) {
 // when a TMA map cannot be made; the caller checks every argument.
 extern "C" int dense_attention_fwd(int dtype, int head_dim, const void* q, const void* k,
                                    const void* v, const void* pos, void* out, void* lse, int B,
-                                   int T_len, int H, int KVH, float scale, void* stream) {
-  if (!args_ok(dtype, head_dim, B, T_len, H, KVH)) return (int)cudaErrorInvalidValue;
+                                   int Tq, int Tk, int H, int KVH, float scale, void* stream) {
+  if (!args_ok(dtype, head_dim, B, Tq, Tk, H, KVH)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   float* l = static_cast<float*>(lse);
   if (dtype == 0) {
-#define CORDUM_FWD(HD) return launch_fwd_f32<HD>(q, k, v, p, out, l, B, T_len, H, KVH, scale, s)
+#define CORDUM_FWD(HD) return launch_fwd_f32<HD>(q, k, v, p, out, l, B, Tq, Tk, H, KVH, scale, s)
     if (head_dim == 16) CORDUM_FWD(16);
     if (head_dim == 64) CORDUM_FWD(64);
     CORDUM_FWD(128);
 #undef CORDUM_FWD
   }
 #define CORDUM_FWD(HD) \
-  return launch_fwd_bf16<HD>(q, k, v, p, out, l, B, T_len, H, KVH, scale, s)
+  return launch_fwd_bf16<HD>(q, k, v, p, out, l, B, Tq, Tk, H, KVH, scale, s)
   if (head_dim == 16) CORDUM_FWD(16);
   if (head_dim == 64) CORDUM_FWD(64);
   CORDUM_FWD(128);
 #undef CORDUM_FWD
 }
 
-// The backward: D into an fp32 [B, H, T] scratch the caller allocates (fp32:
+// The backward: D into an fp32 [B, H, Tq] scratch the caller allocates (fp32:
 // the pre-pass from out; bf16: the D pass, which does not read out), then
 // dK/dV and dQ, all on `stream`.
 extern "C" int dense_attention_bwd(int dtype, int head_dim, const void* q, const void* k,
                                    const void* v, const void* pos, const void* out,
                                    const void* dout, const void* lse, void* D, void* dq,
-                                   void* dk, void* dv, int B, int T_len, int H, int KVH,
+                                   void* dk, void* dv, int B, int Tq, int Tk, int H, int KVH,
                                    float scale, void* stream) {
-  if (!args_ok(dtype, head_dim, B, T_len, H, KVH)) return (int)cudaErrorInvalidValue;
+  if (!args_ok(dtype, head_dim, B, Tq, Tk, H, KVH)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(D);
   if (dtype == 0) {
 #define CORDUM_BWD(HD) \
-  return launch_bwd_f32<HD>(q, k, v, p, out, dout, l, d, dq, dk, dv, B, T_len, H, KVH, scale, s)
+  return launch_bwd_f32<HD>(q, k, v, p, out, dout, l, d, dq, dk, dv, B, Tq, Tk, H, KVH, scale, s)
     if (head_dim == 16) CORDUM_BWD(16);
     if (head_dim == 64) CORDUM_BWD(64);
     CORDUM_BWD(128);
 #undef CORDUM_BWD
   }
 #define CORDUM_BWD(HD)                                                                       \
-  return launch_bwd_bf16<HD>(q, k, v, p, dout, l, d, dq, dk, dv, B, T_len, H, KVH, scale, s)
+  return launch_bwd_bf16<HD>(q, k, v, p, dout, l, d, dq, dk, dv, B, Tq, Tk, H, KVH, scale, s)
   if (head_dim == 16) CORDUM_BWD(16);
   if (head_dim == 64) CORDUM_BWD(64);
   CORDUM_BWD(128);

@@ -18,7 +18,11 @@ hand-written Hopper kernels for CUDA tensors and runs the plain version for
 CPU ones.
 
 Training (:func:`make_train_step`) keeps the params as leaf tensors with
-``requires_grad`` and updates them and the optimizer state in place.
+``requires_grad`` and updates them and the optimizer state in place.  Over a
+:class:`..parallel.mesh.TrainMesh` of dp × tp × sp ranks a rank holds its
+tensor-parallel slices of the weights, its rows of the batch and its chunk
+of the sequence, and :mod:`..parallel.collectives` moves activations and
+gradients between ranks where the reference's GSPMD does.
 
 Unlike JAX's functional ``.at[].set``, the paged-arena functions here
 update the K/V arenas IN PLACE (and return them, for call-site symmetry
@@ -37,7 +41,8 @@ from .. import optim
 from ..device import DeviceLike, resolve_device
 from ..ops.dense_attention import dense_attention, gqa_attention
 from ..ops.paged_attention import AttentionPlan, paged_attention
-from ..parallel.mesh import TrainMesh
+from ..parallel.collectives import copy_to_tp, gather_seq, reduce_from_tp
+from ..parallel.mesh import AXIS_DP, AXIS_SP, TrainMesh
 
 Params = dict
 
@@ -54,8 +59,9 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    # long-context ring attention over a sequence-parallel mesh: kept for
-    # field parity with the JAX config; this package has no sp axis yet
+    # long-context ring attention over a sequence-parallel mesh (the JAX
+    # config's field): not ported yet (ROADMAP A10), so a training mesh with
+    # sp above 1 refuses it; without one it changes nothing, as in JAX
     use_ring_attention: bool = False
 
     @property
@@ -281,48 +287,66 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 def _attention(q, k, v, cfg: LlamaConfig, *, causal: bool = True, q_offset=None):
     """GQA attention with the JAX ``_attention``'s numerics (an einsum in
-    the input dtype, an fp32 softmax).  Causal self-attention with
-    positions (``_block``'s call) goes through :func:`dense_attention`: the
-    B9 kernels for CUDA tensors, the plain version for CPU ones; any other
-    call (queries and keys of other lengths, no mask, no positions) is the
-    plain einsum, which the kernels do not compute.  The head counts come
-    from the shapes (``cfg`` stays for signature parity)."""
-    if causal and q_offset is not None and q.shape[1] == k.shape[1]:
+    the input dtype, an fp32 softmax).  Every causal call with positions
+    (``_block``'s, also a sequence-parallel rank's chunk of queries against
+    the gathered keys) goes through :func:`dense_attention`: the B9 kernels
+    for CUDA tensors, the plain version for CPU ones; a call without a mask
+    or without positions is the plain einsum, which the kernels do not
+    compute.  The head counts come from the shapes (``cfg`` stays for
+    signature parity)."""
+    if causal and q_offset is not None:
         return dense_attention(q, k, v, q_offset)
     return gqa_attention(q, k, v, causal=causal, q_offset=q_offset)
 
 
-def _mlp(x: torch.Tensor, layer: dict, cfg: LlamaConfig) -> torch.Tensor:
-    return x + _mlp_out(x, layer, cfg)
+def _mlp(x: torch.Tensor, layer: dict, cfg: LlamaConfig,
+         mesh: Optional[TrainMesh] = None) -> torch.Tensor:
+    return x + reduce_from_tp(_mlp_out(x, layer, cfg, mesh), mesh)
 
 
-def _mlp_out(x: torch.Tensor, layer: dict, cfg: LlamaConfig) -> torch.Tensor:
-    """The SwiGLU branch of :func:`_mlp`, without the residual (a
-    tensor-parallel rank's partial sum over its ``d_ff`` block)."""
-    mlp_in = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+def _mlp_out(x: torch.Tensor, layer: dict, cfg: LlamaConfig,
+             mesh: Optional[TrainMesh] = None) -> torch.Tensor:
+    """The SwiGLU branch of :func:`_mlp`, without the residual: on a
+    tensor-parallel rank (its ``d_ff`` block of ``w_gate``/``w_up`` and
+    rows of ``w_down``, whatever their width) a partial sum, which the
+    caller reduces; ``mesh`` sums the norm's input gradient over tp
+    (:func:`copy_to_tp`)."""
+    mlp_in = copy_to_tp(rms_norm(x, layer["mlp_norm"], cfg.norm_eps), mesh)
     gate = torch.nn.functional.silu(mlp_in @ layer["w_gate"])
     up = mlp_in @ layer["w_up"]
     return (gate * up) @ layer["w_down"]
 
 
-def _attention_residual(x, layer, cfg: LlamaConfig, positions, attention=_attention):
+def _attention_residual(x, layer, cfg: LlamaConfig, positions, attention=_attention,
+                        mesh: Optional[TrainMesh] = None):
     """``x`` plus the block's self-attention of ``rms_norm(x)``: the first
-    half of :func:`_block`, which the MoE blocks share."""
-    b, t, d = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    half of :func:`_block`, which the MoE blocks share.  The head counts
+    come from the weights (a tensor-parallel rank's ``wq``/``wk``/``wv``
+    hold its ``n_heads / tp`` and ``n_kv_heads / tp`` heads).  ``mesh``
+    (a rank of a dp × tp × sp mesh) adds the reference's collectives:
+    :func:`copy_to_tp` on the norm's output, K and V gathered over sp after
+    RoPE (:func:`gather_seq`: the chunk's queries, at their global
+    ``positions``, attend over the whole sequence) and the ``wo`` product's
+    partial sums reduced over tp (:func:`reduce_from_tp`)."""
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    h, kvh = layer["wq"].shape[1] // hd, layer["wk"].shape[1] // hd
 
-    attn_in = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    attn_in = copy_to_tp(rms_norm(x, layer["attn_norm"], cfg.norm_eps), mesh)
     q = (attn_in @ layer["wq"]).reshape(b, t, h, hd)
     k = (attn_in @ layer["wk"]).reshape(b, t, kvh, hd)
     v = (attn_in @ layer["wv"]).reshape(b, t, kvh, hd)
     q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    k = gather_seq(rope(k, positions, cfg.rope_theta), mesh)
+    v = gather_seq(v, mesh)
     attn = attention(q, k, v, cfg, q_offset=positions)
-    return x + (attn.reshape(b, t, h * hd) @ layer["wo"])
+    return x + reduce_from_tp(attn.reshape(b, t, h * hd) @ layer["wo"], mesh)
 
 
-def _block(x, layer, cfg: LlamaConfig, positions, attention=_attention):
-    return _mlp(_attention_residual(x, layer, cfg, positions, attention), layer, cfg)
+def _block(x, layer, cfg: LlamaConfig, positions, attention=_attention,
+           mesh: Optional[TrainMesh] = None):
+    return _mlp(_attention_residual(x, layer, cfg, positions, attention, mesh), layer, cfg,
+                mesh)
 
 
 def forward(
@@ -332,19 +356,28 @@ def forward(
     *,
     positions: Optional[torch.Tensor] = None,
     attention=_attention,
+    mesh: Optional[TrainMesh] = None,
 ) -> torch.Tensor:
     """Logits for next-token prediction; tokens: [B, T] int → [B, T, V].
-    The dense path (no mesh, no KV cache): the serving oracle, the
-    ``infer`` op and the train step.  ``attention`` is the attention core,
-    called as ``attention(q, k, v, cfg, q_offset=positions)``; a caller
-    holding the kernels to their plain version passes one that computes
-    :func:`gqa_attention`."""
+    The dense path (no KV cache): the serving oracle, the ``infer`` op and
+    the train step.  ``attention`` is the attention core, called as
+    ``attention(q, k, v, cfg, q_offset=positions)``; a caller holding the
+    kernels to their plain version passes one that computes
+    :func:`gqa_attention`.
+
+    ``mesh`` (a rank of a dp × tp × sp mesh, with ``params`` its slices)
+    makes it the rank's forward: ``tokens`` are its rows' chunk of ``T /
+    sp`` positions, by default at their global positions ``sp_rank · T / sp
+    + arange(T / sp)``; ``embed`` and ``lm_head`` are whole on every rank,
+    so the logits are the chunk's, for every token of the vocabulary."""
     b, t = tokens.shape
     if positions is None:
-        positions = torch.arange(t, dtype=torch.int32, device=tokens.device).expand(b, t)
+        start = 0 if mesh is None else mesh.sp_rank * t
+        positions = torch.arange(start, start + t, dtype=torch.int32,
+                                 device=tokens.device).expand(b, t)
     x = params["embed"][tokens.long()]
     for layer in params["layers"]:
-        x = _block(x, layer, cfg, positions, attention)
+        x = _block(x, layer, cfg, positions, attention, mesh)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"]
 
@@ -355,13 +388,31 @@ def forward(
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
-            attention=_attention) -> torch.Tensor:
+            attention=_attention, mesh: Optional[TrainMesh] = None) -> torch.Tensor:
     """Next-token cross entropy over all positions but the last: logits cast
     to fp32, log-softmax, the next token's log-probability, mean over
     ``[B, T-1]`` (``cross_entropy`` is that sequence in one call; the last
     position is cut before the cast, which changes no value and saves an
-    fp32 copy of the logits)."""
-    return next_token_loss(forward(params, tokens, cfg, attention=attention), tokens)
+    fp32 copy of the logits).
+
+    ``mesh``: one rank's share of that mean, from the whole batch
+    ``tokens [B, T]``: the rank's ``B / dp`` rows and ``T / sp`` chunk go
+    through :func:`forward`, and the nll of the chunk's targets whose
+    global position is below ``T - 1`` (the next tokens, the last chunk's
+    one fewer) is summed and divided by the global count ``B × (T - 1)``;
+    the sum of the ranks' shares over sp and dp is the mean (a tp line's
+    ranks hold the same share)."""
+    if mesh is None:
+        return next_token_loss(forward(params, tokens, cfg, attention=attention), tokens)
+    b, t = tokens.shape
+    rows = mesh.dp_rows(tokens)
+    start, n = mesh.sp_span(t)
+    logits = forward(params, rows[:, start:start + n], cfg, attention=attention, mesh=mesh)
+    targets = rows[:, start + 1:start + n + 1]
+    nll = torch.nn.functional.cross_entropy(
+        logits[:, :targets.shape[1]].float().reshape(-1, logits.shape[-1]),
+        targets.reshape(-1).long(), reduction="sum")
+    return nll / (b * (t - 1))
 
 
 def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -389,51 +440,75 @@ def make_train_step(cfg: LlamaConfig, optimizer: Optional[tuple[Callable, Callab
     of the JAX step's buffer donation (``donated_train_step``), so one copy
     of the params and the moments lives on the card.
 
-    ``mesh`` (a :class:`TrainMesh` of dp ranks; tp and sp
-    come with ROADMAP A14) makes it a data-parallel rank's step: every rank
-    holds the whole params (the same draw from the same seed), takes its
-    ``B / dp`` rows of the batch (the reference's ``P('dp', 'sp')``) and
-    mean-reduces the gradients and the loss over dp before the update
-    (:func:`make_dp_grad`), so every rank returns the global loss.  No
-    mesh, or one of one rank: one card."""
-    def init_fn(gen, dev):
-        return init_params(cfg, generator=gen, device=dev)
-
+    ``mesh`` (a :class:`TrainMesh` of dp × tp × sp ranks, pp and ep 1)
+    makes it a rank's step: every rank draws the whole params from the seed
+    and keeps its tensor-parallel slices (:func:`init_params` ``shard=``,
+    the slices of :func:`shard_params`: ``embed``, ``lm_head`` and the
+    norms whole), takes its ``B / dp`` rows and ``T / sp`` chunk of the
+    batch (the reference's ``P('dp', 'sp')``) and sums its share of the
+    loss and its gradients over dp and sp before the update
+    (:func:`make_mesh_grad`), so every rank returns the global loss.
+    AdamW is elementwise: the updated slices are the slices of the
+    one-process update.  No mesh, or one of one rank: one card."""
     if mesh is None or mesh.size == 1:
-        return train_step_of(init_fn,
+        return train_step_of(lambda gen, dev: init_params(cfg, generator=gen, device=dev),
                              lambda params, tokens: loss_fn(params, tokens, cfg,
                                                             attention=attention),
                              optimizer, device)
+    value_and_grad = make_mesh_grad(cfg, mesh, attention=attention)
+    shard = (mesh.tp_rank, mesh.tp) if mesh.tp > 1 else None
+
+    def init_fn(gen, dev):
+        return init_params(cfg, generator=gen, device=dev, shard=shard)
+
     return train_step_of(init_fn, None, optimizer, mesh.device if device is None else device,
-                         value_and_grad=make_dp_grad(cfg, mesh, attention=attention))
+                         value_and_grad=value_and_grad)
 
 
-def make_dp_grad(cfg: LlamaConfig, mesh: TrainMesh, *, attention=_attention):
-    """``value_and_grad(params, tokens [B, T]) -> (loss, grads)`` of one
-    data-parallel rank: :func:`loss_fn` on the rank's block of ``B / dp``
-    rows and its gradients, then the mean of both over dp
-    (:func:`_dp_mean`): the reference's ``loss_fn`` is a mean over equal
-    shards, so the mean of the ranks' means is the global mean.
-    ``ValueError`` for a mesh with pp above 1 (that is the pipeline
-    family's) or a batch dp does not split."""
+def check_mesh(cfg: LlamaConfig, mesh: TrainMesh) -> None:
+    """Raise ``ValueError`` for a mesh the Llama family does not train
+    over: pp above 1 (that is the pipeline family's), a tp that does not
+    split the heads and ``d_ff`` (:func:`check_tp`), or sp above 1 with
+    ``cfg.use_ring_attention`` (ring attention is ROADMAP A10; this
+    package has only the all-gather flavour of sp)."""
     if mesh.pp != 1:
         raise ValueError(f"the llama family has no pipeline stages (mesh pp {mesh.pp}); "
                          "the pipeline family trains over pp")
+    if cfg.use_ring_attention and mesh.sp > 1:
+        raise ValueError(f"use_ring_attention over sp {mesh.sp}: ring attention is not ported "
+                         "yet (ROADMAP A10); train with use_ring_attention=False for the "
+                         "all-gather flavour")
+    check_tp(cfg, mesh.tp)
+
+
+def make_mesh_grad(cfg: LlamaConfig, mesh: TrainMesh, *, attention=_attention):
+    """``value_and_grad(params, tokens [B, T]) -> (loss, grads)`` of one
+    rank of a dp × tp × sp mesh (``params`` its slices): :func:`loss_fn`
+    with the mesh (the rank's rows and chunk, its nll sum over the global
+    count) and its gradients, then both summed over dp and sp
+    (:func:`_mesh_sum`).  ``ValueError`` for a mesh :func:`check_mesh`
+    refuses, or a batch dp or a sequence sp does not split."""
+    check_mesh(cfg, mesh)
 
     def value_and_grad(params: Params, tokens: torch.Tensor):
-        value = loss_fn(params, mesh.dp_rows(tokens), cfg, attention=attention)
+        value = loss_fn(params, tokens, cfg, attention=attention, mesh=mesh)
         grads = torch.autograd.grad(value, optim.tree_leaves(params))
-        return _dp_mean(value.detach(), grads, mesh)
+        return _mesh_sum(value.detach(), grads, mesh)
 
     return value_and_grad
 
 
-def _dp_mean(value: torch.Tensor, grads, mesh: TrainMesh):
-    """The loss and every gradient summed over dp and divided by dp, in
-    place (the gradients)."""
-    for g in grads:
-        mesh.all_reduce(g, "dp").div_(mesh.dp)
-    return mesh.all_reduce(value.clone(), "dp") / mesh.dp, grads
+def _mesh_sum(value: torch.Tensor, grads, mesh: TrainMesh):
+    """The loss and every gradient summed over the dp and sp lines, in
+    place (the gradients).  Never over tp: a tp line's ranks hold the same
+    loss, the same whole gradients of the replicated leaves (their inputs'
+    gradients are summed by :func:`copy_to_tp`) and each its own slices'."""
+    value = value.clone()
+    for axis in (AXIS_DP, AXIS_SP):
+        for g in grads:
+            mesh.all_reduce(g, axis)
+        mesh.all_reduce(value, axis)
+    return value, grads
 
 
 def train_step_of(init_fn: Callable, loss: Optional[Callable],

@@ -1,6 +1,8 @@
 """Dense causal GQA self-attention and its gradient: the attention core of
 the Llama ``forward`` that ``loss_fn`` differentiates and the ``infer`` op
-runs.
+runs, and of a sequence-parallel rank's forward, whose queries are its
+chunk of the sequence at their global positions and whose keys and values
+are the whole gathered sequence (``Tq`` query rows against ``Tk`` keys).
 
 The functions of one computation live here:
 
@@ -13,7 +15,7 @@ The functions of one computation live here:
   * :func:`dense_attention_fwd` and :func:`dense_attention_bwd` — the
     wrappers of the hand-written Hopper kernels in
     ``csrc/dense_attention.cu``: the forward returns the output and the
-    per-row ``lse`` (fp32 ``[B, H, T]``); the backward recomputes the
+    per-row ``lse`` (fp32 ``[B, H, Tq]``); the backward recomputes the
     probabilities from ``lse`` (first the softmax gradient's ``D``: in bf16
     ``sum_k P dP`` from the fp32 weights, by a pass of the dQ kernel without
     its product; in fp32 ``rowsum(dO * out)``; then a dK/dV kernel that sums
@@ -83,8 +85,8 @@ def gqa_attention(
 def dense_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor
 ) -> torch.Tensor:
-    """The plain version of :func:`dense_attention`: causal self-attention
-    of ``q [B, T, H, hd]`` over ``k, v [B, T, KVH, hd]`` under ``k_index <=
+    """The plain version of :func:`dense_attention`: causal attention of
+    ``q [B, Tq, H, hd]`` over ``k, v [B, Tk, KVH, hd]`` under ``k_index <=
     positions[b, q]``."""
     return gqa_attention(q, k, v, q_offset=positions)
 
@@ -92,13 +94,13 @@ def dense_attention_reference(
 def _bind(lib: ctypes.CDLL) -> None:
     fwd = lib.dense_attention_fwd
     fwd.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p]
     )
     fwd.restype = ctypes.c_int
     bwd = lib.dense_attention_bwd
     bwd.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p]
     )
     bwd.restype = ctypes.c_int
@@ -110,10 +112,14 @@ def check_kernel_args(
 ) -> None:
     """Raise ``ValueError`` on any operand the kernels do not take: a dtype
     other than fp32/bf16 shared by q, k, v (and ``more``: the output and
-    ``dO`` of the backward, of q's shape), positions other than int32
-    ``[B, T]``, a head width not in :data:`KERNEL_HEAD_DIMS`, query heads
+    ``dO`` of the backward, of q's shape), q not ``[B, Tq, H, hd]`` beside
+    k and v ``[B, Tk, KVH, hd]`` (any ``Tq``, ``Tk`` >= 1: a sequence
+    chunk's queries against the gathered keys), positions other than int32
+    ``[B, Tq]``, a head width not in :data:`KERNEL_HEAD_DIMS`, query heads
     not a multiple of the KV heads, a non-contiguous or misaligned operand,
-    or a device other than one CUDA card (checked last)."""
+    or a device other than one CUDA card (checked last).  A position at or
+    past ``Tk`` reaches every key, in the kernels as in the plain
+    version."""
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype \
             or any(x.dtype != q.dtype for x in more):
         raise ValueError(
@@ -121,22 +127,22 @@ def check_kernel_args(
             f"got {q.dtype}, {k.dtype}, {v.dtype}"
         )
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
-            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
             or any(x.shape != q.shape for x in more):
         raise ValueError(
-            f"dense_attention kernel: q [B,T,H,hd], k/v [B,T,KVH,hd], got "
+            f"dense_attention kernel: q [B,Tq,H,hd], k/v [B,Tk,KVH,hd], got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    b, t, h, hd = q.shape
-    kvh = k.shape[2]
+    b, tq, h, hd = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"dense_attention kernel: head_dim {hd}; built for {KERNEL_HEAD_DIMS}")
-    if kvh < 1 or h % kvh or not 1 <= b <= _MAX_GRID_YZ or h > _MAX_GRID_YZ or t < 1 \
-            or b * t * h >= 2**31:
-        raise ValueError(f"dense_attention kernel: B {b}, T {t}, H {h}, KVH {kvh}")
-    if positions.dtype != torch.int32 or tuple(positions.shape) != (b, t):
+    if kvh < 1 or h % kvh or not 1 <= b <= _MAX_GRID_YZ or h > _MAX_GRID_YZ or tq < 1 \
+            or tk < 1 or b * max(tq, tk) * h >= 2**31:
+        raise ValueError(f"dense_attention kernel: B {b}, Tq {tq}, Tk {tk}, H {h}, KVH {kvh}")
+    if positions.dtype != torch.int32 or tuple(positions.shape) != (b, tq):
         raise ValueError(
-            f"dense_attention kernel: positions must be int32 [B, T], got "
+            f"dense_attention kernel: positions must be int32 [B, Tq], got "
             f"{positions.dtype} {tuple(positions.shape)}"
         )
     tensors = (q, k, v, positions, *more)
@@ -151,27 +157,32 @@ def check_kernel_args(
 def dense_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel: ``(out [B, T, H, hd], lse [B, H, T] fp32)``.
-    Counted in ``dense_attention_fwd.launches``."""
+    """The forward kernel: ``(out [B, Tq, H, hd], lse [B, H, Tq] fp32)``.
+    Counted in ``dense_attention_fwd.launches``, and a launch whose queries
+    and keys differ in length (a sequence chunk's) also in
+    ``dense_attention_fwd.chunk_launches``."""
     check_kernel_args(q, k, v, positions)
     fn = _build.load(SOURCE, _bind).dense_attention_fwd
-    b, t, h, hd = q.shape
+    b, tq, h, hd = q.shape
+    tk = k.shape[1]
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
-        lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+        lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            positions.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, h,
+            positions.data_ptr(), out.data_ptr(), lse.data_ptr(), b, tq, tk, h,
             k.shape[2], 1.0 / math.sqrt(hd), stream,
         )
     if err != 0:
         raise RuntimeError(f"dense_attention forward kernel launch failed: CUDA error {err}")
     dense_attention_fwd.launches += 1
+    dense_attention_fwd.chunk_launches += tq != tk
     return out, lse
 
 
 dense_attention_fwd.launches = 0  # type: ignore[attr-defined]
+dense_attention_fwd.chunk_launches = 0  # type: ignore[attr-defined]
 
 
 def dense_attention_bwd(
@@ -181,12 +192,14 @@ def dense_attention_bwd(
     """The backward kernels (``D``, dK/dV, dQ, in that order on one
     stream): ``(dq, dk, dv)`` in the inputs' dtype, from what
     :func:`dense_attention_fwd` returned.  One call counts one in
-    ``dense_attention_bwd.launches``."""
+    ``dense_attention_bwd.launches`` (and in ``chunk_launches`` where the
+    queries and keys differ in length)."""
     check_kernel_args(q, k, v, positions, out, dout)
-    b, t, h, hd = q.shape
-    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, t) or not lse.is_contiguous() \
+    b, tq, h, hd = q.shape
+    tk = k.shape[1]
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, tq) or not lse.is_contiguous() \
             or lse.device != q.device:
-        raise ValueError("dense_attention kernel: lse must be a contiguous fp32 [B, H, T]")
+        raise ValueError("dense_attention kernel: lse must be a contiguous fp32 [B, H, Tq]")
     fn = _build.load(SOURCE, _bind).dense_attention_bwd
     with torch.cuda.device(q.device):
         d_scratch = torch.empty_like(lse)
@@ -195,16 +208,18 @@ def dense_attention_bwd(
         err = fn(
             _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             positions.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            d_scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h,
+            d_scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk, h,
             k.shape[2], 1.0 / math.sqrt(hd), stream,
         )
     if err != 0:
         raise RuntimeError(f"dense_attention backward kernel launch failed: CUDA error {err}")
     dense_attention_bwd.launches += 1
+    dense_attention_bwd.chunk_launches += tq != tk
     return dq, dk, dv
 
 
 dense_attention_bwd.launches = 0  # type: ignore[attr-defined]
+dense_attention_bwd.chunk_launches = 0  # type: ignore[attr-defined]
 
 
 class DenseAttention(torch.autograd.Function):
@@ -228,10 +243,11 @@ class DenseAttention(torch.autograd.Function):
 def dense_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor
 ) -> torch.Tensor:
-    """Causal GQA self-attention, ``q [B, T, H, hd]`` over ``k, v [B, T,
+    """Causal GQA attention, ``q [B, Tq, H, hd]`` over ``k, v [B, Tk,
     KVH, hd]`` with key ``j`` live for query ``i`` when ``j <=
-    positions[b, i]``; returns ``[B, T, H, hd]``, differentiable in q, k and
-    v.  CPU tensors take the plain version; CUDA tensors the kernels or a
+    positions[b, i]`` (``Tq == Tk`` for self-attention, ``Tq < Tk`` for a
+    sequence chunk's queries against the gathered keys); returns ``[B, Tq,
+    H, hd]``, differentiable in q, k and v.  CPU tensors take the plain version; CUDA tensors the kernels or a
     raise (``positions`` is made a contiguous int32 first: ``forward``
     hands an expanded ``arange``)."""
     if q.device.type == "cpu":

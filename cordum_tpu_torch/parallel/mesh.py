@@ -25,11 +25,11 @@ the sums across ranks are explicit all-reduces.
 :class:`TrainMesh` is the training counterpart of the reference's
 ``build_mesh(MeshSpec(...))``: one rank's coordinates on the (dp, tp, sp,
 ep, pp) grid, pp fastest, as ``np.array(devices).reshape(shape)`` lays the
-devices out, with a world group and one group per axis line (the dp line
-of the rank's stage, the pp line of its dp index), built from one store as
-:meth:`TPGroup.join` builds its group.  It sums over any of them and sends
-and receives between pp neighbours.  Only dp and pp may exceed 1 for now:
-tp and sp come with ROADMAP A14 (A10 for ring attention), ep with A12.
+devices out, with a world group and one group per axis line (the dp, tp,
+sp and pp lines through the rank), built from one store as
+:meth:`TPGroup.join` builds its group.  It sums, gathers and
+reduce-scatters over any of them and sends and receives between pp
+neighbours.  ep may not exceed 1 yet: it comes with ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -243,8 +243,9 @@ def in_process_groups(size: int, device: torch.device, *, timeout_s: float) -> l
 #: the reference's axis order (``build_mesh``); the last axis varies fastest
 AXES = (AXIS_DP, AXIS_TP, AXIS_SP, AXIS_EP, AXIS_PP)
 #: the axes a training mesh cannot have above 1 yet, and the items that bring them
-LATER_AXES = {AXIS_TP: "ROADMAP A14", AXIS_SP: "ROADMAP A14 (A10 for ring attention)",
-              AXIS_EP: "ROADMAP A12"}
+LATER_AXES = {AXIS_EP: "ROADMAP A12"}
+#: the axis lines a training mesh builds a group for
+LINE_AXES = (AXIS_DP, AXIS_TP, AXIS_SP, AXIS_PP)
 
 
 def mesh_coords(sizes: dict[str, int], rank: int) -> dict[str, int]:
@@ -273,28 +274,33 @@ def line_ranks(sizes: dict[str, int], rank: int, axis: str) -> list[int]:
     return [mesh_rank(sizes, {**coords, axis: i}) for i in range(sizes[axis])]
 
 
+#: what :class:`TrainMesh` counts in ``host_s`` and ``calls``
+COLLECTIVES = ("p2p", "all_reduce", "all_gather", "reduce_scatter")
+
+
 @dataclass
 class TrainMesh:
     """One rank of a training mesh: its ``rank`` on the grid of ``sizes``
     (:func:`mesh_coords`), the ``backend`` every group uses (NCCL when each
     rank owns its own card, :func:`choose_backend`), the rank's ``device``
-    and its process groups: ``world``, and the ``dp`` and ``pp`` lines
-    through the rank (:func:`line_ranks`; ``None`` for a line of one
-    rank; a line that spans the world is the world group).  Like
+    and its process groups: ``world``, and the ``dp``, ``tp``, ``sp`` and
+    ``pp`` lines through the rank (:func:`line_ranks`; ``None`` for a line
+    of one rank; a line that spans the world is the world group).  Like
     :class:`TPGroup`'s, the groups are bare process groups, not the
     process's default group, and every call waits at most the caller's
     ``timeout_s``.  ``host_s`` and ``calls`` count the host seconds spent
-    inside, and the number of, point-to-point calls (``p2p``) and
-    all-reduces (``all_reduce``); over NCCL a call returns once the
-    operation is queued on the card, over gloo once it is done."""
+    inside, and the number of, point-to-point calls (``p2p``), all-reduces
+    (``all_reduce``), all-gathers (``all_gather``) and reduce-scatters
+    (``reduce_scatter``); over NCCL a call returns once the operation is
+    queued on the card, over gloo once it is done."""
 
     sizes: dict[str, int]
     rank: int
     backend: str
     device: torch.device
     groups: dict[str, Any]
-    host_s: dict[str, float] = field(default_factory=lambda: {"p2p": 0.0, "all_reduce": 0.0})
-    calls: dict[str, int] = field(default_factory=lambda: {"p2p": 0, "all_reduce": 0})
+    host_s: dict[str, float] = field(default_factory=lambda: dict.fromkeys(COLLECTIVES, 0.0))
+    calls: dict[str, int] = field(default_factory=lambda: dict.fromkeys(COLLECTIVES, 0))
 
     @property
     def size(self) -> int:
@@ -309,12 +315,28 @@ class TrainMesh:
         return self.sizes[AXIS_DP]
 
     @property
+    def tp(self) -> int:
+        return self.sizes[AXIS_TP]
+
+    @property
+    def sp(self) -> int:
+        return self.sizes[AXIS_SP]
+
+    @property
     def pp(self) -> int:
         return self.sizes[AXIS_PP]
 
     @property
     def dp_rank(self) -> int:
         return self.coords[AXIS_DP]
+
+    @property
+    def tp_rank(self) -> int:
+        return self.coords[AXIS_TP]
+
+    @property
+    def sp_rank(self) -> int:
+        return self.coords[AXIS_SP]
 
     @property
     def pp_rank(self) -> int:
@@ -329,9 +351,18 @@ class TrainMesh:
             raise ValueError(f"{n} rows do not split over dp {dp}")
         return tokens.narrow(axis, self.dp_rank * (n // dp), n // dp)
 
+    def sp_span(self, t: int) -> tuple[int, int]:
+        """``(start, length)`` of this rank's chunk of a sequence of ``t``
+        positions: the reference shards the sequence over sp in contiguous
+        blocks (``P('dp', 'sp')``).  ``ValueError`` when sp does not divide
+        it."""
+        if t % self.sp:
+            raise ValueError(f"a sequence of {t} does not split over sp {self.sp}")
+        return self.sp_rank * (t // self.sp), t // self.sp
+
     def _group(self, over: str) -> Any:
         if over not in self.groups:
-            raise ValueError(f"no group {over!r}: world, dp or pp")
+            raise ValueError(f"no group {over!r}: world, dp, tp, sp or pp")
         pg = self.groups[over]
         if pg is None and (self.size if over == "world" else self.sizes[over]) > 1:
             raise RuntimeError(f"rank {self.rank}: the mesh was closed")
@@ -345,13 +376,60 @@ class TrainMesh:
         return out
 
     def all_reduce(self, t: torch.Tensor, over: str = AXIS_DP) -> torch.Tensor:
-        """Sum ``t`` in place over ``over`` (``"dp"``, ``"pp"`` or
-        ``"world"``); returns ``t``.  A line of one rank leaves it as it
+        """Sum ``t`` in place over ``over`` (an axis line or ``"world"``);
+        returns ``t``.  A line of one rank leaves it as it
         is."""
         pg = self._group(over)
         if pg is not None:
             self._timed("all_reduce", lambda: pg.allreduce([t]).wait())
         return t
+
+    def _line_size(self, over: str) -> int:
+        return self.size if over == "world" else self.sizes[over]
+
+    def _staged(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as gloo takes it in a gather: contiguous, and in host
+        memory when it lives on a card (as :meth:`send` stages it)."""
+        buf = t.contiguous()
+        return buf.cpu() if self.backend == "gloo" and buf.is_cuda else buf
+
+    def all_gather(self, t: torch.Tensor, over: str, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` along ``over``, joined along ``dim`` in the
+        order of the ranks' coordinates on the axis (a new tensor on
+        ``t``'s device).  A line of one rank returns ``t`` as it is."""
+        pg, n = self._group(over), self._line_size(over)
+        if pg is None:
+            return t
+        buf = self._staged(t)
+        parts = [torch.empty_like(buf) for _ in range(n)]
+        self._timed("all_gather", lambda: pg.allgather([parts], [buf]).wait())
+        return torch.cat(parts, dim).to(t.device)
+
+    def reduce_scatter(self, t: torch.Tensor, over: str, dim: int) -> torch.Tensor:
+        """The sum of ``t`` over ``over``, cut along ``dim`` into as many
+        equal blocks as the line has ranks: this rank's block (its
+        coordinate on the axis), a new tensor.  NCCL reduce-scatters.  gloo
+        sums the whole tensor with an all-reduce and keeps the block: one
+        implementation for every torch this runs on, since gloo's own
+        reduce-scatter is missing from some versions and takes no CUDA
+        tensor where it exists (the sum is the same; gloo moves every block
+        to every rank).  ``ValueError`` when the line does not divide
+        ``dim``; a line of one rank returns ``t`` as it is."""
+        pg, n = self._group(over), self._line_size(over)
+        if pg is None:
+            return t
+        if t.shape[dim] % n:
+            raise ValueError(f"dimension {t.shape[dim]} does not split over {over} {n}")
+        idx = self.rank if over == "world" else self.coords[over]
+        per = t.shape[dim] // n
+        if self.backend == "gloo":
+            buf = self._staged(t).clone()
+            self._timed("reduce_scatter", lambda: pg.allreduce([buf]).wait())
+            return buf.narrow(dim, idx * per, per).contiguous().to(t.device)
+        parts = [c.contiguous() for c in t.chunk(n, dim)]
+        out = torch.empty_like(parts[idx])
+        self._timed("reduce_scatter", lambda: pg.reduce_scatter([out], [parts]).wait())
+        return out
 
     def send(self, t: torch.Tensor, stage: int, tag: int) -> None:
         """Send ``t`` to the rank of pp index ``stage`` on this rank's pp
@@ -385,25 +463,25 @@ class TrainMesh:
              spec: MeshSpec, timeout_s: float) -> "TrainMesh":
         """Join the mesh ``spec`` over ``world`` ranks (:meth:`MeshSpec.resolve`)
         as ``rank``, over ``store``: agree the backend, then build the world
-        group and this rank's dp and pp lines, each under its own prefix of
-        the store.  Blocks until every rank of each group has joined or
-        ``timeout_s`` passes.  ``ValueError`` for a mesh with tp, sp or ep
+        group and this rank's dp, tp, sp and pp lines, each under its own
+        prefix of the store.  Blocks until every rank of each group has
+        joined or ``timeout_s`` passes.  ``ValueError`` for a mesh with ep
         above 1, naming the ROADMAP item that brings the axis."""
         sizes = spec.resolve(world)
         for axis, item in LATER_AXES.items():
             if sizes[axis] != 1:
                 raise ValueError(f"a training mesh with {axis} {sizes[axis]} is not supported "
-                                 f"yet ({item}); dp and pp only")
+                                 f"yet ({item}); dp, tp, sp and pp only")
         if not 0 <= rank < world:
             raise ValueError(f"rank {rank} outside a world of {world}")
         timeout = datetime.timedelta(seconds=timeout_s)
         if world == 1:
             return cls(sizes=sizes, rank=rank, backend="none", device=device,
-                       groups={"world": None, AXIS_DP: None, AXIS_PP: None})
+                       groups={"world": None, **dict.fromkeys(LINE_AXES)})
         backend = _agree_backend(store, rank, world, device, timeout)
         world_pg = _process_group(dist.PrefixStore("world", store), rank, world, backend, timeout)
         groups = {"world": world_pg}
-        for axis in (AXIS_DP, AXIS_PP):
+        for axis in LINE_AXES:
             line = line_ranks(sizes, rank, axis)
             if len(line) == 1:
                 groups[axis] = None

@@ -24,7 +24,10 @@ a skipped tile holds none and an open tile holds only live pairs; and a
 tiled fp32 emulation of the forward and backward (with bf16's D pass:
 sum_k P dP a row over the dQ schedule) over exactly the visited
 tiles, masking only the tiles the kernel masks, equals the plain version at
-1e-5 of each tensor's largest value (the sums run in another order).
+1e-5 of each tensor's largest value (the sums run in another order).  The
+same checks hold for a sequence-parallel rank's chunk: Tq query rows at
+their global positions against Tk keys (rows and query tiles over Tq, key
+tiles and dK/dV blocks over Tk).
 """
 from __future__ import annotations
 
@@ -82,15 +85,18 @@ def key_tiles(pos_rows: np.ndarray, t_len: int, tile: int, dq: bool):
     return list(range(n)), open_
 
 
-def dkv_items(pos_b: np.ndarray, t_len: int, rep: int):
-    """Every dK/dV consumer's items: ``(kc, [(head r, query tile, open)])``."""
+def dkv_items(pos_b: np.ndarray, t_len: int, rep: int, tk: int | None = None):
+    """Every dK/dV consumer's items: ``(kc, [(head r, query tile, open)])``;
+    ``t_len`` query rows (the positions' length), ``tk`` keys (default
+    ``t_len``)."""
+    tk = t_len if tk is None else tk
     n_qt = -(-t_len // DKV_ROWS)
-    for k0 in range(0, t_len, DKV_KEYS):
+    for k0 in range(0, tk, DKV_KEYS):
         need = []
         for qt in range(n_qt):
             p = pos_b[qt * DKV_ROWS:(qt + 1) * DKV_ROWS]
             need.append(bool(((p < 0) | (p >= k0)).any()))
-        for c in range(2 if k0 + 64 < t_len else 1):
+        for c in range(2 if k0 + 64 < tk else 1):
             kc = k0 + 64 * c
             items = []
             for r in range(rep):
@@ -99,7 +105,7 @@ def dkv_items(pos_b: np.ndarray, t_len: int, rep: int):
                         continue
                     p = pos_b[qt * DKV_ROWS:(qt + 1) * DKV_ROWS]
                     lo = int(p.min()) if len(p) == DKV_ROWS else -1  # -1: the tile passes T
-                    items.append((r, qt, lo >= kc + 63 and kc + 63 < t_len))
+                    items.append((r, qt, lo >= kc + 63 and kc + 63 < tk))
             yield kc, items
 
 
@@ -141,22 +147,26 @@ def test_row_schedule_visits_every_live_pair_once(case):
     in the consumer's visited tiles (a skipped tile holds none); an open
     tile holds only live pairs."""
     t_len, kvh, rep, pos = case
+    _check_row_schedule(t_len, t_len, kvh, rep, pos)
+
+
+def _check_row_schedule(tq, tk, kvh, rep, pos):
     h = kvh * rep
-    seen = np.zeros((t_len, h), np.int64)
+    seen = np.zeros((tq, h), np.int64)
     checked = set()
-    for t0, t1, h0, g in consumers(t_len, h, kvh):
+    for t0, t1, h0, g in consumers(tq, h, kvh):
         seen[t0:t1, h0:h0 + g] += 1
         if (t0, t1) in checked:  # the same positions in every head group
             continue
         checked.add((t0, t1))
         rows = pos[t0:t1]
         for tile, dq in ((FWD_KEYS, False), (DQ_KEYS, True)):
-            visited, open_ = key_tiles(rows, t_len, tile, dq)
-            keys = np.arange(max(t_len, len(visited) * tile))
-            counts = _live(rows, keys, t_len, uniform=not dq)
+            visited, open_ = key_tiles(rows, tk, tile, dq)
+            keys = np.arange(max(tk, len(visited) * tile))
+            counts = _live(rows, keys, tk, uniform=not dq)
             assert not counts[:, len(visited) * tile:].any(), (tile, visited)
             for j in open_:
-                assert _live(rows, np.arange(j * tile, (j + 1) * tile), t_len, False).all()
+                assert _live(rows, np.arange(j * tile, (j + 1) * tile), tk, False).all()
     assert (seen == 1).all()
 
 
@@ -167,17 +177,55 @@ def test_dkv_schedule_visits_every_contributing_pair_once(case):
     that sends them a weight (dV) or dS (dK) lies in exactly one item;
     tiles left out send nothing; an open item holds only live pairs."""
     t_len, kvh, rep, pos = case
-    for kc, items in dkv_items(pos, t_len, rep):
-        keys = np.arange(kc, min(kc + 64, t_len))
-        counts = np.zeros((rep, t_len), np.int64)
+    _check_dkv_schedule(t_len, t_len, rep, pos)
+
+
+def _check_dkv_schedule(tq, tk, rep, pos):
+    for kc, items in dkv_items(pos, tq, rep, tk):
+        keys = np.arange(kc, min(kc + 64, tk))
+        counts = np.zeros((rep, tq), np.int64)
         for r, qt, open_ in items:
-            rows = slice(qt * DKV_ROWS, min((qt + 1) * DKV_ROWS, t_len))
+            rows = slice(qt * DKV_ROWS, min((qt + 1) * DKV_ROWS, tq))
             counts[r, rows] += 1
             if open_:
-                assert _live(pos[rows], keys, t_len, uniform=False).all()
-        sends = _live(pos, keys, t_len, uniform=True).any(1)
+                assert _live(pos[rows], keys, tk, uniform=False).all()
+        sends = _live(pos, keys, tk, uniform=True).any(1)
         assert (counts <= 1).all()
         assert (counts[:, sends] == 1).all()
+
+
+@st.composite
+def _chunk_cases(draw):
+    """A sequence-parallel rank's chunk: Tq rows at ``first ..`` against Tk
+    keys (``first + Tq <= Tk``), or rows at random positions (negative ones
+    and ones past Tk included) against keys of another length."""
+    tq = draw(st.integers(1, 300))
+    tk = draw(st.integers(1, 400))
+    kvh = draw(st.sampled_from([1, 2]))
+    rep = draw(st.sampled_from([1, 2, 4, 8, 16]))
+    rng = np.random.default_rng(draw(st.integers(0, 2**31 - 1)))
+    if draw(st.booleans()) and tq <= tk:
+        first = int(rng.integers(0, tk - tq + 1))
+        pos = np.arange(first, first + tq)
+    else:
+        pos = rng.integers(-3, tk + 20, tq)
+    return tq, tk, kvh, rep, pos.astype(np.int64)
+
+
+@settings(max_examples=150, deadline=None)
+@given(case=_chunk_cases())
+def test_chunk_row_schedule_visits_every_live_pair_once(case):
+    """Forward and dQ over a chunk: each of its Tq rows in one consumer;
+    its live keys (of Tk) all in the visited tiles; open tiles all live."""
+    _check_row_schedule(*case)
+
+
+@settings(max_examples=150, deadline=None)
+@given(case=_chunk_cases())
+def test_chunk_dkv_schedule_visits_every_contributing_pair_once(case):
+    """dK/dV over Tk keys, query tiles over the chunk's Tq rows."""
+    tq, tk, _, rep, pos = case
+    _check_dkv_schedule(tq, tk, rep, pos)
 
 
 # ---------------------------------------------------------------------------
@@ -194,16 +242,17 @@ def _mask(pos_rows: torch.Tensor, keys: torch.Tensor, t_len: int) -> torch.Tenso
 
 def tiled_forward(q, k, v, pos):
     """(out, lse) over the forward schedule: an online softmax over each
-    consumer's visited key tiles, masking only the tiles it masks."""
+    consumer's visited key tiles, masking only the tiles it masks (T query
+    rows, ``tk`` keys)."""
     b_, t_len, h, hd = q.shape
-    kvh = k.shape[2]
+    tk, kvh = k.shape[1], k.shape[2]
     scale = 1 / math.sqrt(hd)
     out = torch.zeros_like(q)
     lse = torch.zeros(b_, h, t_len)
     for b in range(b_):
         for t0, t1, h0, g in consumers(t_len, h, kvh):
             rows = pos[b, t0:t1]
-            visited, open_ = key_tiles(rows.numpy(), t_len, FWD_KEYS, dq=False)
+            visited, open_ = key_tiles(rows.numpy(), tk, FWD_KEYS, dq=False)
             kv = h0 // (h // kvh)
             qr = q[b, t0:t1, h0:h0 + g].reshape(-1, hd)  # (position, head) rows
             pr = rows.repeat_interleave(g)
@@ -212,11 +261,11 @@ def tiled_forward(q, k, v, pos):
             o = torch.zeros(len(pr), hd)
             for j in visited:
                 keys = torch.arange(j * FWD_KEYS, (j + 1) * FWD_KEYS)
-                kt = k[b, keys.clamp(max=t_len - 1), kv] * (keys < t_len)[:, None]
-                vt = v[b, keys.clamp(max=t_len - 1), kv] * (keys < t_len)[:, None]
+                kt = k[b, keys.clamp(max=tk - 1), kv] * (keys < tk)[:, None]
+                vt = v[b, keys.clamp(max=tk - 1), kv] * (keys < tk)[:, None]
                 s = qr @ kt.T * scale
                 if j not in open_:
-                    ok = _mask(pr, keys, t_len)
+                    ok = _mask(pr, keys, tk)
                     s = torch.where(ok, torch.where(pr[:, None] < 0, 0.0, s), -math.inf)
                 mn = torch.maximum(m, s.max(1).values)
                 mu = torch.where(mn == -math.inf, 0.0, mn)
@@ -235,7 +284,7 @@ def tiled_backward(q, k, v, pos, lse, do):
     the D pass (sum_k P dP a row, bf16's D) sweeps the dQ schedule without
     its product, so a key tile it skipped would leave D short."""
     b_, t_len, h, hd = q.shape
-    kvh = k.shape[2]
+    tk, kvh = k.shape[1], k.shape[2]
     rep = h // kvh
     scale = 1 / math.sqrt(hd)
     dmat = torch.zeros(b_, h, t_len)  # D [B, H, T]
@@ -244,7 +293,7 @@ def tiled_backward(q, k, v, pos, lse, do):
         for b in range(b_):
             for t0, t1, h0, g in consumers(t_len, h, kvh):
                 rows = pos[b, t0:t1]
-                visited, open_ = key_tiles(rows.numpy(), t_len, DQ_KEYS, dq=True)
+                visited, open_ = key_tiles(rows.numpy(), tk, DQ_KEYS, dq=True)
                 kv = h0 // rep
                 qr = q[b, t0:t1, h0:h0 + g].reshape(-1, hd)
                 dor = do[b, t0:t1, h0:h0 + g].reshape(-1, hd)
@@ -255,11 +304,11 @@ def tiled_backward(q, k, v, pos, lse, do):
                 dsum = torch.zeros(len(pr))
                 for j in visited:
                     keys = torch.arange(j * DQ_KEYS, (j + 1) * DQ_KEYS)
-                    kt = k[b, keys.clamp(max=t_len - 1), kv] * (keys < t_len)[:, None]
-                    vt = v[b, keys.clamp(max=t_len - 1), kv] * (keys < t_len)[:, None]
+                    kt = k[b, keys.clamp(max=tk - 1), kv] * (keys < tk)[:, None]
+                    vt = v[b, keys.clamp(max=tk - 1), kv] * (keys < tk)[:, None]
                     prob = torch.exp(qr @ kt.T * scale - lr[:, None])
                     if j not in open_:
-                        live = _mask(pr, keys, t_len) & (pr[:, None] >= 0)
+                        live = _mask(pr, keys, tk) & (pr[:, None] >= 0)
                         prob = torch.where(live, prob, 0.0)
                     if d_pass:
                         dsum += (prob * (dor @ vt.T)).sum(1)
@@ -271,8 +320,8 @@ def tiled_backward(q, k, v, pos, lse, do):
                     dq[b, t0:t1, h0:h0 + g] = acc.reshape(t1 - t0, g, hd)
     for b in range(b_):
         for kv in range(kvh):
-            for kc, items in dkv_items(pos[b].numpy(), t_len, rep):
-                keys = torch.arange(kc, min(kc + 64, t_len))
+            for kc, items in dkv_items(pos[b].numpy(), t_len, rep, tk):
+                keys = torch.arange(kc, min(kc + 64, tk))
                 kb, vb = k[b, keys, kv], v[b, keys, kv]
                 for r, qt, open_ in items:
                     hh = kv * rep + r
@@ -285,7 +334,7 @@ def tiled_backward(q, k, v, pos, lse, do):
                         pt = torch.exp(st_ - lt[None, :])
                         dst = pt * (vb @ dot.T - dt[None, :]) * scale
                     else:
-                        ok = _mask(pr, keys, t_len).T
+                        ok = _mask(pr, keys, tk).T
                         lv = ok & (pr[None, :] >= 0)
                         pt = torch.where(ok, torch.exp(torch.where(lv, st_, 0.0) - lt[None, :]), 0.0)
                         dst = torch.where(lv, pt * (vb @ dot.T - dt[None, :]) * scale, 0.0)
@@ -294,12 +343,12 @@ def tiled_backward(q, k, v, pos, lse, do):
     return dq, dk, dv
 
 
-def _case(b, t_len, kvh, rep, hd, pos, seed):
+def _case(b, t_len, kvh, rep, hd, pos, seed, tk=None):
     rng = np.random.default_rng(seed)
     h = kvh * rep
     q, do = (torch.from_numpy(rng.standard_normal((b, t_len, h, hd)).astype(np.float32))
              for _ in range(2))
-    k, v = (torch.from_numpy(rng.standard_normal((b, t_len, kvh, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, tk or t_len, kvh, hd)).astype(np.float32))
             for _ in range(2))
     return q, k, v, do, torch.from_numpy(np.asarray(pos, np.int64))
 
@@ -327,6 +376,27 @@ def test_tiled_emulation_matches_plain_version(hd, rep, kind):
     b, t_len, kvh = 2, 161, 1
     pos = _positions(kind, b, t_len, seed=hd + rep)
     q, k, v, do, pos_t = _case(b, t_len, kvh, rep, hd, pos, seed=7 * hd + rep)
+    out, lse = tiled_forward(q, k, v, pos_t)
+    grads = tiled_backward(q, k, v, pos_t, lse, do)
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+    ref = da.dense_attention_reference(qr, kr, vr, pos_t)
+    ref_grads = torch.autograd.grad(ref, (qr, kr, vr), do)
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads), (ref, *ref_grads)):
+        err = (got - want.detach()).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        assert err <= 1e-5, (name, err)
+
+
+@pytest.mark.parametrize("tq, tk, first", [(97, 161, 64), (65, 200, 135), (40, 161, 0)])
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("hd", [16, 128])
+def test_tiled_emulation_of_a_chunk_matches_plain_version(hd, rep, tq, tk, first):
+    """A chunk of Tq rows at ``first ..`` against Tk keys (the last chunk,
+    a middle one whose later keys get no gradient, the first): the fp32
+    tiled forward and backward over exactly the visited tiles equal
+    autograd of the plain version at 1e-5."""
+    b = 2
+    pos = np.broadcast_to(np.arange(first, first + tq), (b, tq)).copy()
+    q, k, v, do, pos_t = _case(b, tq, 1, rep, hd, pos, seed=hd + rep + tq, tk=tk)
     out, lse = tiled_forward(q, k, v, pos_t)
     grads = tiled_backward(q, k, v, pos_t, lse, do)
     qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
