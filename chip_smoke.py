@@ -191,6 +191,31 @@ Every phase raises on failure.  Phases:
     profiled on the first and last stage beside the bubble model; (5)
     phase 7.3's run on card 0, then dense dp 4 at 7.3's configuration a
     rank.
+13. Ring attention over the sp line, once phase 12 is done.  (1) B9's
+    ring entries and the merge kernel (B6) at a tp 2 x sp 2 rank of
+    Llama-3-8B at T 8192 (B 1, chunks of 4096, H 16, KVH 4, hd 128),
+    bf16 and fp32: rank 1's queries against rank 0's chunk (every key
+    live) and against its own diagonal chunk, the forward, "D only" and
+    "D given" against their plain versions by 7.1's gates (the row's
+    exact lse, output and D fed to every version; each chunk's lse
+    within 1e-3 of the plain version's), the merge of the two chunks'
+    pairs; then the whole ring of rank 1 and of rank 0 built chunk by
+    chunk against ``gqa_attention`` on the whole row by 7.1's gates;
+    times (CUDA events, L2 flushed) against the bounds, the plain
+    versions and SDPA (unmasked with ``enable_gqa`` for the earlier chunk,
+    ``is_causal`` for the diagonal; none for "D only" and the merge).
+    (2) ``use_ring_attention`` rank processes sharing the card over gloo:
+    fp32 ``LlamaConfig.tiny()`` with 4 layers at tp 2 x sp 2 and at sp 4,
+    held to the one-process step as 12.7 is; bf16 at 12.8's job (8B
+    widths, 2 layers, tp 2 x sp 2, T 4096): a falling loss, its first
+    loss within 1e-2 relative of 12.8's, and 12.4's numbers beside
+    12.8's.  Every rank's launches and hops are the design's
+    (:func:`ring_design`: rank r of the sp line runs r + 1 chunks a
+    layer) and it makes no all-gather or reduce-scatter.  ``--cards``:
+    (3) the ring at sp 4, tp 2 x sp 2 and dp 2 x sp 2 at 12.9's fp32
+    configuration, held to its oracle; (4) the ring at 12.10's bf16
+    Llama-3-8B tp 2 x sp 2 leg (32 layers, B 1, T 8192), beside that leg
+    in the same call.
 
 Tolerances (kernel vs plain version, max abs error), paged attention:
 fp32 1e-4 — the sums run in another order over up to 8192 keys, on O(1)
@@ -253,7 +278,11 @@ ranks against their one-process step: each loss within 1e-6 relative,
 each first-step gradient within 1e-4 of its largest |value| (11.1's
 gate: the token sums split at other places when dp cuts the rows), each
 param after the last step within 2 lr a step (an Adam update is about lr
-sign(g)); every rank returns the same losses.
+sign(g)); every rank returns the same losses.  Phase 13: the ring's chunks
+by 7.1's gates (fp32: output 1e-5, gradients and D 1e-4 of their max;
+bf16: the row gate, D element by element, each against the exact
+result); the merge kernel within 2^-20 of the largest value (fp32
+elementwise arithmetic, a few ulps); the ring's ranks by phase 12's gates.
 
 Near-tie rule of phase 3, fixed before any run: tokens are compared up to
 the first generated position where the oracle's top-2 logits differ by
@@ -317,6 +346,11 @@ KERNELS = {
     "dense_attention_fwd_sp": ("dense_attention", "cordum_tpu/models/llama.py:179-197"),
     "dense_attention_bwd_sp": ("dense_attention", "cordum_tpu/models/llama.py:179-197"),
     **{name: ("moe_dispatch", "cordum_tpu/models/moe.py:73-113") for name in MOE_KERNELS},
+    # ring attention over sp (phase 13): B9's "D only" and "D given" entries
+    # on a visiting chunk, and the merge of the chunks' (out, lse) (B6)
+    **{name: (module, "cordum_tpu/ops/ring_attention.py:32-75") for name, module in (
+        ("dense_attention_d", "dense_attention"), ("dense_attention_bwd_given", "dense_attention"),
+        ("ring_merge", "ring_attention"))},
 }
 
 
@@ -1042,10 +1076,12 @@ def launch_counters():
     from cordum_tpu_torch.ops import embed_attention as ea
     from cordum_tpu_torch.ops import moe_dispatch as md
     from cordum_tpu_torch.ops import paged_attention as pa
+    from cordum_tpu_torch.ops import ring_attention as ra
 
     return {"paged_attention": pa.paged_attention, "embed_attention": ea.embed_attention,
             "dense_attention_fwd": da.dense_attention_fwd,
             "dense_attention_bwd": da.dense_attention_bwd,
+            "dense_attention_d": da.dense_attention_d, "ring_merge": ra.ring_merge,
             "moe_route": md.moe_route_kernel, "moe_slot_gather": md.moe_slot_gather,
             "moe_slot_gather_scaled": md.moe_slot_gather_scaled,
             "moe_token_gather": md.moe_token_gather, "moe_token_sum": md.moe_token_sum,
@@ -1056,6 +1092,9 @@ def launch_counters():
 #: launches whose queries and keys differ in length (``chunk_launches``)
 CHUNK_ROWS = {"dense_attention_fwd_sp": "dense_attention_fwd",
               "dense_attention_bwd_sp": "dense_attention_bwd"}
+#: the kernel row of B9's "D given" backward, a launch mode of the backward's
+#: wrapper counted apart from its ``launches`` (``given_launches``)
+GIVEN_ROW = "dense_attention_bwd_given"
 
 
 def set_launches(counts=None):
@@ -1065,6 +1104,7 @@ def set_launches(counts=None):
         fn.launches = counts[name] if counts else 0
     for name, of in CHUNK_ROWS.items():
         fns[of].chunk_launches = counts[name] if counts else 0
+    fns["dense_attention_bwd"].given_launches = counts[GIVEN_ROW] if counts else 0
 
 
 def zero_launches():
@@ -1074,7 +1114,8 @@ def zero_launches():
 def read_launches():
     fns = launch_counters()
     return {**{name: fn.launches for name, fn in fns.items()},
-            **{name: fns[of].chunk_launches for name, of in CHUNK_ROWS.items()}}
+            **{name: fns[of].chunk_launches for name, of in CHUNK_ROWS.items()},
+            GIVEN_ROW: fns["dense_attention_bwd"].given_launches}
 
 
 def check_worker_launches(n_layers_embed, n_layers_llama, steps, *, infer):
@@ -3240,7 +3281,8 @@ def check_gang_oracle_ranks(card, ranks, oracle, served, *, where):
 def main_cards() -> int:
     """``python3 chip_smoke.py --cards [--legs train,gang]``, on a host with
     two or more cards, one rank a card (NCCL).  ``train``, with four
-    cards: phase 12.3-12.5, 12.9 and 12.10 (:func:`cards_train_legs`).  ``gang``: at tp 2 and, with
+    cards: phase 12.3-12.5, 12.9, 12.10, 13.3 and 13.4
+    (:func:`cards_train_legs`).  ``gang``: at tp 2 and, with
     four cards, tp 4: phase 3's fp32 oracle on one card, then the fp32 gang
     of rank processes on its weights and prompts, its tokens held to the
     oracle and to one rank (:func:`check_gang_oracle_ranks`); then phase
@@ -3327,16 +3369,23 @@ def cards_train_legs(torch, dev, card):
     configuration, held to the one-process step 12.3's dense dp 4 was (one
     oracle for the five).  12.10: bf16 Llama-3-8B at all 32 layers, 10
     steps on one batch, at tp 4 (B 4, T 2048) and tp 2 x sp 2 (B 1, T
-    8192): a falling loss and 12.4's numbers, beside 12.4's legs.  The
-    legs new in 12.9 and 12.10 run first."""
+    8192): a falling loss and 12.4's numbers, beside 12.4's legs.  13.3:
+    the ring (``use_ring_attention``) at sp 4, tp 2 x sp 2 and dp 2 x sp 2
+    at 12.9's configuration, held to the same oracle; 13.4: the ring at
+    12.10's tp 2 x sp 2 leg (bf16 Llama-3-8B, 32 layers, B 1, T 8192)
+    right after it, their numbers side by side.  The legs new in 12.9,
+    12.10 and 13 run first."""
     import tempfile
 
     from cordum_tpu_torch.models import llama
 
     dense = dict(widths="8b", layers=4, dtype="float32", batch=4, seq=256, steps=1)
+    ring_gates = [mesh_job("llama", 1, 1, sp=4, ring=True, **dense),
+                  mesh_job("llama", 1, 1, tp=2, sp=2, ring=True, **dense),
+                  mesh_job("llama", 2, 1, sp=2, ring=True, **dense)]
     gates = [mesh_job("llama", 1, 1, tp=4, **dense), mesh_job("llama", 1, 1, sp=4, **dense),
              mesh_job("llama", 1, 1, tp=2, sp=2, **dense), mesh_job("llama", 2, 1, tp=2, **dense),
-             mesh_job("llama", 4, 1, **dense),
+             *ring_gates, mesh_job("llama", 4, 1, **dense),
              mesh_job("pipeline", 1, 4, m=4, widths="8b", layers=4, dtype="float32", batch=4,
                       seq=256, steps=1),
              mesh_job("pipeline", 2, 2, m=2, widths="8b", layers=4, dtype="float32", batch=4,
@@ -3346,8 +3395,9 @@ def cards_train_legs(torch, dev, card):
         for job in gates:
             mine = oracle if job["family"] == "llama" else True
             mesh_leg(torch, dev, card, job, oracle=mine, collective="nccl", tag="mesh-cards")
-    numbers = {}
+    numbers, sp_legs = {}, {}
     big = [("llama", dict(tp=4, batch=4, seq=2048)), ("llama", dict(tp=2, sp=2, batch=1, seq=8192)),
+           ("llama", dict(tp=2, sp=2, batch=1, seq=8192, ring=True)),
            ("pipeline", dict(pp=4, m=4, batch=4, seq=2048)),
            ("pipeline", dict(dp=2, pp=2, m=2, batch=4, seq=2048))]
     for family, kw in big:
@@ -3357,6 +3407,9 @@ def cards_train_legs(torch, dev, card):
         docs, _ = mesh_leg(torch, dev, card, job, oracle=False, collective="nccl", falling=True,
                            tag="mesh-8b")
         numbers[mesh_label(job)] = mesh_numbers(card, job, docs, tag="mesh-8b")
+        if job["sp"] > 1:
+            sp_legs["ring" if job["ring"] else "gather"] = (job, docs)
+    ring_versus_gather(card, sp_legs["gather"], sp_legs["ring"], "mesh-8b")
     log("[mesh-8b] bf16 Llama-3-8B, 32 layers, four cards, in this call: " + "; ".join(
         f"{label}: step p50 {n['p50_ms']:.2f} ms, {n['tokens_s']:.1f} tokens/s, "
         f"{n['tokens_s'] / 4:.1f} a card" for label, n in numbers.items()) + f"  [{card}]")
@@ -3935,14 +3988,15 @@ def mesh_param_atol(steps):
 
 
 def mesh_job(family, dp, pp, *, widths, layers, dtype, batch, seq, steps, m=1, device="cuda",
-             profile=False, tp=1, sp=1):
+             profile=False, tp=1, sp=1, ring=False):
     """A phase-12 job: what every rank process and the one-process oracle
     of it are given (JSON).  ``widths`` ``"8b"`` (Llama-3-8B) or
     ``"tiny"``; ``m`` the pipeline's microbatches; ``tp`` and ``sp`` the
-    Llama family's tensor- and sequence-parallel axes."""
+    Llama family's tensor- and sequence-parallel axes; ``ring`` its
+    ``use_ring_attention`` (phase 13: ring attention over sp)."""
     return {"family": family, "dp": dp, "tp": tp, "sp": sp, "pp": pp, "widths": widths,
             "layers": layers, "dtype": dtype, "batch": batch, "seq": seq, "steps": steps,
-            "m": m, "device": device, "profile": profile, "oracle": None}
+            "m": m, "device": device, "profile": profile, "ring": ring, "oracle": None}
 
 
 def mesh_world(job):
@@ -3957,6 +4011,7 @@ def mesh_label(job):
     else:
         shape = "dense " + " x ".join(f"{a} {job[a]}" for a in ("dp", "tp", "sp")
                                       if a == "dp" or job[a] > 1)
+        shape += " (ring)" if job.get("ring") else ""
     return f"{shape}, {job['dtype']}, {cut}, B {job['batch']}, T {job['seq']}"
 
 
@@ -3964,7 +4019,8 @@ def mesh_config(torch, job):
     from cordum_tpu_torch.models import llama
 
     cfg = llama.LlamaConfig.llama3_8b() if job["widths"] == "8b" else llama.LlamaConfig.tiny()
-    return dataclasses.replace(cfg, n_layers=job["layers"], dtype=getattr(torch, job["dtype"]))
+    return dataclasses.replace(cfg, n_layers=job["layers"], dtype=getattr(torch, job["dtype"]),
+                               use_ring_attention=bool(job.get("ring")))
 
 
 def mesh_train_step(torch, job, dev, mesh=None):
@@ -4129,6 +4185,7 @@ def train_rank(job, rank, mesh=None):
                   for k in ("host_s", "calls")},
                "launches": [n["dense_attention_fwd"], n["dense_attention_bwd"]],
                "chunk_launches": [n["dense_attention_fwd_sp"], n["dense_attention_bwd_sp"]],
+               "ring_launches": [n[row] for row in RING_ROWS],
                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else 0.0,
                "n_layers": base.n_layers}
         if job["oracle"]:
@@ -4208,7 +4265,10 @@ def mesh_launches(job, docs):
     family: every layer once a step), forward and backward; with sp above
     1 every one of them a chunk's (queries and keys of other lengths), else
     none (so a chunk's launches sum to the returned sums where sp is
-    above 1).  Returns their sums."""
+    above 1).  A ring job's are :func:`ring_launches`'.  Returns their
+    sums."""
+    if job.get("ring") and job["sp"] > 1:
+        return ring_launches(job, docs)[:2]
     steps = job["steps"]
     layers = docs[0]["n_layers"]
     want = (layers // job["pp"] * job["m"] if job["family"] == "pipeline" else layers) * steps
@@ -4326,7 +4386,8 @@ def mesh_leg(torch, dev, card, job, *, oracle, collective=None, falling=False, t
 def phase_mesh(torch, dev, card):
     """12.1, 12.2, 12.7 and 12.8 on the one card (gloo rank processes
     sharing it).  Returns B9's launches by kernel row and dtype (the sp
-    rows: the chunks' launches, 12.7's and 12.8's)."""
+    rows: the chunks' launches, 12.7's and 12.8's), and 12.8's ``(job,
+    docs)``, which 13.2's ring leg is held to."""
     jobs = [
         # 12.1: 11.1's configuration over two ranks, one AdamW step
         (mesh_job("pipeline", 1, 2, widths="8b", layers=2, dtype="float32", batch=2, seq=256,
@@ -4346,12 +4407,404 @@ def phase_mesh(torch, dev, card):
     launches = {row: {"float32": 0, "bfloat16": 0} for row in
                 ("dense_attention_fwd", "dense_attention_bwd", *CHUNK_ROWS)}
     for job, oracle, falling in jobs:
-        _, (f, b) = mesh_leg(torch, dev, card, job, oracle=oracle, collective="gloo",
-                             falling=falling)
+        docs, (f, b) = mesh_leg(torch, dev, card, job, oracle=oracle, collective="gloo",
+                                falling=falling)
         for row, n in zip(("dense_attention_fwd", "dense_attention_bwd"), (f, b)):
             launches[row][job["dtype"]] += n
             if job["sp"] > 1:
                 launches[row + "_sp"][job["dtype"]] += n
+    return launches, (job, docs)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: ring attention over the sp line
+# ---------------------------------------------------------------------------
+
+#: 13.1's ring: a tp 2 x sp 2 rank of Llama-3-8B at T 8192, (B, T, H, KVH,
+#: hd) with the sequence cut into RING_SP chunks of 4096
+RING_SHAPE = (1, 8192, 16, 4, 128)
+RING_SP = 2
+#: the merge kernel against its plain version: fp32 elementwise arithmetic
+#: (exp, log1p and a weighted sum, a few fp32 ulps each, in another
+#: implementation), each output's max abs error over its largest |value|
+RING_MERGE_REL = 2.0**-20
+#: 13.2's bf16 ring leg: its first loss against the all-gather flavour's
+#: (12.8's leg: the same seed, weights and batch), relative.  Fixed before
+#: the first run: the two flavours round the attention's output at other
+#: places (a bf16 output a chunk, merged in fp32), a few bf16 ulps on values
+#: that feed a mean over 4095 tokens' nll
+RING_BF16_LOSS_REL = 1e-2
+#: the ring's kernel rows beside B9's forward: "D only", "D given", the merge
+RING_ROWS = ("dense_attention_d", GIVEN_ROW, "ring_merge")
+
+
+def ring_by_chunks(torch, steps, q, k, v, do, *, sp, rank, causal=True):
+    """Rank ``rank`` of an sp ring built on one process, chunk by chunk,
+    from the whole ``k`` and ``v`` ``[B, sp * Tq, KVH, hd]`` (no mesh):
+    ``steps`` (an ``ops.ring_attention.ChunkSteps``) run on each live chunk
+    in ring order, merged; D summed over the chunks (bf16) or taken once
+    (fp32); "D given" on each.  Returns ``(out, dq, dk, dv)``, dk and dv
+    over all keys (this rank's queries' share)."""
+    from cordum_tpu_torch.ops import ring_attention as ra
+
+    b, tq = q.shape[:2]
+    tk = k.shape[1] // sp
+    ks = [x.contiguous() for x in k.split(tk, 1)]
+    vs = [x.contiguous() for x in v.split(tk, 1)]
+    live = [(o, ra.chunk_positions(rank, o, b, tq, tk, causal, q.device))
+            for o in ((rank - s) % sp for s in range(sp))]
+    live = [(o, pos) for o, pos in live if pos is not None]
+    acc = lse = None
+    for o, pos in live:
+        acc, lse = steps.merge(acc, lse, *steps.fwd(q, ks[o], vs[o], pos))
+    out = acc.to(q.dtype)
+    if q.dtype == torch.float32:
+        d = steps.d(q, ks[rank], vs[rank], live[0][1], out, lse, do)
+    else:
+        d = sum(steps.d(q, ks[o], vs[o], pos, out, lse, do) for o, pos in live)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for o, pos in live:
+        gq, gk, gv = steps.bwd(q, ks[o], vs[o], pos, out, lse, do, d=d)
+        dq += gq
+        dk[:, o * tk:(o + 1) * tk] += gk
+        dv[:, o * tk:(o + 1) * tk] += gv
+    return out, dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def ring_gate(torch, got, plain, exact, pos, what):
+    """7.1's gates on ``(out, dq, dk, dv)``: fp32 against the plain version
+    (the output within ``DENSE_OUT_ATOL``, each gradient within
+    ``DENSE_GRAD_REL`` of its largest |value|), bf16 the row gate against
+    the exact result.  Raises naming ``what``; returns the readings."""
+    if got[0].dtype == torch.float32:
+        errs = {"out": (got[0] - plain[0]).abs().max().item()}
+        for name, g, p in zip(("dq", "dk", "dv"), got[1:], plain[1:]):
+            errs[name] = ((g - p).abs().max() / p.abs().max().clamp_min(1e-30)).item()
+        ok = errs["out"] <= DENSE_OUT_ATOL and all(
+            errs[n] <= DENSE_GRAD_REL for n in ("dq", "dk", "dv"))
+        if not ok or not all(torch.isfinite(x).all().item() for x in got):
+            raise AssertionError(f"{what}: {errs}; tolerances out {DENSE_OUT_ATOL}, gradients "
+                                 f"{DENSE_GRAD_REL} of their max")
+        return errs
+    gate = bf16_row_gate(got, plain, exact, pos)
+    if not all(g["ok"] for g in gate.values()) or not all(
+            torch.isfinite(x).all().item() for x in got):
+        raise AssertionError(f"{what}: bf16 row gate {gate}")
+    return {name: g["kernel"] for name, g in gate.items()}
+
+
+def check_ring_whole(torch, steps, q, k, v, do, *, sp, rank, what):
+    """The ring of rank ``rank`` built chunk by chunk (:func:`ring_by_chunks`)
+    against ``gqa_attention`` on the whole row (the rank's queries at their
+    global positions against every key, autograd of the plain version) by
+    :func:`ring_gate`."""
+    from cordum_tpu_torch.ops import dense_attention as da
+
+    b, tq = q.shape[:2]
+    pos = torch.arange(rank * tq, (rank + 1) * tq, dtype=torch.int32,
+                       device=q.device).expand(b, tq).contiguous()
+    got = ring_by_chunks(torch, steps, q, k, v, do, sp=sp, rank=rank)
+    plain = dense_grads(torch, da.dense_attention_reference, q, k, v, pos, do)
+    exact = plain if q.dtype == torch.float32 else dense_grads(
+        torch, da.dense_attention_reference, *(x.float() for x in (q, k, v)), pos, do.float())
+    return ring_gate(torch, got, plain, exact, pos, what)
+
+
+def ring_work_of(b, tq, h, kvh, hd, el, positions, tk):
+    """(bytes, operations) of a ring chunk's three B9 entries and of the
+    merge, by :func:`dense_work_of`'s count: the forward (4 hd a live
+    pair); "D only", bf16 ``sum_k P dP`` (QK and dP, 4 hd a pair; q, k, v,
+    dO, positions and lse read, D written) or fp32 ``rowsum(dO * out)``
+    (out and dO read, D written, 2 hd a row); "D given" (10 hd a pair; q,
+    k, v, dO, positions, lse and D read, dq, dk and dv written); the merge
+    (acc read and written, out_c read, lse read and written, lse_c read; 3
+    operations a value)."""
+    fwd, _ = dense_work_of(b, tq, h, kvh, hd, el, positions, tk)
+    pos = positions.long().cpu()
+    pairs = int((pos + 1).clamp(max=tk).sum())
+    q_el, kv_el, rows = b * tq * h * hd, b * tk * kvh * hd, b * h * tq
+    if el == 4:
+        d = (4 * 2 * q_el + 4 * rows, 2 * q_el)
+    else:
+        d = (el * (2 * q_el + 2 * kv_el) + 4 * b * tq + 8 * rows, 4 * hd * h * pairs)
+    given = (el * (4 * q_el + 4 * kv_el) + 4 * b * tq + 8 * rows, 10 * hd * h * pairs)
+    merge = ((8 + el) * q_el + 12 * rows, 3 * q_el)
+    return {"fwd": fwd, "d": d, "given": given, "merge": merge}
+
+
+def _sdpa_gqa(F, qh, kh, vh, **kw):
+    """SDPA over ``[B, H, T, hd]`` queries and ``[B, KVH, T, hd]`` keys and
+    values: ``enable_gqa`` where this torch has it, else K/V expanded first
+    (outside the timed call)."""
+    try:
+        F.scaled_dot_product_attention(qh[:, :, :1], kh[:, :, :1], vh[:, :, :1], enable_gqa=True)
+    except TypeError:
+        rep = qh.shape[1] // kh.shape[1]
+        kh = kh.repeat_interleave(rep, 1).detach().requires_grad_()
+        vh = vh.repeat_interleave(rep, 1).detach().requires_grad_()
+        return kh, vh, lambda: F.scaled_dot_product_attention(qh, kh, vh, **kw)
+    return kh, vh, lambda: F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True, **kw)
+
+
+def ring_row(name, kind, ms, plain_ms, lib_ms, work, err, tol, card):
+    """A kernel-line row of phase 13, logged with its share of the bound."""
+    nbytes, ops = work
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS[name] * 1e3
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=max(mem_ms, ops_ms), bound_by="bytes" if mem_ms >= ops_ms else "operations")
+    log(f"[ring-kernel] {kind} {name}: kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
+        + (f"{lib_ms:.4f}" if lib_ms is not None else "none")
+        + f"  bound_ms {row['bound_ms']:.4f} ({row['bound_by']}: {nbytes} bytes, {ops} ops), "
+        f"share of bound {row['bound_ms'] / ms:.3f}; max abs err {err:.3e} ({tol})  [{card}]")
+    return row
+
+
+def measure_ring(torch, dev, card, dtype, flush):
+    """13.1 in one dtype: rank 1's queries of :data:`RING_SHAPE` against
+    rank 0's chunk (every key live) and its own diagonal chunk: B9's
+    forward, "D only" and "D given" and the merge against their plain
+    versions (bf16 by the row gate against the exact result, fp32 by 7.1's
+    tolerances; lse, out and D the whole row's exact ones, fed to every
+    version alike); then the whole ring built chunk by chunk, of rank 1
+    and of rank 0, against ``gqa_attention`` on the whole row; then times
+    (CUDA events, L2 flushed), bounds, plain times and SDPA's.  Returns
+    the kernel-line rows, the earlier chunk's."""
+    import torch.nn.functional as F
+
+    from cordum_tpu_torch.ops import dense_attention as da
+    from cordum_tpu_torch.ops import ring_attention as ra
+
+    b, t, h, kvh, hd = RING_SHAPE
+    tq = t // RING_SP
+    name = str(dtype).split(".")[-1]
+    q, k, v, do, pos = dense_case(torch, dev, b, tq, h, kvh, hd, dtype, tk=t, first=tq)
+    with torch.no_grad():
+        out_x, lse_x = da.dense_attention_fwd_reference(*(x.float() for x in (q, k, v)), pos)
+        d_x = (do.float() * out_x).sum(-1).transpose(1, 2).contiguous()
+    out_in = out_x.to(dtype).contiguous()
+    chunks = {"earlier": (k[:, :tq].contiguous(), v[:, :tq].contiguous(),
+                          ra.chunk_positions(1, 0, b, tq, tq, True, dev)),
+              "diagonal": (k[:, tq:].contiguous(), v[:, tq:].contiguous(),
+                           ra.chunk_positions(1, 1, b, tq, tq, True, dev))}
+    rows, fwd_out = {}, {}
+    for kind, (kc, vc, pc) in chunks.items():
+        kern = [*da.dense_attention_fwd(q, kc, vc, pc)]
+        d_k = da.dense_attention_d(q, kc, vc, pc, out_in, lse_x, do)
+        g_k = da.dense_attention_bwd(q, kc, vc, pc, out_in, lse_x, do, d=d_x)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            plain = [*da.dense_attention_fwd_reference(q, kc, vc, pc)]
+            d_p = da.dense_attention_d_reference(q, kc, vc, pc, out_in, lse_x, do)
+            g_p = da.dense_attention_bwd_reference(q, kc, vc, pc, out_in, lse_x, do, d=d_x)
+            e_in = [x.float() for x in (q, kc, vc)]
+            exact = [*da.dense_attention_fwd_reference(*e_in, pc)]
+            d_e = da.d_from_weights(*e_in, pc, lse_x, do.float()) \
+                if dtype == torch.bfloat16 else d_x
+            g_e = da.dense_attention_bwd_reference(*e_in, pc, out_x, lse_x, do.float(), d=d_x)
+        fwd_out[kind] = kern
+        gates = ring_gate(torch, (kern[0], *g_k), (plain[0], *g_p), (exact[0], *g_e), pc,
+                          f"ring chunk {kind} {name} (forward and D given)")
+        lse_err = (kern[1] - plain[1]).abs().max().item()
+        if dtype == torch.float32:
+            d_err = ((d_k - d_p).abs().max() / d_p.abs().max()).item()
+            d_ok = d_err <= DENSE_GRAD_REL
+        else:
+            scale = d_e.abs().max().item()
+            d_err = worst_row(d_k[..., None], d_e[..., None], scale)
+            d_ok = d_err <= DENSE_ROW_FACTOR * worst_row(d_p[..., None], d_e[..., None], scale) \
+                + DENSE_ROW_SLACK
+        if not d_ok or lse_err > 1e-3 or not torch.isfinite(d_k).all().item():
+            raise AssertionError(f"ring chunk {kind} {name}: D only {d_err:.3e}, lse {lse_err:.3e}")
+        log(f"[ring-gate] {kind} chunk {name}: forward and D given {gates}; D only "
+            f"{d_err:.3e}; lse max abs err {lse_err:.3e}  [{card}]")
+        # times: B9's three entries on this chunk, the plain versions, SDPA
+        qh = q.transpose(1, 2).contiguous().requires_grad_()
+        kh = kc.transpose(1, 2).contiguous().requires_grad_()
+        vh = vc.transpose(1, 2).contiguous().requires_grad_()
+        kh, vh, lib_call = _sdpa_gqa(F, qh, kh, vh, is_causal=kind == "diagonal")
+        lib = lib_call()
+        doh = do.transpose(1, 2).contiguous()
+        ms = {
+            "fwd": time_ms(torch, lambda: da.dense_attention_fwd(q, kc, vc, pc), iters=20,
+                           flush=flush),
+            "d": time_ms(torch, lambda: da.dense_attention_d(q, kc, vc, pc, out_in, lse_x, do),
+                         iters=20, flush=flush),
+            "given": time_ms(torch, lambda: da.dense_attention_bwd(q, kc, vc, pc, out_in, lse_x,
+                                                                   do, d=d_x),
+                             iters=20, flush=flush)}
+        with torch.no_grad():
+            plain_ms = {
+                "fwd": time_ms(torch, lambda: da.dense_attention_fwd_reference(q, kc, vc, pc),
+                               iters=3, flush=flush),
+                "d": time_ms(torch, lambda: da.dense_attention_d_reference(
+                    q, kc, vc, pc, out_in, lse_x, do), iters=3, flush=flush),
+                "given": time_ms(torch, lambda: da.dense_attention_bwd_reference(
+                    q, kc, vc, pc, out_in, lse_x, do, d=d_x), iters=3, flush=flush)}
+            lib_fwd = time_ms(torch, lib_call, iters=10, flush=flush)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(lib, (qh, kh, vh), doh,
+                                                             retain_graph=True),
+                          iters=10, flush=flush)
+        work = ring_work_of(b, tq, h, kvh, hd, q.element_size(), pc, tq)
+        errs = {"fwd": (kern[0].float() - plain[0].float()).abs().max().item(),
+                "d": (d_k - d_p).abs().max().item(),
+                "given": max((g - p).float().abs().max().item() for g, p in zip(g_k, g_p))}
+        tol = "row gate" if dtype == torch.bfloat16 else "7.1's fp32 gates"
+        for step, lib_ms in (("fwd", lib_fwd), ("d", None), ("given", lib_bwd)):
+            row = ring_row(name, f"{kind} chunk {step}", ms[step], plain_ms[step], lib_ms,
+                           work[step], errs[step], tol, card)
+            if kind == "earlier" and step != "fwd":
+                rows["dense_attention_d" if step == "d" else GIVEN_ROW] = row
+        del qh, kh, vh, lib, doh, kern, plain, exact, g_k, g_p, g_e
+        torch.cuda.empty_cache()
+    # the merge: the earlier chunk's pair starts the accumulator, the
+    # diagonal's is folded in
+    (o_e, l_e), (o_d, l_d) = fwd_out["earlier"], fwd_out["diagonal"]
+    acc, lse = ra.ring_merge(None, None, o_e, l_e)
+    acc, lse = ra.ring_merge(acc, lse, o_d, l_d)
+    p_acc, p_lse = ra.ring_merge_reference(*ra.ring_merge_reference(None, None, o_e, l_e), o_d, l_d)
+    torch.cuda.synchronize()
+    m_err = max(((acc - p_acc).abs().max() / p_acc.abs().max()).item(),
+                ((lse - p_lse).abs().max() / p_lse.abs().max()).item())
+    if not m_err <= RING_MERGE_REL:
+        raise AssertionError(f"ring_merge {name}: {m_err:.3e} of the largest value (tolerance "
+                             f"{RING_MERGE_REL:.3e})")
+    base = (acc.clone(), lse.clone())
+
+    def merge_once(fn):
+        a, lv = base[0].clone(), base[1].clone()
+        return lambda: fn(a, lv, o_d, l_d)
+
+    k_merge = time_ms(torch, merge_once(ra.ring_merge), iters=20, flush=flush)
+    p_merge = time_ms(torch, merge_once(ra.ring_merge_reference), iters=5, flush=flush)
+    work = ring_work_of(b, tq, h, kvh, hd, q.element_size(), chunks["earlier"][2], tq)
+    rows["ring_merge"] = ring_row(name, "merge", k_merge, p_merge, None, work["merge"],
+                                  (acc - p_acc).abs().max().item(),
+                                  f"{RING_MERGE_REL:.3e} of the largest value", card)
+    del acc, lse, p_acc, p_lse, base, fwd_out
+    # the whole ring, chunk by chunk, against the whole row
+    whole = {1: check_ring_whole(torch, ra.KERNEL_STEPS, q, k, v, do, sp=RING_SP, rank=1,
+                                 what=f"ring rank 1 {name}")}
+    q0, _, _, do0, _ = dense_case(torch, dev, b, tq, h, kvh, hd, dtype, seed=SEED + 1, tk=t)
+    whole[0] = check_ring_whole(torch, ra.KERNEL_STEPS, q0, k, v, do0, sp=RING_SP, rank=0,
+                                what=f"ring rank 0 {name}")
+    log(f"[ring-gate] the whole ring of sp {RING_SP} built chunk by chunk against gqa_attention "
+        f"on the whole row ({name}; B {b}, T {t}, H {h}, KVH {kvh}, hd {hd}): rank 1 "
+        f"{whole[1]}, rank 0 {whole[0]}  [{card}]")
+    del q, k, v, do, q0, do0
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ring_kernel(torch, dev, card):
+    """13.1 in both dtypes; returns the kernel-line rows by row and dtype."""
+    flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    rows = {row: {} for row in RING_ROWS}
+    for dtype in (torch.bfloat16, torch.float32):
+        for row, res in measure_ring(torch, dev, card, dtype, flush).items():
+            rows[row][str(dtype).split(".")[-1]] = res
+    del flush_buf
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ring_design(job, sp_rank):
+    """A ring rank's launches and hops a layer a step
+    (``ops/ring_attention.py``'s note): at sp coordinate ``s`` of ``n``,
+    causal, ``s + 1`` forward chunks, merges and "D given", ``s + 1`` "D
+    only" in bf16 (one in fp32); hops ``n - 1`` forward, ``n`` backward,
+    ``n - 1`` more for the bf16 D ring."""
+    n, live, bf16 = job["sp"], sp_rank + 1, job["dtype"] == "bfloat16"
+    return {"fwd": live, "d": live if bf16 else 1, "given": live, "merge": live,
+            "p2p": 2 * n - 1 + (n - 1 if bf16 else 0)}
+
+
+def ring_launches(job, docs):
+    """Each rank of a ring job against :func:`ring_design`: its B9 forward
+    launches, "D only", "D given" and merges (layers x steps x the
+    design's), no backward without D and no gathered chunk; its hops a step
+    (steps 2 on, as ``calls`` counts them) and no all-gather or
+    reduce-scatter.  Returns the sums ``[forward, backward (0), D only, D
+    given, merge]``."""
+    n = docs[0]["n_layers"] * job["steps"]
+    per_step = docs[0]["n_layers"] * max(job["steps"] - 1, 1)
+    sums = [0] * 5
+    for d in docs:
+        want = ring_design(job, d["coords"]["sp"])
+        got = [*d["launches"], *d["ring_launches"]]
+        expect = [n * want["fwd"], 0, n * want["d"], n * want["given"], n * want["merge"]]
+        calls = d["calls"]
+        if got != expect or d["chunk_launches"] != [0, 0] or calls["p2p"] != \
+                per_step * want["p2p"] or calls["all_gather"] or calls["reduce_scatter"]:
+            raise AssertionError(
+                f"{mesh_label(job)}: rank {d['rank']} (sp {d['coords']['sp']}) launches "
+                f"[forward, backward, D only, D given, merge] {got}, {expect} expected; gathered "
+                f"chunks {d['chunk_launches']}; hops {calls['p2p']}, {per_step * want['p2p']} "
+                f"expected; all-gathers {calls['all_gather']}, reduce-scatters "
+                f"{calls['reduce_scatter']}, none expected")
+        sums = [a + b for a, b in zip(sums, expect)]
+    return sums
+
+
+def ring_versus_gather(card, gather, ring, tag):
+    """12.4's numbers of a ring leg beside the all-gather leg of the same
+    job (``(job, docs)`` each, from one call): step p50, tokens/s a card,
+    peak memory a rank, host ms a step inside P2P against the all-gathers
+    and reduce-scatters."""
+    out = {}
+    for flavour, (job, docs) in (("gather", gather), ("ring", ring)):
+        steps = job["steps"]
+        p50 = max(statistics.median(d["step_s"][1:]) for d in docs)
+        host = {k: max(d["host_s"][k] for d in docs) / (steps - 1) * 1e3
+                for k in ("p2p", "all_gather", "reduce_scatter", "all_reduce")}
+        out[flavour] = {"p50_ms": p50 * 1e3, "tokens_s_card": job["batch"] * job["seq"] / p50
+                        / len(docs), "peak_gib": max(d["peak_gib"] for d in docs), **host}
+    log(f"[{tag}] ring against all-gather, {mesh_label(ring[0])}: " + "; ".join(
+        f"{f}: step p50 {n['p50_ms']:.2f} ms, {n['tokens_s_card']:.1f} tokens/s a card, peak "
+        f"{n['peak_gib']:.2f} GiB a rank, host ms a step (the slowest rank) in P2P "
+        f"{n['p2p']:.2f}, all-gather {n['all_gather']:.2f}, reduce-scatter "
+        f"{n['reduce_scatter']:.2f}, all-reduce {n['all_reduce']:.2f}" for f, n in out.items())
+        + f"  [{card}]")
+    return out
+
+
+def phase_ring_mesh(torch, dev, card, gather_bf16):
+    """13.2 on the one card (gloo rank processes sharing it), the ring
+    with ``use_ring_attention``: fp32 ``LlamaConfig.tiny()`` with 4 layers
+    at tp 2 x sp 2 and at sp 4, held to the one-process step as 12.7 is;
+    bf16 at Llama-3-8B widths, 2 layers, tp 2 x sp 2, T 4096 (12.8's job):
+    a falling loss, its first loss within :data:`RING_BF16_LOSS_REL` of
+    12.8's (``gather_bf16``: that leg's ``(job, docs)``) and 12.4's numbers
+    beside it.  Each rank's launches and hops by :func:`ring_launches`.
+    Returns the launches by kernel row and dtype."""
+    tiny = dict(widths="tiny", layers=4, dtype="float32", batch=4, seq=64, steps=3, ring=True)
+    jobs = [(mesh_job("llama", 1, 1, tp=2, sp=2, **tiny), True),
+            (mesh_job("llama", 1, 1, sp=4, **tiny), True),
+            (mesh_job("llama", 1, 1, tp=2, sp=2, widths="8b", layers=2, dtype="bfloat16",
+                      batch=1, seq=4096, steps=3, ring=True), False)]
+    launches = {row: {"float32": 0, "bfloat16": 0} for row in ("dense_attention_fwd", *RING_ROWS)}
+    for job, oracle in jobs:
+        docs, _ = mesh_leg(torch, dev, card, job, oracle=oracle, collective="gloo", falling=True,
+                           tag="ring-mesh")
+        fwd, _, *ring = ring_launches(job, docs)
+        for row, n in zip(("dense_attention_fwd", *RING_ROWS), (fwd, *ring)):
+            launches[row][job["dtype"]] += n
+        if job["dtype"] == "bfloat16":
+            first, want = docs[0]["losses"][0], gather_bf16[1][0]["losses"][0]
+            rel = abs(first - want) / abs(want)
+            log(f"[ring-mesh] {mesh_label(job)}: first loss {first:.6f} against the all-gather "
+                f"flavour's {want:.6f} (12.8): rel {rel:.3e} (bound {RING_BF16_LOSS_REL:g})  "
+                f"[{card}]")
+            if not rel <= RING_BF16_LOSS_REL:
+                raise AssertionError(f"{mesh_label(job)}: first loss {first} against the "
+                                     f"all-gather flavour's {want} (rel {rel:.3e})")
+            ring_versus_gather(card, gather_bf16, (job, docs), "ring-mesh")
     return launches
 
 
@@ -4447,7 +4900,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernel.update(phase_sp_chunk_kernel(torch, dev, smi))
-    mesh = phase_mesh(torch, dev, smi)
+    mesh, gather_bf16 = phase_mesh(torch, dev, smi)
+    kernel.update(phase_ring_kernel(torch, dev, smi))
+    ring = phase_ring_mesh(torch, dev, smi, gather_bf16)
 
     # phase 8's worker process serves an fp32 Llama and the bf16 embedder
     launches = {
@@ -4467,13 +4922,17 @@ def main() -> int:
         **{name: mesh[name] for name in CHUNK_ROWS},
         **{name: moe[name] for name in MOE_KERNELS},
         "paged_attention_tp2": gang,
+        # the ring's entries and merges: phase 13.2's ranks
+        **{name: ring[name] for name in RING_ROWS},
     }
     # phase 11.4's serving leg runs B1 at full heads (fp32)
     launches["paged_attention"]["float32"] += pipe_b1
-    # phase 12's rank processes
+    # phase 12's rank processes, and 13.2's ring chunks' forward launches
     for name in ("dense_attention_fwd", "dense_attention_bwd"):
         for dtype in ("float32", "bfloat16"):
             launches[name][dtype] += mesh[name][dtype]
+    for dtype in ("float32", "bfloat16"):
+        launches["dense_attention_fwd"][dtype] += ring["dense_attention_fwd"][dtype]
     # phase 9's MoE runs and phase 11's pipeline runs launch B9 too
     for name in ("dense_attention_fwd", "dense_attention_bwd"):
         for dtype in ("float32", "bfloat16"):

@@ -41,10 +41,16 @@
 //     built from weights rounded to bf16, and on a three-key row the dq it
 //     gives is twice the plain version's worst row from exact.  A sequence
 //     chunk's row sees all its live keys (K and V are the gathered whole),
-//     so its D is the row's own, as at Tq == Tk; a ring chunk's would not
-//     be.  fp32 keeps
+//     so its D is the row's own, as at Tq == Tk.  A ring chunk's row sees
+//     only the visiting chunk's keys, so the ring
+//     (cordum_tpu_torch/ops/ring_attention.py) takes the two halves apart:
+//     "D only" (dense_attention_d) runs the D pass alone over the chunk
+//     under the row's lse over the whole ring, a partial the ring sums
+//     over its chunks, and "D given" (dense_attention_bwd_given) runs
+//     dK/dV and dQ with the caller's D.  fp32 keeps
 //     D = rowsum(dO * O) (a pre-pass, one warp a row), where O carries the
-//     fp32 weights.
+//     fp32 weights (in the ring, the merged output's; "D only" runs it
+//     alone).
 //
 // Bound: at the training shapes (T 256 .. 2048, head_dim 64 / 128) the
 // operations (4 * head_dim per live (query, key) pair forward, 10 * head_dim
@@ -2303,22 +2309,32 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, const int* pos, 
   return (int)cudaGetLastError();
 }
 
+// What a backward launch runs: D (bf16: the D pass, the dQ kernel without its
+// product; fp32: the pre-pass from the output), then the gradients (dK/dV,
+// then dQ).  The backward runs both; a ring chunk's "D only" the first alone
+// and its "D given" the second alone, with the caller's D.
+enum BwdPart { kBwdAll = 3, kBwdD = 1, kBwdGrads = 2 };
+
 // bf16: the D pass (the dQ kernel without its product), then dK/dV, then dQ
 template <int HD>
 int launch_bwd_bf16(const void* q, const void* k, const void* v, const int* pos,
                     const void* dout, const float* lse, float* D, void* dq, void* dk, void* dv,
-                    int B, int Tq, int Tk, int H, int KVH, float scale, cudaStream_t s) {
+                    int B, int Tq, int Tk, int H, int KVH, float scale, int parts,
+                    cudaStream_t s) {
   cudaError_t e;
   if constexpr (HD == 16) {
     constexpr size_t dqs = mma_dq_smem<HD>();
     const dim3 dq_grid((Tq + kRows - 1) / kRows, H, B);
-    e = set_smem((const void*)dense_attention_dq_mma_kernel<HD, true>, dqs);
-    if (e != cudaSuccess) return (int)e;
-    dense_attention_dq_mma_kernel<HD, true><<<dq_grid, kMmaThreads, dqs, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        pos, static_cast<const bf16*>(dout), lse, D, nullptr, Tq, Tk, H, KVH, scale);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    if (parts & kBwdD) {
+      e = set_smem((const void*)dense_attention_dq_mma_kernel<HD, true>, dqs);
+      if (e != cudaSuccess) return (int)e;
+      dense_attention_dq_mma_kernel<HD, true><<<dq_grid, kMmaThreads, dqs, s>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          pos, static_cast<const bf16*>(dout), lse, D, nullptr, Tq, Tk, H, KVH, scale);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+    }
+    if (!(parts & kBwdGrads)) return (int)cudaSuccess;
     const int n_qt = (Tq + kBwdTile - 1) / kBwdTile;
     const size_t dkv = mma_dkv_smem_fixed<HD>() + sizeof(unsigned) * ((n_qt + 31) / 32);
     e = set_smem((const void*)dense_attention_dkv_mma_kernel<HD>, dkv);
@@ -2351,12 +2367,15 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v, const int* pos,
       return (int)cudaErrorInvalidValue;
     const int rows_t = 128 / g;
     const dim3 dq_grid((Tq + rows_t - 1) / rows_t, H / g, B);
-    e = set_smem((const void*)dense_attention_dq_wgmma_kernel<HD, true>, Q::smem());
-    if (e != cudaSuccess) return (int)e;
-    dense_attention_dq_wgmma_kernel<HD, true><<<dq_grid, kHopperThreads, Q::smem(), s>>>(
-        tqg, tkt, tvt, tdog, pos, lse, D, nullptr, Tq, Tk, H, KVH, g, scale);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    if (parts & kBwdD) {
+      e = set_smem((const void*)dense_attention_dq_wgmma_kernel<HD, true>, Q::smem());
+      if (e != cudaSuccess) return (int)e;
+      dense_attention_dq_wgmma_kernel<HD, true><<<dq_grid, kHopperThreads, Q::smem(), s>>>(
+          tqg, tkt, tvt, tdog, pos, lse, D, nullptr, Tq, Tk, H, KVH, g, scale);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+    }
+    if (!(parts & kBwdGrads)) return (int)cudaSuccess;
     const int n_qt = (Tq + K::BQ - 1) / K::BQ;
     const size_t dkv = K::fixed() + sizeof(unsigned) * ((n_qt + 31) / 32);
     e = set_smem((const void*)dense_attention_dkv_wgmma_kernel<HD>, dkv);
@@ -2377,13 +2396,18 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v, const int* pos,
 template <int HD>
 int launch_bwd_f32(const void* q, const void* k, const void* v, const int* pos, const void* out,
                    const void* dout, const float* lse, float* D, void* dq, void* dk, void* dv,
-                   int B, int Tq, int Tk, int H, int KVH, float scale, cudaStream_t s) {
-  const long long rows = (long long)B * Tq * H;
-  dense_attention_pre_kernel<HD><<<(unsigned)((rows + kPreWarps - 1) / kPreWarps),
-                                   kPreWarps * kWarp, 0, s>>>(
-      static_cast<const float*>(out), static_cast<const float*>(dout), D, rows, Tq, H);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+                   int B, int Tq, int Tk, int H, int KVH, float scale, int parts,
+                   cudaStream_t s) {
+  cudaError_t e;
+  if (parts & kBwdD) {
+    const long long rows = (long long)B * Tq * H;
+    dense_attention_pre_kernel<HD><<<(unsigned)((rows + kPreWarps - 1) / kPreWarps),
+                                     kPreWarps * kWarp, 0, s>>>(
+        static_cast<const float*>(out), static_cast<const float*>(dout), D, rows, Tq, H);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (!(parts & kBwdGrads)) return (int)cudaSuccess;
   const int n_qt = (Tq + kF32DkvRows<HD> - 1) / kF32DkvRows<HD>;
   const size_t dkv = f32_dkv_smem_fixed<HD>() + sizeof(unsigned) * ((n_qt + 31) / 32);
   e = set_smem((const void*)dense_attention_dkv_f32_kernel<HD>, dkv);
@@ -2439,6 +2463,37 @@ extern "C" int dense_attention_fwd(int dtype, int head_dim, const void* q, const
 #undef CORDUM_FWD
 }
 
+namespace {
+
+int backward(int dtype, int head_dim, const void* q, const void* k, const void* v,
+             const void* pos, const void* out, const void* dout, const void* lse, void* D,
+             void* dq, void* dk, void* dv, int B, int Tq, int Tk, int H, int KVH, float scale,
+             int parts, void* stream) {
+  if (!args_ok(dtype, head_dim, B, Tq, Tk, H, KVH)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  const float* l = static_cast<const float*>(lse);
+  float* d = static_cast<float*>(D);
+  if (dtype == 0) {
+#define CORDUM_BWD(HD)                                                                     \
+  return launch_bwd_f32<HD>(q, k, v, p, out, dout, l, d, dq, dk, dv, B, Tq, Tk, H, KVH, scale, \
+                            parts, s)
+    if (head_dim == 16) CORDUM_BWD(16);
+    if (head_dim == 64) CORDUM_BWD(64);
+    CORDUM_BWD(128);
+#undef CORDUM_BWD
+  }
+#define CORDUM_BWD(HD)                                                                        \
+  return launch_bwd_bf16<HD>(q, k, v, p, dout, l, d, dq, dk, dv, B, Tq, Tk, H, KVH, scale, parts, \
+                             s)
+  if (head_dim == 16) CORDUM_BWD(16);
+  if (head_dim == 64) CORDUM_BWD(64);
+  CORDUM_BWD(128);
+#undef CORDUM_BWD
+}
+
+}  // namespace
+
 // The backward: D into an fp32 [B, H, Tq] scratch the caller allocates (fp32:
 // the pre-pass from out; bf16: the D pass, which does not read out), then
 // dK/dV and dQ, all on `stream`.
@@ -2447,23 +2502,32 @@ extern "C" int dense_attention_bwd(int dtype, int head_dim, const void* q, const
                                    const void* dout, const void* lse, void* D, void* dq,
                                    void* dk, void* dv, int B, int Tq, int Tk, int H, int KVH,
                                    float scale, void* stream) {
-  if (!args_ok(dtype, head_dim, B, Tq, Tk, H, KVH)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pos);
-  const float* l = static_cast<const float*>(lse);
-  float* d = static_cast<float*>(D);
-  if (dtype == 0) {
-#define CORDUM_BWD(HD) \
-  return launch_bwd_f32<HD>(q, k, v, p, out, dout, l, d, dq, dk, dv, B, Tq, Tk, H, KVH, scale, s)
-    if (head_dim == 16) CORDUM_BWD(16);
-    if (head_dim == 64) CORDUM_BWD(64);
-    CORDUM_BWD(128);
-#undef CORDUM_BWD
-  }
-#define CORDUM_BWD(HD)                                                                       \
-  return launch_bwd_bf16<HD>(q, k, v, p, dout, l, d, dq, dk, dv, B, Tq, Tk, H, KVH, scale, s)
-  if (head_dim == 16) CORDUM_BWD(16);
-  if (head_dim == 64) CORDUM_BWD(64);
-  CORDUM_BWD(128);
-#undef CORDUM_BWD
+  return backward(dtype, head_dim, q, k, v, pos, out, dout, lse, D, dq, dk, dv, B, Tq, Tk, H,
+                  KVH, scale, kBwdAll, stream);
+}
+
+// A ring chunk's "D only": the backward's D alone, into the caller's fp32
+// [B, H, Tq] D.  bf16: the D pass over this chunk's keys under the caller's
+// lse (the row's, over the whole ring), sum_k P dP over the chunk's live
+// keys, a partial the caller sums over the ring's chunks; q, k, v, pos, dout
+// and lse are read, out is not.  fp32: the pre-pass, rowsum(dO * out) of the
+// whole row (out the ring's merged output), which reads out and dout only.
+extern "C" int dense_attention_d(int dtype, int head_dim, const void* q, const void* k,
+                                 const void* v, const void* pos, const void* out,
+                                 const void* dout, const void* lse, void* D, int B, int Tq,
+                                 int Tk, int H, int KVH, float scale, void* stream) {
+  return backward(dtype, head_dim, q, k, v, pos, out, dout, lse, D, nullptr, nullptr, nullptr,
+                  B, Tq, Tk, H, KVH, scale, kBwdD, stream);
+}
+
+// A ring chunk's "D given": dK/dV and dQ of this chunk's keys under the
+// caller's lse and D (the row's over the whole ring), with no D pass or
+// pre-pass; out is not read.
+extern "C" int dense_attention_bwd_given(int dtype, int head_dim, const void* q, const void* k,
+                                         const void* v, const void* pos, const void* dout,
+                                         const void* lse, const void* D, void* dq, void* dk,
+                                         void* dv, int B, int Tq, int Tk, int H, int KVH,
+                                         float scale, void* stream) {
+  return backward(dtype, head_dim, q, k, v, pos, nullptr, dout, lse, const_cast<void*>(D), dq,
+                  dk, dv, B, Tq, Tk, H, KVH, scale, kBwdGrads, stream);
 }

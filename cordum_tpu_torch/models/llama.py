@@ -22,7 +22,9 @@ Training (:func:`make_train_step`) keeps the params as leaf tensors with
 :class:`..parallel.mesh.TrainMesh` of dp × tp × sp ranks a rank holds its
 tensor-parallel slices of the weights, its rows of the batch and its chunk
 of the sequence, and :mod:`..parallel.collectives` moves activations and
-gradients between ranks where the reference's GSPMD does.
+gradients between ranks where the reference's GSPMD does; with
+``use_ring_attention`` the sp ranks bring K/V round a ring instead
+(:mod:`..ops.ring_attention`).
 
 Unlike JAX's functional ``.at[].set``, the paged-arena functions here
 update the K/V arenas IN PLACE (and return them, for call-site symmetry
@@ -41,6 +43,7 @@ from .. import optim
 from ..device import DeviceLike, resolve_device
 from ..ops.dense_attention import dense_attention, gqa_attention
 from ..ops.paged_attention import AttentionPlan, paged_attention
+from ..ops.ring_attention import ring_attention
 from ..parallel.collectives import copy_to_tp, gather_seq, reduce_from_tp
 from ..parallel.mesh import AXIS_DP, AXIS_SP, TrainMesh
 
@@ -59,9 +62,9 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    # long-context ring attention over a sequence-parallel mesh (the JAX
-    # config's field): not ported yet (ROADMAP A10), so a training mesh with
-    # sp above 1 refuses it; without one it changes nothing, as in JAX
+    # long-context: ring attention over a sequence-parallel mesh's sp line
+    # (K/V chunks rotate round the ring, no rank holds the whole sequence)
+    # instead of the K/V all-gather; without sp it changes nothing, as in JAX
     use_ring_attention: bool = False
 
     @property
@@ -327,7 +330,12 @@ def _attention_residual(x, layer, cfg: LlamaConfig, positions, attention=_attent
     :func:`copy_to_tp` on the norm's output, K and V gathered over sp after
     RoPE (:func:`gather_seq`: the chunk's queries, at their global
     ``positions``, attend over the whole sequence) and the ``wo`` product's
-    partial sums reduced over tp (:func:`reduce_from_tp`)."""
+    partial sums reduced over tp (:func:`reduce_from_tp`).  With
+    ``cfg.use_ring_attention`` and sp above 1, K and V are not gathered:
+    :func:`..ops.ring_attention.ring_attention` brings them round the sp
+    ring, its mask from chunk ownership (``forward``'s default global
+    positions; ``attention`` is not called: the ring's chunk steps are
+    the kernels for CUDA tensors, the plain versions for CPU ones)."""
     b, t, _ = x.shape
     hd = cfg.head_dim
     h, kvh = layer["wq"].shape[1] // hd, layer["wk"].shape[1] // hd
@@ -337,9 +345,11 @@ def _attention_residual(x, layer, cfg: LlamaConfig, positions, attention=_attent
     k = (attn_in @ layer["wk"]).reshape(b, t, kvh, hd)
     v = (attn_in @ layer["wv"]).reshape(b, t, kvh, hd)
     q = rope(q, positions, cfg.rope_theta)
-    k = gather_seq(rope(k, positions, cfg.rope_theta), mesh)
-    v = gather_seq(v, mesh)
-    attn = attention(q, k, v, cfg, q_offset=positions)
+    k = rope(k, positions, cfg.rope_theta)
+    if cfg.use_ring_attention and mesh is not None and mesh.sp > 1:
+        attn = ring_attention(q, k, v, mesh)
+    else:
+        attn = attention(q, gather_seq(k, mesh), gather_seq(v, mesh), cfg, q_offset=positions)
     return x + reduce_from_tp(attn.reshape(b, t, h * hd) @ layer["wo"], mesh)
 
 
@@ -467,17 +477,13 @@ def make_train_step(cfg: LlamaConfig, optimizer: Optional[tuple[Callable, Callab
 
 def check_mesh(cfg: LlamaConfig, mesh: TrainMesh) -> None:
     """Raise ``ValueError`` for a mesh the Llama family does not train
-    over: pp above 1 (that is the pipeline family's), a tp that does not
-    split the heads and ``d_ff`` (:func:`check_tp`), or sp above 1 with
-    ``cfg.use_ring_attention`` (ring attention is ROADMAP A10; this
-    package has only the all-gather flavour of sp)."""
+    over: pp above 1 (that is the pipeline family's) or a tp that does not
+    split the heads and ``d_ff`` (:func:`check_tp`).  sp above 1 trains
+    in either flavour of sequence parallelism: the K/V all-gather, or the
+    ring with ``cfg.use_ring_attention``."""
     if mesh.pp != 1:
         raise ValueError(f"the llama family has no pipeline stages (mesh pp {mesh.pp}); "
                          "the pipeline family trains over pp")
-    if cfg.use_ring_attention and mesh.sp > 1:
-        raise ValueError(f"use_ring_attention over sp {mesh.sp}: ring attention is not ported "
-                         "yet (ROADMAP A10); train with use_ring_attention=False for the "
-                         "all-gather flavour")
     check_tp(cfg, mesh.tp)
 
 

@@ -23,6 +23,16 @@ The functions of one computation live here:
     with TMA (warp-specialised blocks; forward and dQ rows pack the query
     heads of a KV head), bf16 at head_dim 16 on ``mma.sync``, fp32 on CUDA
     cores with register tiles;
+  * :func:`dense_attention_d` and ``dense_attention_bwd(..., d=)`` — the
+    backward's two halves apart, for a ring chunk
+    (:mod:`.ring_attention`), whose keys are one chunk of the row's:
+    "D only" (bf16: the D pass over the chunk's keys under the row's
+    ``lse``, a partial the ring sums; fp32: the pre-pass from the merged
+    output) and "D given" (dK/dV and dQ with the caller's ``D``);
+  * :func:`dense_attention_fwd_reference`, :func:`dense_attention_d_reference`
+    and :func:`dense_attention_bwd_reference` — the plain versions of the
+    three wrappers (``(out, lse)``; ``D``; ``(dq, dk, dv)`` by the kernels'
+    formula, given ``D`` or not), which the ring's steps take on the CPU;
   * :class:`DenseAttention` — the ``torch.autograd.Function`` joining them:
     it saves q, k, v, the positions, the output and ``lse``, never the
     probabilities;
@@ -62,24 +72,36 @@ def gqa_attention(
     """Dense GQA attention; q ``[B, Tq, H, Dh]``, k/v ``[B, Tk, KVH, Dh]``.
     ``q_offset`` (``[Tq, 1]`` or ``[B, Tq]``) gives each query's global
     position; without it query ``i`` sits at position ``i``."""
-    _, tq, h, hd = q.shape
-    tk = k.shape[1]
-    rep = h // k.shape[2]
-    k = torch.repeat_interleave(k, rep, dim=2)
-    v = torch.repeat_interleave(v, rep, dim=2)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(hd)
-    if causal:
-        dev = q.device
-        q_pos = (
-            torch.arange(tq, device=dev)[:, None] if q_offset is None
-            else q_offset[:, :, None]
-        )
-        k_pos = torch.arange(tk, device=dev)[None, :]
-        mask = q_pos >= k_pos  # [Tq, Tk] or [B, Tq, Tk]
-        mask = mask[None, None] if mask.dim() == 2 else mask[:, None]
-        scores = scores.masked_fill(~mask, -1e30)
+    scores, _ = _masked_scores(q, k, causal, q_offset)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, _expand(v, q.shape[2]))
+
+
+def _expand(kv: torch.Tensor, h: int) -> torch.Tensor:
+    """K or V ``[B, Tk, KVH, hd]`` repeated to the ``h`` query heads."""
+    return torch.repeat_interleave(kv, h // kv.shape[2], dim=2)
+
+
+def _masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                   q_offset: Optional[torch.Tensor]) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`gqa_attention`'s fp32 scores ``[B, H, Tq, Tk]`` (the product
+    in the input dtype, then divided by ``sqrt(hd)``), masked keys at
+    ``-1e30``; and the mask (``True`` where a key is live, broadcastable to
+    the scores), ``None`` when not causal."""
+    tq, hd = q.shape[1], q.shape[3]
+    tk = k.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, _expand(k, q.shape[2])).float() / math.sqrt(hd)
+    if not causal:
+        return scores, None
+    dev = q.device
+    q_pos = (
+        torch.arange(tq, device=dev)[:, None] if q_offset is None
+        else q_offset[:, :, None]
+    )
+    k_pos = torch.arange(tk, device=dev)[None, :]
+    mask = q_pos >= k_pos  # [Tq, Tk] or [B, Tq, Tk]
+    mask = mask[None, None] if mask.dim() == 2 else mask[:, None]
+    return scores.masked_fill(~mask, -1e30), mask
 
 
 def dense_attention_reference(
@@ -89,6 +111,88 @@ def dense_attention_reference(
     ``q [B, Tq, H, hd]`` over ``k, v [B, Tk, KVH, hd]`` under ``k_index <=
     positions[b, q]``."""
     return gqa_attention(q, k, v, q_offset=positions)
+
+
+def _kernel_scores(q: torch.Tensor, k: torch.Tensor,
+                   positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The scores as the kernels take them: :func:`_masked_scores` under
+    ``k_index <= positions``, except that a row with no live key (a negative
+    position) counts every score as 0, which gives the reference's uniform
+    weights and an ``lse`` of ``log(Tk)``.  Returns the scores, the live
+    mask and the rows' ``[B, 1, Tq, 1]`` no-live-key flags."""
+    scores, mask = _masked_scores(q, k, True, positions)
+    dead = (positions < 0)[:, None, :, None]
+    return scores.masked_fill(dead, 0.0), mask & ~dead, dead
+
+
+def dense_attention_fwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`dense_attention_fwd`: the output of
+    :func:`dense_attention_reference` and the rows' ``lse`` (fp32 ``[B,
+    H, Tq]``; ``log(Tk)`` on a row with no live key, as the kernels')."""
+    scores, _, _ = _kernel_scores(q, k, positions)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, _expand(v, q.shape[2])).contiguous()
+    return out, torch.logsumexp(scores, dim=-1)
+
+
+def _weights(q, k, positions, lse):
+    """fp32 ``P = exp(s - lse)`` over :func:`_kernel_scores` (0 on a masked
+    key), and the rows' no-live-key flags."""
+    scores, live, dead = _kernel_scores(q, k, positions)
+    return torch.where(live | dead, torch.exp(scores - lse[..., None]), 0.0), dead
+
+
+def dense_attention_d_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+) -> torch.Tensor:
+    """The plain version of :func:`dense_attention_d`: fp32 ``[B, H,
+    Tq]``; bf16 :func:`d_from_weights`, fp32 ``rowsum(dO * out)``."""
+    if q.dtype == torch.float32:
+        return (dout * out).sum(-1).transpose(1, 2).contiguous()
+    return d_from_weights(q, k, v, positions, lse, dout)
+
+
+def d_from_weights(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor,
+) -> torch.Tensor:
+    """``sum_k P dP`` over these keys, fp32 ``[B, H, Tq]``, in any dtype:
+    ``P = exp(s - lse)`` from the scores as the dtype rounds them (0 on a
+    masked key), ``dP = dO V^T`` unrounded.  Over a row's chunks the
+    partials sum to the row's ``D``, which is ``rowsum(dO * out)`` in exact
+    arithmetic."""
+    p, _ = _weights(q, k, positions, lse)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), _expand(v, q.shape[2]).float())
+    return (p * dp).sum(-1)
+
+
+def dense_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+    d: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`dense_attention_bwd`, by the kernels'
+    formula (``csrc/dense_attention.cu``'s head comment): ``P = exp(s -
+    lse)`` in fp32, ``dP = dO V^T``, ``dS = P (dP - D) / sqrt(hd)`` rounded
+    to the dtype (0 on a row with no live key), ``dQ = dS K``, ``dK = dS^T
+    Q`` and ``dV = P^T dO`` with P rounded to the dtype, each summed in fp32
+    (dK and dV over a KV head's query heads too) and rounded once.  ``d``
+    is the caller's ``D``, else :func:`dense_attention_d_reference`'s."""
+    dt, h, hd = q.dtype, q.shape[2], q.shape[3]
+    b, tk, kvh = k.shape[0], k.shape[1], k.shape[2]
+    if d is None:
+        d = dense_attention_d_reference(q, k, v, positions, out, lse, dout)
+    p, dead = _weights(q, k, positions, lse)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), _expand(v, h).float())
+    ds = (p * (dp - d[..., None]) / math.sqrt(hd)).masked_fill(dead, 0.0).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _expand(k, h).float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), dout.float())
+    dk, dv = (x.reshape(b, tk, kvh, h // kvh, hd).sum(3) for x in (dk, dv))
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -104,6 +208,18 @@ def _bind(lib: ctypes.CDLL) -> None:
         + [ctypes.c_float, ctypes.c_void_p]
     )
     bwd.restype = ctypes.c_int
+    only_d = lib.dense_attention_d
+    only_d.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    only_d.restype = ctypes.c_int
+    given = lib.dense_attention_bwd_given
+    given.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    given.restype = ctypes.c_int
 
 
 def check_kernel_args(
@@ -185,41 +301,94 @@ dense_attention_fwd.launches = 0  # type: ignore[attr-defined]
 dense_attention_fwd.chunk_launches = 0  # type: ignore[attr-defined]
 
 
+def _check_row_stat(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
+    b, tq, h, _ = q.shape
+    if t.dtype != torch.float32 or tuple(t.shape) != (b, h, tq) or not t.is_contiguous() \
+            or t.device != q.device:
+        raise ValueError(f"dense_attention kernel: {name} must be a contiguous fp32 [B, H, Tq]")
+
+
 def dense_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
-    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+    d: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels (``D``, dK/dV, dQ, in that order on one
     stream): ``(dq, dk, dv)`` in the inputs' dtype, from what
     :func:`dense_attention_fwd` returned.  One call counts one in
     ``dense_attention_bwd.launches`` (and in ``chunk_launches`` where the
-    queries and keys differ in length)."""
+    queries and keys differ in length).
+
+    ``d`` (fp32 ``[B, H, Tq]``): a ring chunk's "D given", dK/dV and dQ
+    under the caller's ``lse`` and ``D`` (the row's over the whole ring),
+    with no D pass (bf16) or pre-pass (fp32); ``out`` is not read.  Such a
+    call counts in ``dense_attention_bwd.given_launches`` alone."""
     check_kernel_args(q, k, v, positions, out, dout)
     b, tq, h, hd = q.shape
     tk = k.shape[1]
-    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, tq) or not lse.is_contiguous() \
-            or lse.device != q.device:
-        raise ValueError("dense_attention kernel: lse must be a contiguous fp32 [B, H, Tq]")
-    fn = _build.load(SOURCE, _bind).dense_attention_bwd
+    _check_row_stat("lse", lse, q)
+    if d is not None:
+        _check_row_stat("d", d, q)
+    lib = _build.load(SOURCE, _bind)
     with torch.cuda.device(q.device):
-        d_scratch = torch.empty_like(lse)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            positions.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            d_scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk, h,
-            k.shape[2], 1.0 / math.sqrt(hd), stream,
-        )
+        head = (_DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                positions.data_ptr())
+        tail = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk, h, k.shape[2],
+                1.0 / math.sqrt(hd), stream)
+        if d is None:
+            d_scratch = torch.empty_like(lse)
+            err = lib.dense_attention_bwd(*head, out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                                          d_scratch.data_ptr(), *tail)
+        else:
+            err = lib.dense_attention_bwd_given(*head, dout.data_ptr(), lse.data_ptr(),
+                                                d.data_ptr(), *tail)
     if err != 0:
         raise RuntimeError(f"dense_attention backward kernel launch failed: CUDA error {err}")
-    dense_attention_bwd.launches += 1
-    dense_attention_bwd.chunk_launches += tq != tk
+    if d is None:
+        dense_attention_bwd.launches += 1
+        dense_attention_bwd.chunk_launches += tq != tk
+    else:
+        dense_attention_bwd.given_launches += 1
     return dq, dk, dv
 
 
 dense_attention_bwd.launches = 0  # type: ignore[attr-defined]
 dense_attention_bwd.chunk_launches = 0  # type: ignore[attr-defined]
+dense_attention_bwd.given_launches = 0  # type: ignore[attr-defined]
+
+
+def dense_attention_d(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+) -> torch.Tensor:
+    """A ring chunk's "D only": the backward's softmax-gradient ``D``
+    alone, fp32 ``[B, H, Tq]``, under the caller's ``lse`` (the row's over
+    the whole ring).  bf16: the D pass over these keys, ``sum_k P dP`` over
+    the chunk's live keys, a partial the ring sums over its chunks (``out``
+    is not read); fp32: the pre-pass, ``rowsum(dO * out)`` of the whole row
+    from the merged output (the keys are not read).  Counted in
+    ``dense_attention_d.launches``."""
+    check_kernel_args(q, k, v, positions, out, dout)
+    b, tq, h, hd = q.shape
+    _check_row_stat("lse", lse, q)
+    fn = _build.load(SOURCE, _bind).dense_attention_d
+    with torch.cuda.device(q.device):
+        d = torch.empty_like(lse)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), d.data_ptr(),
+            b, tq, k.shape[1], h, k.shape[2], 1.0 / math.sqrt(hd), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"dense_attention D kernel launch failed: CUDA error {err}")
+    dense_attention_d.launches += 1
+    return d
+
+
+dense_attention_d.launches = 0  # type: ignore[attr-defined]
 
 
 class DenseAttention(torch.autograd.Function):

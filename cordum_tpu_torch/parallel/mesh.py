@@ -28,8 +28,9 @@ ep, pp) grid, pp fastest, as ``np.array(devices).reshape(shape)`` lays the
 devices out, with a world group and one group per axis line (the dp, tp,
 sp and pp lines through the rank), built from one store as
 :meth:`TPGroup.join` builds its group.  It sums, gathers and
-reduce-scatters over any of them and sends and receives between pp
-neighbours.  ep may not exceed 1 yet: it comes with ROADMAP A12.
+reduce-scatters over any of them, sends and receives between pp
+neighbours, and shifts tensors one hop round a line (the ring of ring
+attention over sp).  ep may not exceed 1 yet: it comes with ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ import math
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -289,7 +290,8 @@ class TrainMesh:
     :class:`TPGroup`'s, the groups are bare process groups, not the
     process's default group, and every call waits at most the caller's
     ``timeout_s``.  ``host_s`` and ``calls`` count the host seconds spent
-    inside, and the number of, point-to-point calls (``p2p``), all-reduces
+    inside, and the number of, point-to-point calls (``p2p``: a
+    :meth:`send`, a :meth:`recv` or a :meth:`shift`'s exchange), all-reduces
     (``all_reduce``), all-gathers (``all_gather``) and reduce-scatters
     (``reduce_scatter``); over NCCL a call returns once the operation is
     queued on the card, over gloo once it is done."""
@@ -450,6 +452,34 @@ class TrainMesh:
         self._timed("p2p", lambda: pg.recv([buf], stage, tag).wait())
         return buf.to(self.device) if staged else buf
 
+    def shift(self, tensors: Sequence[torch.Tensor], over: str = AXIS_SP) -> list[torch.Tensor]:
+        """One hop of a ring along ``over``: send ``tensors`` to the rank
+        of the next coordinate on the line (``(i + 1) % n``) and return
+        the previous one's (``(i - 1) % n``), each of the same shape and
+        dtype, on this rank's device.  The tensors travel packed into one
+        byte buffer, one exchange a hop (gloo through host memory for a
+        CUDA tensor, as :meth:`send`).  Ranks of even coordinate post the
+        send first and odd ones the receive, so the two sides of a pair
+        post in the same order (NCCL's point-to-point calls between two
+        ranks are matched in order; at n 2 the next rank is the previous
+        one).  A line of one rank returns the tensors as they are."""
+        pg, n = self._group(over), self._line_size(over)
+        if pg is None:
+            return list(tensors)
+        idx = self.rank if over == "world" else self.coords[over]
+        buf, layout = _pack(tensors)
+        send = self._staged(buf)
+        recv = torch.empty_like(send)
+
+        def exchange():
+            ops = [(pg.send, send, (idx + 1) % n), (pg.recv, recv, (idx - 1) % n)]
+            works = [post([t], peer, 0) for post, t, peer in ops[::1 if idx % 2 == 0 else -1]]
+            for w in works:
+                w.wait()
+
+        self._timed("p2p", exchange)
+        return _unpack(recv.to(self.device), layout)
+
     def close(self) -> None:
         """Abort every group (idempotent): a peer blocked in a call with
         this rank fails at once instead of at its timeout."""
@@ -495,6 +525,31 @@ class TrainMesh:
                   mesh={k: v for k, v in sizes.items() if v > 1}, collective=backend,
                   device=str(device))
         return cls(sizes=sizes, rank=rank, backend=backend, device=device, groups=groups)
+
+
+#: bytes each tensor of a packed hop starts at a multiple of (the widest
+#: dtype's element, and aligned for the kernels that read the tensors)
+_PACK_ALIGN = 16
+
+
+def _pack(tensors: Sequence[torch.Tensor]) -> tuple[torch.Tensor, list]:
+    """``tensors`` copied into one uint8 buffer on the first one's device,
+    each from a multiple of :data:`_PACK_ALIGN` bytes; and the layout
+    :func:`_unpack` reads them back by."""
+    layout, size = [], 0
+    for t in tensors:
+        nbytes = t.numel() * t.element_size()
+        layout.append((size, nbytes, t.dtype, tuple(t.shape)))
+        size += -(-nbytes // _PACK_ALIGN) * _PACK_ALIGN
+    buf = torch.empty(size, dtype=torch.uint8, device=tensors[0].device)
+    for t, (off, nbytes, _, _) in zip(tensors, layout):
+        buf[off:off + nbytes].copy_(t.detach().reshape(-1).view(torch.uint8))
+    return buf, layout
+
+
+def _unpack(buf: torch.Tensor, layout: list) -> list[torch.Tensor]:
+    return [buf[off:off + nbytes].view(dtype).view(shape)
+            for off, nbytes, dtype, shape in layout]
 
 
 def in_process_meshes(spec: MeshSpec, world: int, device: torch.device, *,

@@ -299,19 +299,26 @@ def test_forward_chunk_logits_are_the_rows_of_the_whole():
 
 
 def test_ring_attention_over_sp_is_refused_naming_a10():
+    """The refusal this test once held (ring attention not ported, ROADMAP
+    A10) is gone: a ring mesh at tp 2 × sp 2 builds its step and takes
+    one, every rank with the same finite loss, which equals the all-gather
+    flavour's (``tests/test_torch_ring_attention.py`` holds the ring to
+    the JAX package's)."""
     _, tcfg = _cfgs()
     ring = tl.LlamaConfig(**{**tcfg.__dict__, "use_ring_attention": True})
+    toks = torch.from_numpy(_tokens(4, 16, 8))
 
-    def body(mesh):
-        if mesh.sp > 1:
-            with pytest.raises(ValueError, match=r"ring attention is not ported yet \(ROADMAP A10\)"):
-                tl.make_train_step(ring, device=CPU, mesh=mesh)
-        else:
-            tl.make_train_step(ring, device=CPU, mesh=mesh)  # no sp line: nothing to refuse
-        return True
+    def body(cfg):
+        def run(mesh):
+            init, step = tl.make_train_step(cfg, device=CPU, mesh=mesh)
+            params, state = init(3)
+            return step(params, state, toks)[2].item()
+        return run
 
-    assert run_mesh(1, 1, 2, body) == [True, True]
-    assert run_mesh(1, 2, 1, body) == [True, True]
+    losses = run_mesh(1, 2, 2, body(ring))
+    assert len(set(losses)) == 1 and np.isfinite(losses[0])
+    gather = run_mesh(1, 2, 2, body(tcfg))
+    assert abs(losses[0] - gather[0]) / gather[0] <= ONE_PROCESS_LOSS_REL
 
 
 def test_tp_that_does_not_split_the_heads_is_refused():
