@@ -329,7 +329,7 @@ def leg_moe(torch, cs, dev, *, batch=4, seq=2048, steps=10):
         case = cs.moe_case(torch, dev, torch.float32, n=n, d=64, e=e, k=k)
         probs, cap = case["probs"], case["cap"]
         got, want = md.moe_route_kernel(probs, k, cap), md.moe_route_reference(probs, k, cap)
-        if not all(torch.equal(getattr(got, f), getattr(want, f)) for f in md.MoERoute._fields):
+        if not all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"moe_route N {n} E {e} k {k}: differs from the plain route")
         res[f"moe_route_N{n}_E{e}_k{k}"] = {"ms": cs.time_ms(
             torch, lambda: md.moe_route_kernel(probs, k, cap), iters=20, flush=flush),

@@ -216,6 +216,31 @@ Every phase raises on failure.  Phases:
     configuration, held to its oracle; (4) the ring at 12.10's bf16
     Llama-3-8B tp 2 x sp 2 leg (32 layers, B 1, T 8192), beside that leg
     in the same call.
+14. Expert parallelism, the MoE family over dp x tp x ep, once phase 13 is
+    done.  (1) B7's route with a room (a dp rank's: the rows the lower dp
+    ranks' tokens leave each expert; the pick, the room from its counts,
+    then the place) against its plain version, equal (the integers), at
+    9.1's shape (N 8192, E 8, top 2) with the capacity of a dp 2 mesh's
+    whole batch (C 5120): rank 1's room after a random rank 0, a room of 0
+    (rank 0 sends three quarters of its tokens to expert 0), every token
+    of rank 1 to one expert, exact ties; rank 1's kept slots equal to the
+    whole batch's route's rows; the dispatch and combine of rank 1 of
+    an ep 2 line (experts 4-7, the other pairs' idx negative or past 3)
+    against the plain versions; times by 9.1's method beside the route
+    without a room.  (2) MoE rank processes sharing the card over gloo:
+    fp32 ``LlamaConfig.tiny()`` widths (E 4, top 2, 4 layers, capacity
+    factor 0.5, a router skewed to expert 0: tokens drop) at dp 2 x ep 2,
+    tp 2 x ep 2 and ep 4, held to the one-process step as 12.7 is; bf16 at
+    Mixtral-8x7B widths (9.3's config and batch, 2 layers) at ep 2: a
+    falling loss, its first loss within 1e-2 relative of 9.3's one-card
+    run.  Every rank's B7 and B9 launches are layers x steps, the route
+    with a room's too where dp is above 1, else none.  ``--cards``
+    (``--legs moe``): (3) fp32 Mixtral widths, 2 layers, B 2, T 256, one
+    AdamW step, skewed and at capacity factor 0.5: ep 4, dp 2 x ep 2 and
+    tp 2 x ep 2, each held to its one-process step on card 0; (4) bf16
+    Mixtral widths at 8 of 32 layers, 9.3's batch (B 4, T 2048), 10 steps:
+    ep 4 and tp 2 x ep 2, a falling loss; step p50, tokens/s a card, peak
+    memory a rank and host ms a step in the collectives.
 
 Tolerances (kernel vs plain version, max abs error), paged attention:
 fp32 1e-4 — the sums run in another order over up to 8192 keys, on O(1)
@@ -283,6 +308,13 @@ by 7.1's gates (fp32: output 1e-5, gradients and D 1e-4 of their max;
 bf16: the row gate, D element by element, each against the exact
 result); the merge kernel within 2^-20 of the largest value (fp32
 elementwise arithmetic, a few ulps); the ring's ranks by phase 12's gates.
+Phase 14: the route with a room equal to its plain version, and rank 1's
+dispatch and d_out equal and its combine within 9.1's bound; the MoE
+ranks by phase 12's gates (the expert slices against the slices of the
+one-process gradients and params); the bf16 ep 2 leg's first loss within
+1e-2 relative of 9.3's (the same weights and batch; the combine's partial
+sums are added over the ranks in bf16, in another order than one card's
+sum).
 
 Near-tie rule of phase 3, fixed before any run: tokens are compared up to
 the first generated position where the oracle's top-2 logits differ by
@@ -351,6 +383,10 @@ KERNELS = {
     **{name: (module, "cordum_tpu/ops/ring_attention.py:32-75") for name, module in (
         ("dense_attention_d", "dense_attention"), ("dense_attention_bwd_given", "dense_attention"),
         ("ring_merge", "ring_attention"))},
+    # B7's route on a dp rank (phase 14): a room from the lower dp ranks'
+    # counts, the reference's global capacity and queue under jit over a
+    # dp-sharded batch
+    "moe_route_room": ("moe_dispatch", "cordum_tpu/models/moe.py:82-94"),
 }
 
 
@@ -1095,6 +1131,9 @@ CHUNK_ROWS = {"dense_attention_fwd_sp": "dense_attention_fwd",
 #: the kernel row of B9's "D given" backward, a launch mode of the backward's
 #: wrapper counted apart from its ``launches`` (``given_launches``)
 GIVEN_ROW = "dense_attention_bwd_given"
+#: the kernel row of B7's route with a room, counted apart too
+#: (``room_launches``)
+ROOM_ROW = "moe_route_room"
 
 
 def set_launches(counts=None):
@@ -1105,6 +1144,7 @@ def set_launches(counts=None):
     for name, of in CHUNK_ROWS.items():
         fns[of].chunk_launches = counts[name] if counts else 0
     fns["dense_attention_bwd"].given_launches = counts[GIVEN_ROW] if counts else 0
+    fns["moe_route"].room_launches = counts[ROOM_ROW] if counts else 0
 
 
 def zero_launches():
@@ -1115,7 +1155,8 @@ def read_launches():
     fns = launch_counters()
     return {**{name: fn.launches for name, fn in fns.items()},
             **{name: fns[of].chunk_launches for name, of in CHUNK_ROWS.items()},
-            GIVEN_ROW: fns["dense_attention_bwd"].given_launches}
+            GIVEN_ROW: fns["dense_attention_bwd"].given_launches,
+            ROOM_ROW: fns["moe_route"].room_launches}
 
 
 def check_worker_launches(n_layers_embed, n_layers_llama, steps, *, infer):
@@ -2281,9 +2322,11 @@ def routing_weights(torch, probs, route):
 
 def kept_rows(torch, rows, route):
     """``[N, k, D]`` fp32: each slot's row of ``rows [E, C, D]`` (zeros where
-    the slot was dropped)."""
+    the slot was dropped; a dropped slot may hold any idx, an ep rank's
+    view a negative one)."""
     pos = torch.where(route.keep, route.pos, 0).long()
-    return rows.float()[route.idx.long(), pos] * route.keep[..., None]
+    idx = torch.where(route.keep, route.idx, 0).long()
+    return rows.float()[idx, pos] * route.keep[..., None]
 
 
 def check_moe(torch, case, tag):
@@ -2295,19 +2338,40 @@ def check_moe(torch, case, tag):
     (``MOE_KERNELS``' names)."""
     from cordum_tpu_torch.ops import moe_dispatch as md
 
-    probs, k, cap = case["probs"], case["k"], case["cap"]
-    tokens, expert_out, dy, d_ei = (case[x] for x in ("tokens", "expert_out", "dy", "d_ei"))
-    name = str(tokens.dtype).split(".")[-1]
+    probs, k, cap, tokens = case["probs"], case["k"], case["cap"], case["tokens"]
     route = md.moe_route_kernel(probs, k, cap)
     again = md.moe_route_kernel(probs, k, cap)
     plain_route = md.moe_route_reference(probs, k, cap)
     torch.cuda.synchronize()
     for field in md.MoERoute._fields:
-        got, want = getattr(route, field), getattr(plain_route, field)
-        if not torch.equal(got, want) or not torch.equal(got, getattr(again, field)):
+        got, want, other = (getattr(r, field) for r in (route, plain_route, again))
+        if got is None and want is None and other is None:  # no room
+            continue
+        if not torch.equal(got, want) or not torch.equal(got, other):
             raise AssertionError(f"moe_route ({tag}): {field} differs from the plain version's "
                                  "or between two calls")
     w = routing_weights(torch, probs, route)
+    errs = check_moe_gathers(torch, case, route, w, tag)
+    kept = int(route.keep.sum())
+    log(f"[moe-kernel] {tag}: N {tokens.shape[0]}, D {tokens.shape[1]}, E {probs.shape[1]}, "
+        f"k {k}, C {cap}: {kept} of {route.keep.numel()} slots kept, counts "
+        f"{route.counts.tolist()}; route, dispatch and d_out equal to the plain version's; max "
+        f"abs err " + ", ".join(f"{MOE_KERNELS[m]} {errs[m]:.3e}" for m in (
+            "moe_token_gather", "moe_token_sum", "moe_token_dot"))
+        + "; backward bits equal on two calls")
+    return route, w, errs
+
+
+def check_moe_gathers(torch, case, route, w, tag):
+    """:func:`check_moe`'s gates on B7's five gathers over ``route`` (the
+    kernels' and the plain versions', on the same route) with the routing
+    weights ``w``: the case's tokens, expert outputs ``[E, C, D]`` (E the
+    route's experts), ``dy`` and ``d_ei``.  Returns each launch mode's max
+    abs error, the route's 0."""
+    from cordum_tpu_torch.ops import moe_dispatch as md
+
+    tokens, expert_out, dy, d_ei = (case[x] for x in ("tokens", "expert_out", "dy", "d_ei"))
+    name = str(tokens.dtype).split(".")[-1]
     tok, out, wk = (x.clone().requires_grad_() for x in (tokens, expert_out, w))
     expert_in = md.moe_dispatch(tok, route)
     y = md.moe_combine(out, wk, route)
@@ -2319,8 +2383,8 @@ def check_moe(torch, case, tag):
     if not all(torch.equal(a, b) for a, b in zip((d_tokens, d_out, d_w), twice)):
         raise AssertionError(f"moe backward ({tag}): two calls differ")
     tok_p, out_p, w_p = (x.clone().requires_grad_() for x in (tokens, expert_out, w))
-    ei_p = md.moe_dispatch_reference(tok_p, plain_route)
-    y_p = md.moe_combine_reference(out_p, w_p, plain_route)
+    ei_p = md.moe_dispatch_reference(tok_p, route)
+    y_p = md.moe_combine_reference(out_p, w_p, route)
     (d_tokens_p,) = torch.autograd.grad(ei_p, tok_p, d_ei)
     d_out_p, d_w_p = torch.autograd.grad(y_p, (out_p, w_p), dy)
     outs = (expert_in, y, d_tokens, d_out, d_w)
@@ -2355,15 +2419,8 @@ def check_moe(torch, case, tag):
         raise AssertionError(f"moe d_w ({tag}): max err {diff_w.max().item():.3e}, limit "
                              f"{MOE_DW_REL:g} of the products' magnitudes")
     errs["moe_token_dot"] = diff_w.max().item()
-    kept = int(route.keep.sum())
-    log(f"[moe-kernel] {tag}: N {tokens.shape[0]}, D {tokens.shape[1]}, E {probs.shape[1]}, "
-        f"k {k}, C {cap}: {kept} of {route.keep.numel()} slots kept, counts "
-        f"{route.counts.tolist()}; route, dispatch and d_out equal to the plain version's; max "
-        f"abs err " + ", ".join(f"{MOE_KERNELS[m]} {errs[m]:.3e}" for m in (
-            "moe_token_gather", "moe_token_sum", "moe_token_dot"))
-        + "; backward bits equal on two calls")
     del tok, out, wk, tok_p, out_p, w_p, ei_p, y_p, d_tokens_p, d_out_p, d_w_p, outs
-    return route, w, errs
+    return errs
 
 
 #: C3, the token gathers at any k (a token's kept slots): an fp32 sum of n
@@ -2687,7 +2744,7 @@ def phase_moe_bf16(torch, dev, card, cfg, *, batch=MOE_BATCH, seq=MOE_SEQ, steps
     """9.3: bf16 train steps on one fixed batch through ``make_train_step``;
     the loss must be finite and fall.  Step p50, tokens/s, peak memory, then
     two steps more under ``torch.profiler`` (not counted).  Returns the
-    launches."""
+    launches and the losses."""
     from cordum_tpu_torch.models import moe
 
     init, step = moe.make_train_step(cfg, device=dev)
@@ -2721,7 +2778,7 @@ def phase_moe_bf16(torch, dev, card, cfg, *, batch=MOE_BATCH, seq=MOE_SEQ, steps
     del params, state
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, losses
 
 
 async def drive_moe_train_worker(torch, dev, card, ckpt_root, *, batch=8, seq=128):
@@ -2755,8 +2812,8 @@ async def drive_moe_train_worker(torch, dev, card, ckpt_root, *, batch=8, seq=12
 def phase_moe(torch, dev, card):
     """9.1 B7 vs its plain version and its times; 9.2 the fp32 gradient
     oracle; 9.3 the bf16 train run; 9.4 ``train`` jobs through a worker.
-    Returns the B7 rows' numbers and each dtype's main-path launches of
-    B7 and B9."""
+    Returns the B7 rows' numbers, each dtype's main-path launches of B7 and
+    B9, and 9.3's first loss."""
     import tempfile
 
     rows = phase_moe_kernel(torch, dev, card)
@@ -2766,11 +2823,11 @@ def phase_moe(torch, dev, card):
     cfg2 = dataclasses.replace(cfg, base=dataclasses.replace(cfg.base, n_layers=2))
     fp32 = phase_moe_oracle(torch, dev, card, dataclasses.replace(
         cfg2, base=dataclasses.replace(cfg2.base, dtype=torch.float32)))
-    bf16 = phase_moe_bf16(torch, dev, card, cfg2)
+    bf16, losses = phase_moe_bf16(torch, dev, card, cfg2)
     with tempfile.TemporaryDirectory(prefix="cordum-ckpt-") as ckpt_root:
         jobs = asyncio.run(drive_moe_train_worker(torch, dev, card, ckpt_root))
     launches = {key: {"float32": fp32[key], "bfloat16": bf16[key] + jobs[key]} for key in fp32}
-    return rows, launches
+    return rows, launches, losses[0]
 
 
 # ---------------------------------------------------------------------------
@@ -3279,16 +3336,17 @@ def check_gang_oracle_ranks(card, ranks, oracle, served, *, where):
 
 
 def main_cards() -> int:
-    """``python3 chip_smoke.py --cards [--legs train,gang]``, on a host with
-    two or more cards, one rank a card (NCCL).  ``train``, with four
+    """``python3 chip_smoke.py --cards [--legs train,gang,moe]``, on a host
+    with two or more cards, one rank a card (NCCL).  ``train``, with four
     cards: phase 12.3-12.5, 12.9, 12.10, 13.3 and 13.4
-    (:func:`cards_train_legs`).  ``gang``: at tp 2 and, with
+    (:func:`cards_train_legs`).  ``moe``, with four cards: phase 14.3 and
+    14.4 (:func:`cards_moe_legs`).  ``gang``: at tp 2 and, with
     four cards, tp 4: phase 3's fp32 oracle on one card, then the fp32 gang
     of rank processes on its weights and prompts, its tokens held to the
     oracle and to one rank (:func:`check_gang_oracle_ranks`); then phase
     4's serving run on one card and phase 10.3's bf16 gang, with 10.3's
-    gates (no token gate in bf16, no speed gate).  Both legs unless
-    ``--legs`` names one.  Ends with the card line and the ``{"ok": true,
+    gates (no token gate in bf16, no speed gate).  Every leg unless
+    ``--legs`` names some.  Ends with the card line and the ``{"ok": true,
     ...}`` line, as the default run does."""
     import torch
 
@@ -3297,7 +3355,7 @@ def main_cards() -> int:
         return 2
     from cordum_tpu_torch.models import llama
 
-    legs = ("train", "gang")
+    legs = ("train", "moe", "gang")
     if "--legs" in sys.argv:
         legs = tuple(sys.argv[sys.argv.index("--legs") + 1].split(","))
     dev = torch.device("cuda", 0)
@@ -3315,6 +3373,12 @@ def main_cards() -> int:
         if n < 4:
             raise AssertionError(f"the training legs need four cards, this host has {n}")
         cards_train_legs(torch, dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "moe" in legs:
+        if n < 4:
+            raise AssertionError(f"the MoE legs need four cards, this host has {n}")
+        cards_moe_legs(torch, dev, card)
         gc.collect()
         torch.cuda.empty_cache()
     if "gang" in legs:
@@ -3988,26 +4052,42 @@ def mesh_param_atol(steps):
 
 
 def mesh_job(family, dp, pp, *, widths, layers, dtype, batch, seq, steps, m=1, device="cuda",
-             profile=False, tp=1, sp=1, ring=False):
+             profile=False, tp=1, sp=1, ring=False, ep=1, cf=None, skew=0.0,
+             token_seed=MESH_TOKEN_SEED):
     """A phase-12 job: what every rank process and the one-process oracle
-    of it are given (JSON).  ``widths`` ``"8b"`` (Llama-3-8B) or
-    ``"tiny"``; ``m`` the pipeline's microbatches; ``tp`` and ``sp`` the
-    Llama family's tensor- and sequence-parallel axes; ``ring`` its
-    ``use_ring_attention`` (phase 13: ring attention over sp)."""
-    return {"family": family, "dp": dp, "tp": tp, "sp": sp, "pp": pp, "widths": widths,
-            "layers": layers, "dtype": dtype, "batch": batch, "seq": seq, "steps": steps,
-            "m": m, "device": device, "profile": profile, "ring": ring, "oracle": None}
+    of it are given (JSON).  ``widths`` ``"8b"`` (Llama-3-8B; the MoE
+    family's Mixtral-8x7B widths on it, :func:`moe_config`) or ``"tiny"``
+    (``LlamaConfig.tiny()``; the MoE family's ``MoEConfig.tiny()`` experts);
+    ``m`` the pipeline's microbatches; ``tp`` and ``sp`` the Llama family's
+    tensor- and sequence-parallel axes; ``ring`` its
+    ``use_ring_attention`` (phase 13: ring attention over sp); ``ep`` the
+    MoE family's expert-parallel axis, ``cf`` its capacity factor (None:
+    the config's) and ``skew`` its router skew (:func:`skew_router`);
+    ``token_seed`` the batch's numpy seed."""
+    return {"family": family, "dp": dp, "tp": tp, "sp": sp, "ep": ep, "pp": pp,
+            "widths": widths, "layers": layers, "dtype": dtype, "batch": batch, "seq": seq,
+            "steps": steps, "m": m, "device": device, "profile": profile, "ring": ring,
+            "cf": cf, "skew": skew, "token_seed": token_seed, "oracle": None}
 
 
 def mesh_world(job):
-    return job["dp"] * job["tp"] * job["sp"] * job["pp"]
+    return job["dp"] * job["tp"] * job["sp"] * job.get("ep", 1) * job["pp"]
 
 
 def mesh_label(job):
-    cut = f"{job['layers']} layers" + (", Llama-3-8B widths" if job["widths"] == "8b" else
-                                       ", LlamaConfig.tiny() widths")
+    if job["family"] == "moe":
+        cut = f"{job['layers']} layers" + (", Mixtral-8x7B widths" if job["widths"] == "8b"
+                                           else ", MoEConfig.tiny() widths")
+    else:
+        cut = f"{job['layers']} layers" + (", Llama-3-8B widths" if job["widths"] == "8b" else
+                                           ", LlamaConfig.tiny() widths")
     if job["family"] == "pipeline":
         shape = f"pp {job['pp']} x dp {job['dp']}, M {job['m']}"
+    elif job["family"] == "moe":
+        shape = "moe " + " x ".join(f"{a} {job[a]}" for a in ("dp", "tp", "ep")
+                                    if a == "dp" or job[a] > 1)
+        shape += f", capacity factor {job['cf']}" if job.get("cf") else ""
+        shape += f", router skew {job['skew']:g}" if job.get("skew") else ""
     else:
         shape = "dense " + " x ".join(f"{a} {job[a]}" for a in ("dp", "tp", "sp")
                                       if a == "dp" or job[a] > 1)
@@ -4023,21 +4103,54 @@ def mesh_config(torch, job):
                                use_ring_attention=bool(job.get("ring")))
 
 
+def mesh_moe_config(torch, job):
+    """A MoE job's config: :func:`moe_config` (``"8b"``) or
+    ``MoEConfig.tiny()``'s experts on :func:`mesh_config`'s base, at the
+    job's capacity factor."""
+    from cordum_tpu_torch.models import moe
+
+    like = moe_config() if job["widths"] == "8b" else moe.MoEConfig.tiny()
+    cfg = dataclasses.replace(like, base=mesh_config(torch, job))
+    return dataclasses.replace(cfg, capacity_factor=job["cf"]) if job.get("cf") else cfg
+
+
+def skew_router(torch, params, skew):
+    """Push most tokens to expert 0, the same way on every rank: ``embed``
+    shifted by ``1 / sqrt(d)`` in every element (a direction all the
+    tokens share, about ``1 / sqrt(2)`` of each element after the norm),
+    and each router's column 0 by ``skew sqrt(2) / d``, so expert 0's
+    logit gains about ``skew``.  Both leaves are whole on every rank."""
+    with torch.no_grad():
+        d = params["embed"].shape[1]
+        params["embed"].add_(1.0 / math.sqrt(d))
+        for layer in params["layers"]:
+            layer["moe"]["router"][:, 0].add_(skew * math.sqrt(2.0) / d)
+
+
 def mesh_train_step(torch, job, dev, mesh=None):
     """``(init, step, tokens, base config)`` of the job on ``dev``: the
-    pipeline's or the Llama family's ``make_train_step``, with ``mesh`` the
-    rank's step; the tokens are the whole batch (every rank is given it),
-    microbatched for the pipeline."""
-    from cordum_tpu_torch.models import llama, pipeline
+    pipeline's, the Llama family's or the MoE family's
+    ``make_train_step`` (its router skewed after the draw, as the job
+    says), with ``mesh`` the rank's step; the tokens are the whole batch
+    (every rank is given it), microbatched for the pipeline."""
+    from cordum_tpu_torch.models import llama, moe, pipeline
 
     base = mesh_config(torch, job)
-    rng = np.random.default_rng(MESH_TOKEN_SEED)
+    rng = np.random.default_rng(job.get("token_seed", MESH_TOKEN_SEED))
     toks = torch.from_numpy(rng.integers(0, base.vocab_size, (job["batch"], job["seq"]))
                             .astype(np.int32)).to(dev)
     if job["family"] == "pipeline":
         cfg = pipeline.PipelineConfig(base=base, n_stages=job["pp"], n_microbatches=job["m"])
         init, step = pipeline.make_train_step(cfg, device=dev, mesh=mesh)
         toks = pipeline.microbatch(toks, job["m"])
+    elif job["family"] == "moe":
+        drawn, step = moe.make_train_step(mesh_moe_config(torch, job), device=dev, mesh=mesh)
+
+        def init(seed):
+            params, state = drawn(seed)
+            if job.get("skew"):
+                skew_router(torch, params, job["skew"])
+            return params, state
     else:
         init, step = llama.make_train_step(base, device=dev, mesh=mesh)
     return init, step, toks, base
@@ -4057,6 +4170,12 @@ def mesh_oracle(torch, dev, card, job, workdir):
     init, step, toks, _ = mesh_train_step(torch, job, dev)
     params, state = init(SEED)
     names = leaf_names(params)
+    drops = ""
+    if job["family"] == "moe" and job.get("cf"):
+        kept, slots = layer0_kept(torch, params, toks, mesh_moe_config(torch, job))
+        if kept == slots:
+            raise AssertionError(f"{mesh_label(job)}: layer 0 dropped no slot")
+        drops = f"; layer 0 kept {kept} of {slots} slots"
     grads, losses = [], []
     t0 = time.monotonic()
     for i in range(job["steps"]):
@@ -4069,7 +4188,7 @@ def mesh_oracle(torch, dev, card, job, workdir):
     with open(os.path.join(out, "oracle.json"), "w") as f:
         json.dump({"losses": losses, "names": names}, f)
     log(f"[mesh-oracle] {mesh_label(job)}: one process, {job['steps']} steps in {step_s:.2f} s, "
-        f"losses {losses}; {len(names)} leaves written  [{card}]")
+        f"losses {losses}; {len(names)} leaves written{drops}  [{card}]")
     del params, state, grads, toks
     gc.collect()
     if dev.type == "cuda":
@@ -4087,9 +4206,10 @@ def mesh_gate(torch, job, mesh, params, grads, losses):
     layer weights to the rank's tensor-parallel slice (``param_specs``),
     slice against slice."""
     from cordum_tpu_torch import optim
-    from cordum_tpu_torch.models import llama
+    from cordum_tpu_torch.models import llama, moe
 
     split = llama.param_specs(mesh_config(torch, job))["layers"][0]
+    experts = moe.moe_layer_specs()
 
     with open(os.path.join(job["oracle"], "oracle.json")) as f:
         want = json.load(f)
@@ -4100,12 +4220,15 @@ def mesh_gate(torch, job, mesh, params, grads, losses):
     for name, g, p in zip(names, grads, optim.tree_leaves(params)):
         got = {}
         for kind in ("grad", "param"):
+            # mapped, not read: a rank copies its slice alone
             o = torch.load(os.path.join(job["oracle"], f"{kind}.{name.replace('/', '.')}.pt"),
-                           weights_only=True)
+                           weights_only=True, mmap=True)
             if name.startswith("stages/"):
                 o = o[mesh.pp_rank:mesh.pp_rank + 1]
             axis = split.get(name.split("/")[-1]) if name.startswith("layers/") else None
-            if mesh.tp > 1 and axis is not None:
+            if "/moe/" in name:
+                o = moe.shard_leaf(o, experts[name.split("/")[-1]], (mesh.coords, mesh.sizes))
+            elif mesh.tp > 1 and axis is not None:
                 o = llama._slice(o, axis, mesh.tp_rank, mesh.tp)
             got[kind] = o.to(p.device).float()
         if tuple(got["param"].shape) != tuple(p.shape):
@@ -4152,7 +4275,8 @@ def train_rank(job, rank, mesh=None):
     if own:
         store = dist.TCPStore("127.0.0.1", job["port"], world, rank == 0,
                               datetime.timedelta(seconds=MESH_TIMEOUT_S), wait_for_workers=False)
-        spec = MeshSpec(dp=job["dp"], tp=job["tp"], sp=job["sp"], pp=job["pp"])
+        spec = MeshSpec(dp=job["dp"], tp=job["tp"], sp=job["sp"], ep=job.get("ep", 1),
+                        pp=job["pp"])
         mesh = TrainMesh.join(store, rank, world, dev, spec=spec, timeout_s=MESH_TIMEOUT_S)
     try:
         init, step, toks, base = mesh_train_step(torch, job, dev, mesh)
@@ -4186,6 +4310,7 @@ def train_rank(job, rank, mesh=None):
                "launches": [n["dense_attention_fwd"], n["dense_attention_bwd"]],
                "chunk_launches": [n["dense_attention_fwd_sp"], n["dense_attention_bwd_sp"]],
                "ring_launches": [n[row] for row in RING_ROWS],
+               "moe_launches": {row: n[row] for row in (*MOE_KERNELS, ROOM_ROW)},
                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else 0.0,
                "n_layers": base.n_layers}
         if job["oracle"]:
@@ -4278,6 +4403,12 @@ def mesh_launches(job, docs):
             raise AssertionError(f"{mesh_label(job)}: rank {d['rank']}'s B9 launches "
                                  f"{d['launches']}, of them a chunk's {d['chunk_launches']}; "
                                  f"{want} each expected, {chunk} a chunk's")
+        if job["family"] == "moe":
+            expect = {**dict.fromkeys(MOE_KERNELS, want), ROOM_ROW: want if job["dp"] > 1 else 0}
+            if d["moe_launches"] != expect:
+                raise AssertionError(f"{mesh_label(job)}: rank {d['rank']}'s B7 launches "
+                                     f"{d['moe_launches']}; {expect} expected (layers x steps, "
+                                     "the route with a room where dp is above 1)")
     return [sum(d["launches"][0] for d in docs), sum(d["launches"][1] for d in docs)]
 
 
@@ -4344,11 +4475,11 @@ def mesh_numbers(card, job, docs, tag="mesh-train"):
         f"2-{steps}, the slowest rank), first step {max(d['step_s'][0] for d in docs) * 1e3:.2f} "
         f"ms; {tokens / p50:.1f} tokens/s, {tokens / p50 / world:.1f} tokens/s a card  [{card}]")
     for d in docs:
-        where = ",".join(str(d["coords"][a]) for a in ("dp", "tp", "sp", "pp"))
+        where = ",".join(str(d["coords"][a]) for a in ("dp", "tp", "sp", "ep", "pp"))
         inside = ", ".join(
             f"{kind} {d['host_s'][kind] / (steps - 1) * 1e3:.2f} "
             f"({d['calls'][kind] // (steps - 1)} calls)" for kind in d["host_s"])
-        log(f"[{tag}] rank {d['rank']} {where} (dp,tp,sp,pp): peak "
+        log(f"[{tag}] rank {d['rank']} {where} (dp,tp,sp,ep,pp): peak "
             f"{d['peak_gib']:.2f} GiB, parameters {d['param_bytes'] / 2**30:.2f} GiB, drawn in "
             f"{d['init_s']:.1f} s; host ms a step (steps 2-{steps}) inside {inside}  [{card}]")
         prof = d.get("profile")
@@ -4809,6 +4940,222 @@ def phase_ring_mesh(torch, dev, card, gather_bf16):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: expert parallelism, the MoE family over dp x tp x ep
+# ---------------------------------------------------------------------------
+
+#: 14.1: rank 1 of a dp mesh of this many ranks, its room after rank 0
+MOE_ROOM_DP = 2
+#: 14.1's cases: (tag, rank 0's probabilities, rank 1's), ``moe_case`` kinds
+MOE_ROOM_CASES = (("rank 1's room", "random", "random"),
+                  ("a room of 0", "drop", "random"),
+                  ("every token to one expert", "random", "one"),
+                  ("exact ties", "ties", "ties"))
+#: 14.2 and 14.3: the capacity factor and the router's skew toward expert 0
+#: (:func:`skew_router`) under which tokens drop, so that a rank-local
+#: capacity, a missing prefix or local counts in the aux loss move the loss
+MOE_MESH_CF = 0.5
+MOE_MESH_SKEW = 2.0
+#: 14.2's bf16 ep 2 leg: its first loss against 9.3's one-card run on the
+#: same weights and batch, relative (bf16: the combine's partial sums added
+#: over the ranks in bf16, in another order)
+MOE_MESH_BF16_REL = 1e-2
+
+
+def room_of(torch, prefix, cap):
+    """A dp rank's room from the lower ranks' counts: ``max(0, C - prefix)``."""
+    return torch.clamp_min(cap - prefix, 0).to(torch.int32)
+
+
+def check_room_route(torch, dev, dtype, tag, kind0, kind1, *, n=MOE_BATCH * MOE_SEQ, d=4096):
+    """14.1 on one case: rank 1's route with the room rank 0 leaves it (the
+    route's pick, the room from its counts, then its place), equal to the
+    plain version's (every field) and the same on two calls, the counts
+    handed to the room those of the plain version; its kept slots,
+    positions and experts those of
+    the whole batch's route on its rows; then B7's gathers on that route
+    and on an ep 2 line's rank 1 view of it (experts 4-7: the other pairs'
+    idx negative or past 3) by :func:`check_moe_gathers`.  Returns the
+    case's rank-1 probabilities, capacity and room, and the gathers'
+    errors."""
+    from cordum_tpu_torch.ops import moe_dispatch as md
+
+    cf = 1.25 * MOE_ROOM_DP  # C of the whole batch, dp x N tokens
+    zero = moe_case(torch, dev, dtype, n=n, d=d, kind=kind0, cf=cf, seed=SEED + 30)["probs"]
+    case = moe_case(torch, dev, dtype, n=n, d=d, kind=kind1, cf=cf, seed=SEED + 31)
+    probs, k, cap = case["probs"], case["k"], case["cap"]
+    prefix = md.moe_route_reference(zero, k, cap).counts
+    room = room_of(torch, prefix, cap)
+    seen = []
+
+    def exchange(counts):
+        seen.append(counts.clone())
+        return room_of(torch, prefix, cap)
+
+    plain = md.moe_route_reference(probs, k, cap, lambda counts: room)
+    split = md.moe_route_kernel(probs, k, cap, exchange)
+    again = md.moe_route_kernel(probs, k, cap, exchange)
+    torch.cuda.synchronize()
+    for what, got in (("first call", split), ("second call", again)):
+        if not md.route_equal(got, plain):
+            bad = [f for f, a, b in zip(md.MoERoute._fields, got, plain)
+                   if (a is None) != (b is None) or (a is not None and not torch.equal(a, b))]
+            raise AssertionError(f"moe_route with a room ({tag}, {what}): {bad} differ from "
+                                 "the plain version's")
+    if not all(torch.equal(c, plain.counts) for c in seen):
+        raise AssertionError(f"moe_route with a room ({tag}): the counts handed to the exchange "
+                             "differ from the plain version's")
+    whole = md.moe_route_reference(torch.cat([zero, probs]), k, cap)
+    shifted = split.pos + prefix.long()[split.idx.long()].to(torch.int32)
+    if not (torch.equal(whole.idx[n:], split.idx) and torch.equal(whole.keep[n:], split.keep)
+            and torch.equal(whole.pos[n:], shifted)):
+        raise AssertionError(f"moe_route with a room ({tag}): rank 1's route is not the whole "
+                             "batch's on its rows")
+    if "room of 0" in tag and room.min().item() != 0:
+        raise AssertionError(f"moe_route with a room ({tag}): no expert's room is 0: "
+                             f"{room.tolist()}")
+    w = routing_weights(torch, probs, split)
+    errs = check_moe_gathers(torch, case, split, w, f"{tag}, room")
+    view = md.local_experts(split, 4, 4)
+    if not (view.idx < 0).any() and split.keep.any():
+        raise AssertionError(f"moe ep view ({tag}): no negative idx on the other experts' pairs")
+    local = dict(case, expert_out=case["expert_out"][4:].contiguous(),
+                 d_ei=case["d_ei"][4:].contiguous())
+    for mode, err in check_moe_gathers(torch, local, view, w, f"{tag}, ep rank 1").items():
+        errs[mode] = max(errs[mode], err)
+    log(f"[moe-room] {str(dtype).split('.')[-1]} {tag}: N {n}, D {d}, E 8, k {k}, C {cap} (a dp "
+        f"{MOE_ROOM_DP} mesh's batch); room {room.tolist()}, rank 1 keeps "
+        f"{int(split.keep.sum())} of {split.keep.numel()} slots (counts "
+        f"{split.counts.tolist()}); the route equal to the plain version's and to the whole "
+        f"batch's on rank 1's rows; gathers on the route and on ep rank 1's view "
+        f"(experts 4-7) by 9.1's gates, max abs err " + ", ".join(
+            f"{MOE_KERNELS[m]} {errs[m]:.3e}" for m in ("moe_token_gather", "moe_token_sum",
+                                                       "moe_token_dot")))
+    return probs, k, cap, room, errs
+
+
+def phase_moe_room_kernel(torch, dev, card):
+    """14.1: :func:`check_room_route` on every case in both dtypes, then
+    the route's times on the first case (9.1's method: CUDA events, L2
+    flushed) with a room (pick, the counts' sum, the room, place) beside
+    the route without one (9.1's) and the plain version with the room.
+    Returns the ``moe_route_room`` row (the probabilities are fp32
+    whatever the model's dtype)."""
+    from cordum_tpu_torch.ops import moe_dispatch as md
+
+    flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for tag, kind0, kind1 in MOE_ROOM_CASES:
+            got = check_room_route(torch, dev, dtype, tag, kind0, kind1)
+            if tag == MOE_ROOM_CASES[0][0]:
+                probs, k, cap, room, _ = got
+            del got
+            torch.cuda.empty_cache()
+    n, e = probs.shape
+    prefix = (cap - room).clamp_min(0)
+    def exchange(counts):
+        return room_of(torch, prefix, cap)
+
+    timed = {"without a room": lambda: md.moe_route_kernel(probs, k, cap),
+             "with a room": lambda: md.moe_route_kernel(probs, k, cap, exchange)}
+    ms = {what: time_ms(torch, fn, iters=50, flush=flush) for what, fn in timed.items()}
+    plain_ms = time_ms(torch, lambda: md.moe_route_reference(probs, k, cap, exchange),
+                       iters=10, flush=flush)
+    route = md.moe_route_reference(probs, k, cap, exchange)
+    nbytes, ops = moe_work_of(route, n, 4096, e, cap, k, 4)["moe_route"]
+    nbytes += e * 4  # the room
+    bound = max(nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["float32"] * 1e3)
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS["float32"] else "operations"
+    log(f"[moe-room] route times at N {n}, E {e}, k {k}, C {cap}: " + ", ".join(
+        f"{what} {t:.4f} ms" for what, t in ms.items()) + f"; plain with the room "
+        f"{plain_ms:.4f} ms; bound {bound:.4f} ms ({by}: {nbytes} bytes, {ops} ops), share of "
+        f"bound {bound / ms['with a room']:.3f}; device us per call (with a room): "
+        f"{device_split(torch, timed['with a room'], flush)}  [{card}]")
+    del flush_buf
+    torch.cuda.empty_cache()
+    return {ROOM_ROW: {"float32": dict(max_abs_err=0.0, ms=ms["with a room"],
+                                       plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                                       bound_by=by)}}
+
+
+def moe_mesh_launches(docs):
+    """The B7 launches of a MoE job's ranks, summed by kernel row (each
+    rank's already held to its layers and steps by :func:`mesh_launches`)."""
+    return {row: sum(d["moe_launches"][row] for d in docs) for row in (*MOE_KERNELS, ROOM_ROW)}
+
+
+def phase_moe_mesh(torch, dev, card, first_loss):
+    """14.2 on the one card (gloo rank processes sharing it): fp32
+    ``MoEConfig.tiny()`` experts on ``LlamaConfig.tiny()``, 4 layers, B 4,
+    T 64, 3 steps, capacity factor :data:`MOE_MESH_CF` and router skew
+    :data:`MOE_MESH_SKEW` (layer 0 drops slots, checked on the oracle), at
+    dp 2 x ep 2, tp 2 x ep 2 and ep 4, each held to the one-process step;
+    then bf16 at 9.3's configuration and batch (Mixtral widths, 2 layers,
+    B 4, T 2048) at ep 2, 3 steps: a falling loss, its first loss within
+    :data:`MOE_MESH_BF16_REL` of 9.3's (``first_loss``).  Returns the
+    launches by kernel row and dtype (B9's forward and backward, B7's six
+    modes and the route with a room)."""
+    tiny = dict(widths="tiny", layers=4, dtype="float32", batch=4, seq=64, steps=3,
+                cf=MOE_MESH_CF, skew=MOE_MESH_SKEW)
+    jobs = [(mesh_job("moe", 2, 1, ep=2, **tiny), True),
+            (mesh_job("moe", 1, 1, tp=2, ep=2, **tiny), True),
+            (mesh_job("moe", 1, 1, ep=4, **tiny), True),
+            (mesh_job("moe", 1, 1, ep=2, widths="8b", layers=2, dtype="bfloat16",
+                      batch=MOE_BATCH, seq=MOE_SEQ, steps=3, token_seed=SEED + 11), False)]
+    rows = ("dense_attention_fwd", "dense_attention_bwd", *MOE_KERNELS, ROOM_ROW)
+    launches = {row: {"float32": 0, "bfloat16": 0} for row in rows}
+    for job, oracle in jobs:
+        docs, (f, b) = mesh_leg(torch, dev, card, job, oracle=oracle, collective="gloo",
+                                falling=True, tag="moe-mesh")
+        for row, n in {"dense_attention_fwd": f, "dense_attention_bwd": b,
+                       **moe_mesh_launches(docs)}.items():
+            launches[row][job["dtype"]] += n
+        if job["dtype"] == "bfloat16":
+            first = docs[0]["losses"][0]
+            rel = abs(first - first_loss) / abs(first_loss)
+            log(f"[moe-mesh] {mesh_label(job)}: first loss {first:.6f} against 9.3's one card "
+                f"{first_loss:.6f}: rel {rel:.3e} (bound {MOE_MESH_BF16_REL:g})  [{card}]")
+            if not rel <= MOE_MESH_BF16_REL:
+                raise AssertionError(f"{mesh_label(job)}: first loss {first} against 9.3's "
+                                     f"{first_loss} (rel {rel:.3e})")
+            mesh_numbers(card, job, docs, tag="moe-mesh")
+    return launches
+
+
+def cards_moe_legs(torch, dev, card):
+    """14.3 and 14.4 on four cards, one rank process a card over NCCL.
+    14.3: fp32 Mixtral widths (:func:`moe_config`), 2 layers, B 2, T 256,
+    one AdamW step, capacity factor :data:`MOE_MESH_CF` and router skew
+    :data:`MOE_MESH_SKEW`: ep 4, dp 2 x ep 2 and tp 2 x ep 2, each held to
+    the one-process step on card 0, run first and freed.  14.4: bf16
+    Mixtral widths at 8 of 32 layers, 9.3's batch (B 4, T 2048), 10 steps:
+    ep 4 and tp 2 x ep 2, a falling loss; step p50, tokens/s a card, peak
+    memory a rank, host ms a step in the collectives."""
+    import tempfile
+
+    fp32 = dict(widths="8b", layers=2, dtype="float32", batch=2, seq=256, steps=1,
+                cf=MOE_MESH_CF, skew=MOE_MESH_SKEW)
+    with tempfile.TemporaryDirectory(prefix="cordum-moe-oracle-") as workdir:
+        oracle = mesh_oracle(torch, dev, card, mesh_job("moe", 1, 1, **fp32), workdir)
+        for job in (mesh_job("moe", 1, 1, ep=4, **fp32), mesh_job("moe", 2, 1, ep=2, **fp32),
+                    mesh_job("moe", 1, 1, tp=2, ep=2, **fp32)):
+            mesh_leg(torch, dev, card, job, oracle=oracle, collective="nccl", tag="moe-cards")
+    numbers = {}
+    for kw in (dict(ep=4), dict(tp=2, ep=2)):
+        job = mesh_job("moe", 1, 1, widths="8b", layers=8, dtype="bfloat16", batch=MOE_BATCH,
+                       seq=MOE_SEQ, steps=10, token_seed=SEED + 11, **kw)
+        docs, _ = mesh_leg(torch, dev, card, job, oracle=False, collective="nccl",
+                           falling=True, tag="moe-8b")
+        numbers[mesh_label(job)] = mesh_numbers(card, job, docs, tag="moe-8b")
+    log("[moe-8b] bf16 Mixtral widths, 8 layers, four cards, in this call: " + "; ".join(
+        f"{label}: step p50 {n['p50_ms']:.2f} ms, {n['tokens_s']:.1f} tokens/s, "
+        f"{n['tokens_s'] / 4:.1f} a card" for label, n in numbers.items()) + f"  [{card}]")
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_kernels():
@@ -4888,7 +5235,7 @@ def main() -> int:
     proc = phase_worker_process(torch, dev, smi, numbers6)
     gc.collect()
     torch.cuda.empty_cache()
-    moe_rows, moe = phase_moe(torch, dev, smi)
+    moe_rows, moe, moe_first_loss = phase_moe(torch, dev, smi)
     kernel.update(moe_rows)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4903,6 +5250,10 @@ def main() -> int:
     mesh, gather_bf16 = phase_mesh(torch, dev, smi)
     kernel.update(phase_ring_kernel(torch, dev, smi))
     ring = phase_ring_mesh(torch, dev, smi, gather_bf16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernel.update(phase_moe_room_kernel(torch, dev, smi))
+    moe_mesh = phase_moe_mesh(torch, dev, smi, moe_first_loss)
 
     # phase 8's worker process serves an fp32 Llama and the bf16 embedder
     launches = {
@@ -4924,6 +5275,8 @@ def main() -> int:
         "paged_attention_tp2": gang,
         # the ring's entries and merges: phase 13.2's ranks
         **{name: ring[name] for name in RING_ROWS},
+        # the route with a room: phase 14.2's dp 2 x ep 2 ranks
+        ROOM_ROW: {"float32": moe_mesh[ROOM_ROW]["float32"]},
     }
     # phase 11.4's serving leg runs B1 at full heads (fp32)
     launches["paged_attention"]["float32"] += pipe_b1
@@ -4937,12 +5290,20 @@ def main() -> int:
     for name in ("dense_attention_fwd", "dense_attention_bwd"):
         for dtype in ("float32", "bfloat16"):
             launches[name][dtype] += moe[name][dtype] + pipe[name][dtype]
+    # phase 14.2's MoE rank processes launch B7 and B9
+    for name in ("dense_attention_fwd", "dense_attention_bwd", *MOE_KERNELS):
+        for dtype in ("float32", "bfloat16"):
+            launches[name][dtype] += moe_mesh[name][dtype]
     line = {"kernels": [
         {"name": f"{name}_{dtype}", "route": "cuda", "source": sources[name],
          "replaces": KERNELS[name][1], "launches": launches[name][dtype],
          **kernel[name][dtype]}
         for name in KERNELS for dtype in ("bfloat16", "float32")
+        if dtype == "float32" or name != ROOM_ROW  # fp32 probabilities in every dtype
     ]}
+    idle = [row["name"] for row in line["kernels"] if not row["launches"]]
+    if idle:
+        raise AssertionError(f"kernels the main path never launched: {idle}")
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

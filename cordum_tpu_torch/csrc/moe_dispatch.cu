@@ -33,14 +33,24 @@
 //     over the grid.  The place launch is the pick's programmatic
 //     dependent (Hopper): its blocks start while the pick runs and wait at
 //     griddepcontrol.wait for its writes, so no launch gap sits between
-//     the two.  Experts are numbered 32 at a time; a row must fit in
+//     the two.  A data-parallel rank routes with a room [E]: the rows of
+//     each expert's queue that the lower dp ranks' tokens leave it,
+//     max(0, C - prefix[e]) (the reference routes the whole batch at once,
+//     dp rank r's tokens behind every lower rank's).  Its pairs keep while
+//     pos < min(room[e], C), rows stay local (row pos of expert e, filled
+//     from 0 up) and the empty rows start at min(counts[e], room[e]).  The
+//     prefix needs every rank's counts, which the pick computes, so such a
+//     route is two host entries, pick then place, with the caller's
+//     all-gather of the counts between them; without a room the pair
+//     launches as before.  Experts are numbered 32 at a time; a row must fit in
 //     shared memory (kRouteMaxExperts).  No atomics, nothing depends on the
 //     order the blocks run in: two calls give the same bits.
 //   * moe_slot_gather_kernel — token-major: one block a token n reads
 //     src[n] once and writes it to each kept slot's capacity row
 //     (idx[n, s], pos[n, s]), times w[n, s] in fp32 rounded to the dtype in
 //     the scaled mode; a token with no kept slot is not read.  The grid's
-//     first blocks write the empty rows (c >= min(counts[e], C)) as zeros
+//     first blocks write the empty rows (c >= min(counts[e], C), or
+//     min(counts[e], room[e]) under a room) as zeros
 //     (the expert FFN runs over every row, and a NaN left in an empty row
 //     would reach the weights' gradients through NaN * 0).  Each row is
 //     written by one block.  Dispatch forward: w null, src the tokens.
@@ -76,8 +86,8 @@
 // pointer does not allow them), a warp a token.
 //
 // Layouts (all contiguous): probs [N, E] fp32; idx, pos [N, k] int32; keep
-// [N, k] uint8 (torch.bool); counts [E] int32; slot_token, slot_k [E, C]
-// int32; tile_counts [n_tiles, E] int32 scratch; w [N, k] fp32; tokens,
+// [N, k] uint8 (torch.bool); counts, room [E] int32 (room may be null);
+// slot_token, slot_k [E, C] int32; tile_counts [n_tiles, E] int32 scratch; w [N, k] fp32; tokens,
 // dy, y [N, D] and the capacity buffers [E, C, D] in the dtype (0 fp32, 1
 // bf16).
 #include <cuda_bf16.h>
@@ -183,15 +193,22 @@ moe_route_pick_kernel(const float* __restrict__ probs, int N, int E, int k,
   }
 }
 
+// The row limit of an expert: C, or its room (at most C) under a room.
+__device__ __forceinline__ int row_limit(const int* room, int e, int C) {
+  return room ? max(0, min(room[e], C)) : C;
+}
+
 // Launched as the pick kernel's programmatic dependent: it may start
-// early and waits for the pick grid's writes before reading them.
+// early and waits for the pick grid's writes before reading them (a
+// no-op when it is launched alone, after the caller's exchange).
 __global__ void __launch_bounds__(kRouteTile)
 moe_route_place_kernel(int N, int E, int k, int C, const int* __restrict__ tile_counts,
-                       int n_tiles, const int* __restrict__ idx, int* __restrict__ pos,
+                       int n_tiles, const int* __restrict__ room,
+                       const int* __restrict__ idx, int* __restrict__ pos,
                        uint8_t* __restrict__ keep, int* __restrict__ counts,
                        int* __restrict__ slot_token, int* __restrict__ slot_k) {
   asm volatile("griddepcontrol.wait;" ::: "memory");
-  __shared__ int base[kExpertChunk], total[kExpertChunk];
+  __shared__ int base[kExpertChunk], total[kExpertChunk], limit[kExpertChunk];
   const int tid = threadIdx.x, lane = tid & (kWarp - 1), warp = tid / kWarp;
   const int tile = blockIdx.x, n = tile * kRouteTile + tid;
   for (int e0 = 0; e0 < E; e0 += kExpertChunk) {
@@ -212,6 +229,7 @@ moe_route_place_kernel(int N, int E, int k, int C, const int* __restrict__ tile_
       if (lane == 0) {
         base[j] = earlier;
         total[j] = all;
+        limit[j] = row_limit(room, e0 + j, C);
       }
     }
     __syncthreads();
@@ -222,8 +240,8 @@ moe_route_place_kernel(int N, int E, int k, int C, const int* __restrict__ tile_
         if (j < 0 || j >= ne) continue;
         const int p = base[j] + pos[at];
         pos[at] = p;
-        keep[at] = p < C ? 1 : 0;
-        if (p < C) {
+        keep[at] = p < limit[j] ? 1 : 0;
+        if (p < limit[j]) {
           slot_token[(size_t)(e0 + j) * C + p] = n;
           slot_k[(size_t)(e0 + j) * C + p] = s;
         }
@@ -234,12 +252,12 @@ moe_route_place_kernel(int N, int E, int k, int C, const int* __restrict__ tile_
     for (long long f = (long long)tile * kRouteTile + tid; f < rows;
          f += (long long)gridDim.x * kRouteTile) {
       const int j = (int)f / C, c = (int)f - j * C;
-      if (c >= min(total[j], C)) {
+      if (c >= min(total[j], limit[j])) {
         slot_token[(size_t)(e0 + j) * C + c] = -1;
         slot_k[(size_t)(e0 + j) * C + c] = -1;
       }
     }
-    __syncthreads();  // base and total are rewritten for the next experts
+    __syncthreads();  // base, total and limit are rewritten for the next experts
   }
 }
 
@@ -279,15 +297,16 @@ __device__ __forceinline__ Vec<T> times(Vec<T> x, float scale) {
   return x;
 }
 
-// Blocks [0, zero_blocks): the empty capacity rows, a warp a row over
-// those blocks, zeros.  The rest: a block a token, src[n] to each kept
+// Blocks [0, zero_blocks): the empty capacity rows (past min(counts, C), or
+// min(counts, room) under a room), a warp a row over those blocks, zeros.  The rest: a block a token, src[n] to each kept
 // slot's row (times w[n, s] when kScaled).
 template <typename T, bool kScaled, bool kVectors>
 __global__ void __launch_bounds__(kSlotThreads)
 moe_slot_gather_kernel(const T* __restrict__ src, const int* __restrict__ idx,
                        const int* __restrict__ pos, const uint8_t* __restrict__ keep,
-                       const int* __restrict__ counts, const float* __restrict__ w, int k,
-                       int E, int C, int D, int zero_blocks, T* __restrict__ out) {
+                       const int* __restrict__ counts, const int* __restrict__ room,
+                       const float* __restrict__ w, int k, int E, int C, int D,
+                       int zero_blocks, T* __restrict__ out) {
   __shared__ long long rows[kWarp];  // the kept slots of a group of 32
   __shared__ float scales[kWarp];
   __shared__ int n_kept;
@@ -299,7 +318,7 @@ moe_slot_gather_kernel(const T* __restrict__ src, const int* __restrict__ idx,
     for (long long r = (long long)blockIdx.x * kWarps + warp; r < (long long)E * C;
          r += (long long)zero_blocks * kWarps) {
       const int e = (int)r / C, c = (int)r - e * C;  // r < E C < 2^31
-      if (c < min(counts[e], C)) continue;  // a kept row
+      if (c < min(counts[e], row_limit(room, e, C))) continue;  // a kept row
       T* o = out + r * D;
       if (kVectors) {
         Vec<T> z;
@@ -444,8 +463,8 @@ unsigned blocks_for(long long rows) {
 
 template <typename T>
 int slot_gather(const void* src, const int* idx, const int* pos, const uint8_t* keep,
-                const int* counts, const float* w, int N, int k, int E, int C, int D, void* out,
-                cudaStream_t s) {
+                const int* counts, const int* room, const float* w, int N, int k, int E, int C,
+                int D, void* out, cudaStream_t s) {
   const T* x = static_cast<const T*>(src);
   T* o = static_cast<T*>(out);
   const int zero = (int)std::min<long long>(((long long)E * C - 1) / (kSlotThreads / kWarp) + 1,
@@ -454,11 +473,11 @@ int slot_gather(const void* src, const int* idx, const int* pos, const uint8_t* 
   const unsigned grid = (unsigned)(zero + N);
   const bool vec = vectors_fit(D, sizeof(T), src, out);
   if (w != nullptr) {
-    if (vec) moe_slot_gather_kernel<T, true, true><<<grid, kSlotThreads, 0, s>>>(x, idx, pos, keep, counts, w, k, E, C, D, zero, o);
-    else moe_slot_gather_kernel<T, true, false><<<grid, kSlotThreads, 0, s>>>(x, idx, pos, keep, counts, w, k, E, C, D, zero, o);
+    if (vec) moe_slot_gather_kernel<T, true, true><<<grid, kSlotThreads, 0, s>>>(x, idx, pos, keep, counts, room, w, k, E, C, D, zero, o);
+    else moe_slot_gather_kernel<T, true, false><<<grid, kSlotThreads, 0, s>>>(x, idx, pos, keep, counts, room, w, k, E, C, D, zero, o);
   } else {
-    if (vec) moe_slot_gather_kernel<T, false, true><<<grid, kSlotThreads, 0, s>>>(x, idx, pos, keep, counts, w, k, E, C, D, zero, o);
-    else moe_slot_gather_kernel<T, false, false><<<grid, kSlotThreads, 0, s>>>(x, idx, pos, keep, counts, w, k, E, C, D, zero, o);
+    if (vec) moe_slot_gather_kernel<T, false, true><<<grid, kSlotThreads, 0, s>>>(x, idx, pos, keep, counts, room, w, k, E, C, D, zero, o);
+    else moe_slot_gather_kernel<T, false, false><<<grid, kSlotThreads, 0, s>>>(x, idx, pos, keep, counts, room, w, k, E, C, D, zero, o);
   }
   return (int)cudaGetLastError();
 }
@@ -477,60 +496,101 @@ int token_gather(const void* src, const void* dy, const int* idx, const int* pos
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+bool route_shape_ok(int N, int E, int k, int n_tiles) {
+  return N >= 1 && E >= 1 && E <= kRouteMaxExperts && k >= 1 && k <= E &&
+         n_tiles == (N - 1) / kRouteTile + 1;
+}
 
-// Routing of fp32 probs [N, E] to top-k experts with capacity C; tile_counts
-// is [n_tiles, E] int32 scratch, n_tiles = ceil(N / kRouteTile).
-extern "C" int moe_route(const void* probs, int N, int E, int k, int C, void* idx, void* pos,
-                         void* keep, void* counts, void* slot_token, void* slot_k,
-                         void* tile_counts, int n_tiles, void* stream) {
-  if (N < 1 || E < 1 || E > kRouteMaxExperts || k < 1 || k > E || C < 1 ||
-      n_tiles != (N - 1) / kRouteTile + 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* table = static_cast<int*>(tile_counts);
+int launch_pick(const void* probs, int N, int E, int k, void* idx, void* pos,
+                void* tile_counts, int n_tiles, cudaStream_t s) {
   const size_t smem = (size_t)E * kRouteTile * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       moe_route_pick_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   moe_route_pick_kernel<<<n_tiles, kRouteTile, smem, s>>>(
       static_cast<const float*>(probs), N, E, k, static_cast<int*>(idx),
-      static_cast<int*>(pos), table);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+      static_cast<int*>(pos), static_cast<int*>(tile_counts));
+  return (int)cudaGetLastError();
+}
+
+// dependent: as the pick launch's programmatic dependent (right after it).
+int launch_place(int N, int E, int k, int C, void* idx, void* pos, void* keep, void* counts,
+                 void* slot_token, void* slot_k, const void* tile_counts, int n_tiles,
+                 const void* room, bool dependent, cudaStream_t s) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_tiles);
   cfg.blockDim = dim3(kRouteTile);
   cfg.stream = s;
-  cudaLaunchAttribute dependent;
-  dependent.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  dependent.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &dependent;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, moe_route_place_kernel, N, E, k, C,
-                           static_cast<const int*>(table), n_tiles,
-                           static_cast<const int*>(idx), static_cast<int*>(pos),
-                           static_cast<uint8_t*>(keep), static_cast<int*>(counts),
-                           static_cast<int*>(slot_token), static_cast<int*>(slot_k));
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, moe_route_place_kernel, N, E, k, C, static_cast<const int*>(tile_counts), n_tiles,
+      static_cast<const int*>(room), static_cast<const int*>(idx), static_cast<int*>(pos),
+      static_cast<uint8_t*>(keep), static_cast<int*>(counts), static_cast<int*>(slot_token),
+      static_cast<int*>(slot_k));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// Routing of fp32 probs [N, E] to top-k experts with capacity C, the pick
+// and place launches as a programmatic-dependent pair; tile_counts is
+// [n_tiles, E] int32 scratch, n_tiles = ceil(N / kRouteTile).
+extern "C" int moe_route(const void* probs, int N, int E, int k, int C, void* idx, void* pos,
+                         void* keep, void* counts, void* slot_token, void* slot_k,
+                         void* tile_counts, int n_tiles, void* stream) {
+  if (!route_shape_ok(N, E, k, n_tiles) || C < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = launch_pick(probs, N, E, k, idx, pos, tile_counts, n_tiles, s);
+  if (err != 0) return err;
+  return launch_place(N, E, k, C, idx, pos, keep, counts, slot_token, slot_k, tile_counts,
+                      n_tiles, nullptr, true, s);
+}
+
+// The route's first half alone: idx, each slot's position within its tile,
+// and the tiles' counts (their column sums are the counts a room is
+// computed from).
+extern "C" int moe_route_pick(const void* probs, int N, int E, int k, void* idx, void* pos,
+                              void* tile_counts, int n_tiles, void* stream) {
+  if (!route_shape_ok(N, E, k, n_tiles)) return (int)cudaErrorInvalidValue;
+  return launch_pick(probs, N, E, k, idx, pos, tile_counts, n_tiles,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The route's second half after moe_route_pick on the same idx, pos and
+// tile_counts, with room [E].
+extern "C" int moe_route_place(int N, int E, int k, int C, void* idx, void* pos, void* keep,
+                               void* counts, void* slot_token, void* slot_k,
+                               const void* tile_counts, int n_tiles, const void* room,
+                               void* stream) {
+  if (!route_shape_ok(N, E, k, n_tiles) || C < 1) return (int)cudaErrorInvalidValue;
+  return launch_place(N, E, k, C, idx, pos, keep, counts, slot_token, slot_k, tile_counts,
+                      n_tiles, room, false, static_cast<cudaStream_t>(stream));
+}
+
 // out [E, C, D]: (w ? w[n, s] : 1) * src[n] in each kept slot (n, s)'s row
-// (idx, pos), zeros in the rows c >= min(counts[e], C); w [N, k] or null.
+// (idx, pos), zeros in the rows c >= min(counts[e], C) (min(counts[e],
+// room[e]) under a room); w [N, k] or null, room [E] or null.
 extern "C" int moe_slot_gather(int dtype, const void* src, const void* idx, const void* pos,
-                               const void* keep, const void* counts, const void* w, int N,
-                               int k, int E, int C, int D, void* out, void* stream) {
+                               const void* keep, const void* counts, const void* room,
+                               const void* w, int N, int k, int E, int C, int D, void* out,
+                               void* stream) {
   if (N < 1 || k < 1 || E < 1 || C < 1 || D < 1) return (int)cudaErrorInvalidValue;
   const int* ix = static_cast<const int*>(idx);
   const int* ps = static_cast<const int*>(pos);
   const uint8_t* kp = static_cast<const uint8_t*>(keep);
   const int* ct = static_cast<const int*>(counts);
+  const int* rm = static_cast<const int*>(room);
   const float* wf = static_cast<const float*>(w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return slot_gather<float>(src, ix, ps, kp, ct, wf, N, k, E, C, D, out, s);
+  if (dtype == 0)
+    return slot_gather<float>(src, ix, ps, kp, ct, rm, wf, N, k, E, C, D, out, s);
   if (dtype == 1)
-    return slot_gather<__nv_bfloat16>(src, ix, ps, kp, ct, wf, N, k, E, C, D, out, s);
+    return slot_gather<__nv_bfloat16>(src, ix, ps, kp, ct, rm, wf, N, k, E, C, D, out, s);
   return (int)cudaErrorInvalidValue;
 }
 

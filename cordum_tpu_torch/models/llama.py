@@ -90,7 +90,7 @@ class LlamaConfig:
 
 def init_params(
     cfg: LlamaConfig, *, generator: torch.Generator, device: DeviceLike = None,
-    shard: Optional[tuple[int, int]] = None, lm_head: bool = True,
+    shard: Optional[tuple[int, int]] = None, lm_head: bool = True, dense_ffn: bool = True,
 ) -> Params:
     """Random weights: standard normal over ``sqrt(fan_in)``, norms at one
     — the shapes and scale of the JAX ``init_params``.  ``generator`` must
@@ -101,7 +101,10 @@ def init_params(
     (:func:`shard_params` of the full draw, bit for bit), drawn leaf by
     leaf: each leaf is drawn whole in fp32, sliced and cast before the
     next, so no more than one whole leaf is ever held.  ``lm_head=False``
-    leaves it out (``None``): a rank that never samples."""
+    leaves it out (``None``): a rank that never samples.  ``dense_ffn=False``
+    draws each layer's ``w_gate``, ``w_up`` and ``w_down`` and drops them at
+    once (the MoE family's layers, which replace them; every other leaf
+    keeps its numbers)."""
     dev = resolve_device(device)
     if shard is not None:
         check_tp(cfg, shard[1])
@@ -120,19 +123,20 @@ def init_params(
 
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append(
-            {
-                "attn_norm": ones(d),
-                "wq": dense((d, h * hd), d, specs["wq"]),
-                "wk": dense((d, kvh * hd), d, specs["wk"]),
-                "wv": dense((d, kvh * hd), d, specs["wv"]),
-                "wo": dense((h * hd, d), h * hd, specs["wo"]),
-                "mlp_norm": ones(d),
-                "w_gate": dense((d, f), d, specs["w_gate"]),
-                "w_up": dense((d, f), d, specs["w_up"]),
-                "w_down": dense((f, d), f, specs["w_down"]),
-            }
-        )
+        layer = {
+            "attn_norm": ones(d),
+            "wq": dense((d, h * hd), d, specs["wq"]),
+            "wk": dense((d, kvh * hd), d, specs["wk"]),
+            "wv": dense((d, kvh * hd), d, specs["wv"]),
+            "wo": dense((h * hd, d), h * hd, specs["wo"]),
+            "mlp_norm": ones(d),
+        }
+        for name, shape, fan_in in (("w_gate", (d, f), d), ("w_up", (d, f), d),
+                                    ("w_down", (f, d), f)):
+            w = dense(shape, fan_in, specs[name])
+            if dense_ffn:
+                layer[name] = w
+        layers.append(layer)
     return {
         "embed": dense((cfg.vocab_size, d), d),
         "layers": layers,

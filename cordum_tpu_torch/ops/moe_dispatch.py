@@ -16,7 +16,8 @@ The functions of one computation live here:
   * the wrappers of the hand-written Hopper kernels in
     ``csrc/moe_dispatch.cu``, one a launch mode, each counting its launches
     in ``<function>.launches``: :func:`moe_route_kernel` (a pick and a
-    place launch over tiles of :data:`ROUTE_TILE` tokens, no atomics);
+    place launch over tiles of :data:`ROUTE_TILE` tokens, no atomics; a
+    route with a room also counts in ``room_launches``);
     :func:`moe_slot_gather` (each routed token to its kept capacity rows:
     the dispatch forward) and :func:`moe_slot_gather_scaled` (the same
     scaled by each slot's weight: the combine backward's ``d_out``);
@@ -36,12 +37,25 @@ expert of each slot and its position in the expert's queue before the
 capacity cut), ``keep`` ``[N, k]`` bool (``pos < C``), ``counts`` ``[E]``
 int32 (top-k hits before capacity: the aux loss's), ``slot_token`` and
 ``slot_k`` ``[E, C]`` int32 (the token and slot in each capacity row, -1
-where the row is empty).
+where the row is empty), and ``room`` (``None``, or ``[E]`` int32).
+
+The room is how a data-parallel rank routes its rows of the batch as the
+reference routes the whole batch (``moe.py:85-93``: one capacity for all N
+tokens, queue positions an exclusive cumsum over the whole batch, so dp
+rank r's pairs queue behind every lower rank's): expert e keeps the rank's
+pairs while ``pos < room[e] = max(0, C - prefix[e])``, ``prefix`` the
+lower ranks' counts.  Rows stay the rank's own (row ``pos`` of expert e,
+filled from 0 up), and the empty rows are those past ``min(counts[e],
+room[e])``.  The prefix needs every rank's counts, which the route
+computes: ``room`` is a function of this route's counts that returns the
+room (the caller's all-gather), called between the kernels' pick and
+place launches.  :func:`local_experts` is an expert-parallel rank's view
+of a route: its ``E / ep`` experts, renumbered from 0.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -63,6 +77,35 @@ class MoERoute(NamedTuple):
     counts: torch.Tensor
     slot_token: torch.Tensor
     slot_k: torch.Tensor
+    room: Optional[torch.Tensor] = None
+
+
+#: a route's room: a function of the route's counts ``[E]`` int32 that
+#: returns the room ``[E]`` int32
+Room = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def local_experts(route: MoERoute, first: int, count: int) -> MoERoute:
+    """The route as an expert-parallel rank holding experts ``[first,
+    first + count)`` sees it: ``idx - first``, each pair kept where the
+    route keeps it and its expert is the rank's, and ``counts``,
+    ``slot_token``, ``slot_k`` and ``room`` sliced on the expert axis (views:
+    they stay contiguous).  A pair that is not kept may hold any ``idx``;
+    the kernels and the plain versions never read it.  The whole route
+    when ``count`` is every expert."""
+    if first == 0 and count == route.counts.shape[0]:
+        return route
+    mine = (route.idx >= first) & (route.idx < first + count)
+    cut = slice(first, first + count)
+    return MoERoute(route.idx - first, route.pos, route.keep & mine, route.counts[cut],
+                    route.slot_token[cut], route.slot_k[cut],
+                    None if route.room is None else route.room[cut])
+
+
+def route_equal(a: MoERoute, b: MoERoute) -> bool:
+    """Every field of two routes equal (both rooms ``None``, or equal)."""
+    return all((x is None and y is None) or (x is not None and y is not None
+                                             and torch.equal(x, y)) for x, y in zip(a, b))
 
 
 # ---------------------------------------------------------------------------
@@ -70,23 +113,29 @@ class MoERoute(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def moe_route_reference(probs: torch.Tensor, top_k: int, capacity: int) -> MoERoute:
+def moe_route_reference(probs: torch.Tensor, top_k: int, capacity: int,
+                        room: Room = None) -> MoERoute:
     """The plain route of fp32 ``probs [N, E]``, as ``moe.py:82-94``
-    computes it."""
+    computes it; with ``room``, a dp rank's (the module's note)."""
     n, e = probs.shape
     idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :top_k]
     onehot = torch.nn.functional.one_hot(idx, e)  # [N, k, E] int64
     flat = onehot.reshape(n * top_k, e)
     pos = ((torch.cumsum(flat, 0) - flat) * flat).sum(-1).reshape(n, top_k)
-    keep = pos < capacity
+    counts = flat.sum(0).to(torch.int32)
+    if room is None:
+        keep = pos < capacity
+    else:
+        room = room(counts).to(device=probs.device, dtype=torch.int32)
+        keep = pos < room.clamp(0, capacity).long()[idx]
     slot_token = torch.full((e, capacity), -1, dtype=torch.int32, device=probs.device)
     slot_k = torch.full_like(slot_token, -1)
     tok = torch.arange(n, dtype=torch.int32, device=probs.device)[:, None].expand(n, top_k)
     slot = torch.arange(top_k, dtype=torch.int32, device=probs.device).expand(n, top_k)
     slot_token[idx[keep], pos[keep]] = tok[keep]
     slot_k[idx[keep], pos[keep]] = slot[keep]
-    return MoERoute(idx.to(torch.int32), pos.to(torch.int32), keep,
-                    flat.sum(0).to(torch.int32), slot_token, slot_k)
+    return MoERoute(idx.to(torch.int32), pos.to(torch.int32), keep, counts, slot_token, slot_k,
+                    room)
 
 
 def dispatch_tensor(route: MoERoute) -> torch.Tensor:
@@ -94,7 +143,8 @@ def dispatch_tensor(route: MoERoute) -> torch.Tensor:
     one where slot ``(n, s)`` is kept at row ``(idx, pos)``."""
     e, c = route.slot_token.shape
     keep = route.keep.float()
-    within_cap = torch.nn.functional.one_hot(route.idx.long(), e).float() * keep[..., None]
+    idx = torch.where(route.keep, route.idx, 0).long()  # a pair not kept may hold any idx
+    within_cap = torch.nn.functional.one_hot(idx, e).float() * keep[..., None]
     pos_idx = torch.where(route.keep, route.pos, 0).long()
     cap_onehot = torch.nn.functional.one_hot(pos_idx, c).float()
     return within_cap[..., None] * cap_onehot[:, :, None, :]
@@ -124,10 +174,13 @@ def moe_combine_reference(expert_out: torch.Tensor, w: torch.Tensor,
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.moe_route.argtypes = [ptr, i32, i32, i32, i32] + [ptr] * 7 + [i32, ptr]
-    lib.moe_slot_gather.argtypes = [i32] + [ptr] * 6 + [i32] * 5 + [ptr, ptr]
+    lib.moe_route_pick.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, i32, ptr]
+    lib.moe_route_place.argtypes = [i32] * 4 + [ptr] * 7 + [i32, ptr, ptr]
+    lib.moe_slot_gather.argtypes = [i32] + [ptr] * 7 + [i32] * 5 + [ptr, ptr]
     lib.moe_token_gather.argtypes = [i32] + [ptr] * 5 + [i32] * 4 + [ptr, ptr]
     lib.moe_token_dot.argtypes = [i32] + [ptr] * 5 + [i32] * 4 + [ptr, ptr]
-    for fn in (lib.moe_route, lib.moe_slot_gather, lib.moe_token_gather, lib.moe_token_dot):
+    for fn in (lib.moe_route, lib.moe_route_pick, lib.moe_route_place, lib.moe_slot_gather,
+               lib.moe_token_gather, lib.moe_token_dot):
         fn.restype = ctypes.c_int
 
 
@@ -147,12 +200,15 @@ def _check_route(name: str, route: MoERoute, n: int, e: int, c: int) -> int:
     want = {"idx": (torch.int32, (n, k)), "pos": (torch.int32, (n, k)),
             "keep": (torch.bool, (n, k)), "counts": (torch.int32, (e,)),
             "slot_token": (torch.int32, (e, c)), "slot_k": (torch.int32, (e, c))}
+    if route.room is not None:
+        want["room"] = (torch.int32, (e,))
     for field, (dtype, shape) in want.items():
         x = getattr(route, field)
         if x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(f"{name} kernel: route.{field} must be {dtype} {shape}, got "
                              f"{x.dtype} {tuple(x.shape)}")
-    if not 1 <= k <= e or n < 1 or n * k >= 2**31 or e * c >= 2**31:
+    # k may exceed E: an ep rank's view holds E / ep of the route's experts
+    if k < 1 or n < 1 or n * k >= 2**31 or e * c >= 2**31:
         raise ValueError(f"{name} kernel: N {n}, k {k}, E {e}, C {c}")
     return k
 
@@ -188,10 +244,15 @@ def route_tiles(n: int) -> int:
     return -(-n // ROUTE_TILE)
 
 
-def moe_route_kernel(probs: torch.Tensor, top_k: int, capacity: int) -> MoERoute:
+def moe_route_kernel(probs: torch.Tensor, top_k: int, capacity: int,
+                     room: Room = None) -> MoERoute:
     """The route kernels on fp32 ``probs [N, E]`` on the card: a pick and
     a place launch sharing a ``[route_tiles(N), E]`` int32 count table.
-    Counted once in ``moe_route_kernel.launches``."""
+    Without a room the two launch as a programmatic-dependent pair; with
+    one (the module's note), the pick launches alone, the counts are the
+    table's column sums, and the place launches with the room the function
+    returns.  Counted once in ``moe_route_kernel.launches``, and in
+    ``room_launches`` too with a room."""
     if probs.dtype != torch.float32 or probs.dim() != 2:
         raise ValueError(f"moe_route kernel: probs must be fp32 [N, E], got {probs.dtype} "
                          f"{tuple(probs.shape)}")
@@ -203,7 +264,7 @@ def moe_route_kernel(probs: torch.Tensor, top_k: int, capacity: int) -> MoERoute
         raise ValueError(f"moe_route kernel: E {e} experts, at most {ROUTE_MAX_EXPERTS} (a "
                          "block's probability rows sit in shared memory)")
     _check("moe_route", probs)
-    fn = _build.load(SOURCE, _bind).moe_route
+    lib = _build.load(SOURCE, _bind)
     dev = probs.device
     with torch.cuda.device(dev):
         idx = torch.empty((n, top_k), dtype=torch.int32, device=dev)
@@ -214,15 +275,31 @@ def moe_route_kernel(probs: torch.Tensor, top_k: int, capacity: int) -> MoERoute
         slot_k = torch.empty_like(slot_token)
         tiles = route_tiles(n)
         table = torch.empty((tiles, e), dtype=torch.int32, device=dev)
-        _launch(fn, "moe_route", probs.data_ptr(), n, e, top_k, capacity, idx.data_ptr(),
-                pos.data_ptr(), keep.data_ptr(), counts.data_ptr(), slot_token.data_ptr(),
-                slot_k.data_ptr(), table.data_ptr(), tiles,
-                torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        outs = (idx.data_ptr(), pos.data_ptr(), keep.data_ptr(), counts.data_ptr(),
+                slot_token.data_ptr(), slot_k.data_ptr(), table.data_ptr(), tiles)
+        if room is None:
+            _launch(lib.moe_route, "moe_route", probs.data_ptr(), n, e, top_k, capacity, *outs,
+                    stream)
+        else:
+            _launch(lib.moe_route_pick, "moe_route", probs.data_ptr(), n, e, top_k,
+                    idx.data_ptr(), pos.data_ptr(), table.data_ptr(), tiles, stream)
+            room = room(table.sum(0, dtype=torch.int32))
+            if room.dtype != torch.int32 or tuple(room.shape) != (e,) or room.device != dev \
+                    or not room.is_contiguous():
+                raise ValueError(f"moe_route kernel: the room must be contiguous int32 ({e},) "
+                                 f"on {dev}, got {room.dtype} {tuple(room.shape)} on "
+                                 f"{room.device}")
+            _launch(lib.moe_route_place, "moe_route", n, e, top_k, capacity, *outs,
+                    room.data_ptr(), stream)
     moe_route_kernel.launches += 1
-    return MoERoute(idx, pos, keep, counts, slot_token, slot_k)
+    if room is not None:
+        moe_route_kernel.room_launches += 1
+    return MoERoute(idx, pos, keep, counts, slot_token, slot_k, room)
 
 
 moe_route_kernel.launches = 0  # type: ignore[attr-defined]
+moe_route_kernel.room_launches = 0  # type: ignore[attr-defined]
 
 
 def _slot_gather(name: str, src: torch.Tensor, route: MoERoute,
@@ -233,12 +310,14 @@ def _slot_gather(name: str, src: torch.Tensor, route: MoERoute,
     d = src.shape[1]
     k = _check_route(name, route, n, e, c)
     extra = _check_weights(name, w, n, k)
-    _check(name, src, route.idx, route.pos, route.keep, route.counts, *extra)
+    room = () if route.room is None else (route.room,)
+    _check(name, src, route.idx, route.pos, route.keep, route.counts, *room, *extra)
     fn = _build.load(SOURCE, _bind).moe_slot_gather
     with torch.cuda.device(src.device):
         out = torch.empty((e, c, d), dtype=src.dtype, device=src.device)
         _launch(fn, name, _DTYPE_CODES[src.dtype], src.data_ptr(), route.idx.data_ptr(),
                 route.pos.data_ptr(), route.keep.data_ptr(), route.counts.data_ptr(),
+                route.room.data_ptr() if room else None,
                 w.data_ptr() if w is not None else None, n, k, e, c, d, out.data_ptr(),
                 torch.cuda.current_stream(src.device).cuda_stream)
     return out
@@ -248,8 +327,9 @@ def moe_slot_gather(src: torch.Tensor, route: MoERoute) -> torch.Tensor:
     """``[E, C, D]``: each capacity row ``(e, c)`` is ``src[slot_token[e,
     c]]``, zeros where the row is empty.  ``src`` ``[N, D]``.  The kernel
     is token-major: each routed token is read once and written to its kept
-    slots' rows ``(idx, pos)``; the rows past ``min(counts[e], C)`` are the
-    empty ones.  Counted in ``moe_slot_gather.launches``."""
+    slots' rows ``(idx, pos)``; the rows past ``min(counts[e], C)`` (past
+    ``min(counts[e], room[e])`` under a room) are the empty ones.  Counted
+    in ``moe_slot_gather.launches``."""
     out = _slot_gather("moe_slot_gather", src, route, None)
     moe_slot_gather.launches += 1
     return out
@@ -383,13 +463,13 @@ class MoECombine(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def moe_route(probs: torch.Tensor, top_k: int, capacity: int) -> MoERoute:
+def moe_route(probs: torch.Tensor, top_k: int, capacity: int, room: Room = None) -> MoERoute:
     """Route fp32 ``probs [N, E]`` to ``top_k`` experts with ``capacity``
-    rows each: the plain version for a CPU tensor, the kernel (or a raise)
-    for a CUDA one."""
+    rows each (and ``room``, the module's note): the plain version for a
+    CPU tensor, the kernel (or a raise) for a CUDA one."""
     if probs.device.type == "cpu":
-        return moe_route_reference(probs, top_k, capacity)
-    return moe_route_kernel(probs, top_k, capacity)
+        return moe_route_reference(probs, top_k, capacity, room)
+    return moe_route_kernel(probs, top_k, capacity, room)
 
 
 def moe_dispatch(tokens: torch.Tensor, route: MoERoute) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""The collectives of tensor- and sequence-parallel training, as autograd
-functions over a :class:`.mesh.TrainMesh`.
+"""The collectives of tensor-, sequence- and expert-parallel training, as
+autograd functions over a :class:`.mesh.TrainMesh`.
 
 The JAX package has no counterpart file: there GSPMD inserts these
 collectives itself, from the shardings of ``param_specs`` and the batch's
@@ -21,11 +21,23 @@ rank holds its own slices and the model calls them where GSPMD puts them
     of sequence parallelism), so a rank's queries, its ``T / sp`` chunk,
     attend over the whole sequence; every rank's queries send gradient into
     every key, and the reduce-scatter sums them and hands each rank its
-    chunk's.
+    chunk's;
+  * :func:`copy_to_expert_plane` and :func:`reduce_from_expert_plane` —
+    the first two over the tp × ep plane (``mesh.EXPERT_PLANE``), one
+    collective for both lines: the MoE layer's tokens into the dispatch and
+    its routing weights into the combine are whole on every rank of the
+    plane, and their gradients partial (a rank holds ``E / ep`` experts and
+    a ``d_ff / tp`` block of each), so the backward sums them; the
+    combine's output is partial the same way, so the forward sums it;
+  * :func:`exchange_counts` — the dp line's all-gather of each rank's
+    per-expert hit counts ``[E]`` int32 (no gradient): the exclusive prefix
+    of the lower dp ranks' counts and the global counts, the reference's
+    global routing (its queue positions are an exclusive cumsum over the
+    whole batch, dp rank r's tokens behind every lower rank's).
 
-Each is the identity, with no autograd node, where its line has one rank
-(or there is no mesh), so a one-rank model runs exactly the one-card
-operations.
+Each is the identity, with no autograd node, where its line or plane has
+one rank (or there is no mesh), so a one-rank model runs exactly the
+one-card operations.
 """
 from __future__ import annotations
 
@@ -33,30 +45,31 @@ from typing import Any, Optional
 
 import torch
 
-from .mesh import AXIS_SP, AXIS_TP, TrainMesh
+from .mesh import AXIS_DP, AXIS_SP, AXIS_TP, EXPERT_PLANE, TrainMesh
 
 
-class _CopyToTP(torch.autograd.Function):
+class _CopyTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):  # type: ignore[override]
-        ctx.mesh = mesh
+    def forward(ctx, x, mesh, over):  # type: ignore[override]
+        ctx.mesh, ctx.over = mesh, over
         return x
 
     @staticmethod
     def backward(ctx, g):  # type: ignore[override]
         # a private copy: the incoming gradient may be shared with another
         # branch of the graph, and the sum is taken in place
-        return ctx.mesh.all_reduce(g.clone(memory_format=torch.contiguous_format), AXIS_TP), None
+        return (ctx.mesh.all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.over),
+                None, None)
 
 
-class _ReduceFromTP(torch.autograd.Function):
+class _ReduceFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):  # type: ignore[override]
-        return mesh.all_reduce(x.clone(memory_format=torch.contiguous_format), AXIS_TP)
+    def forward(ctx, x, mesh, over):  # type: ignore[override]
+        return mesh.all_reduce(x.clone(memory_format=torch.contiguous_format), over)
 
     @staticmethod
     def backward(ctx, g):  # type: ignore[override]
-        return g, None
+        return g, None, None
 
 
 class _GatherSeq(torch.autograd.Function):
@@ -71,18 +84,42 @@ class _GatherSeq(torch.autograd.Function):
 
 
 def _active(mesh: Optional[TrainMesh], axis: str) -> bool:
-    return mesh is not None and mesh.sizes[axis] > 1
+    return mesh is not None and mesh._line_size(axis) > 1
 
 
 def copy_to_tp(x: torch.Tensor, mesh: Optional[TrainMesh]) -> Any:
     """``x`` unchanged; its gradient summed over the tp line."""
-    return _CopyToTP.apply(x, mesh) if _active(mesh, AXIS_TP) else x
+    return _CopyTo.apply(x, mesh, AXIS_TP) if _active(mesh, AXIS_TP) else x
 
 
 def reduce_from_tp(x: torch.Tensor, mesh: Optional[TrainMesh]) -> Any:
     """``x`` summed over the tp line (a new tensor); its gradient passed
     through to every rank unchanged."""
-    return _ReduceFromTP.apply(x, mesh) if _active(mesh, AXIS_TP) else x
+    return _ReduceFrom.apply(x, mesh, AXIS_TP) if _active(mesh, AXIS_TP) else x
+
+
+def copy_to_expert_plane(x: torch.Tensor, mesh: Optional[TrainMesh]) -> Any:
+    """``x`` unchanged; its gradient summed over the tp × ep plane."""
+    return _CopyTo.apply(x, mesh, EXPERT_PLANE) if _active(mesh, EXPERT_PLANE) else x
+
+
+def reduce_from_expert_plane(x: torch.Tensor, mesh: Optional[TrainMesh]) -> Any:
+    """``x`` summed over the tp × ep plane (a new tensor); its gradient
+    passed through to every rank unchanged."""
+    return _ReduceFrom.apply(x, mesh, EXPERT_PLANE) if _active(mesh, EXPERT_PLANE) else x
+
+
+def exchange_counts(counts: torch.Tensor, mesh: Optional[TrainMesh]
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(prefix, total)`` of this rank's per-expert counts ``[E]`` int32
+    over the dp line, one all-gather: the sum of the counts of the dp ranks
+    before this one, and of all of them, each ``[E]`` int32 on ``counts``'
+    device.  Without a dp line: zeros and the counts."""
+    if not _active(mesh, AXIS_DP):
+        return torch.zeros_like(counts), counts
+    every = mesh.all_gather(counts.detach().reshape(1, -1), AXIS_DP, 0)  # [dp, E]
+    return (every[:mesh.dp_rank].sum(0, dtype=torch.int32),
+            every.sum(0, dtype=torch.int32))
 
 
 def gather_seq(x: torch.Tensor, mesh: Optional[TrainMesh], dim: int = 1) -> Any:

@@ -25,12 +25,14 @@ the sums across ranks are explicit all-reduces.
 :class:`TrainMesh` is the training counterpart of the reference's
 ``build_mesh(MeshSpec(...))``: one rank's coordinates on the (dp, tp, sp,
 ep, pp) grid, pp fastest, as ``np.array(devices).reshape(shape)`` lays the
-devices out, with a world group and one group per axis line (the dp, tp,
-sp and pp lines through the rank), built from one store as
-:meth:`TPGroup.join` builds its group.  It sums, gathers and
-reduce-scatters over any of them, sends and receives between pp
-neighbours, and shifts tensors one hop round a line (the ring of ring
-attention over sp).  ep may not exceed 1 yet: it comes with ROADMAP A12.
+devices out, with a world group, one group per axis line (the dp, tp,
+sp, ep and pp lines through the rank) and one over the tp × ep plane
+through it (the ranks that share the rank's dp, sp and pp coordinates:
+the MoE layer's partial sums, its experts' and its ``d_ff`` blocks', in
+one collective), built from one store as :meth:`TPGroup.join` builds its
+group.  It sums, gathers and reduce-scatters over any of them, sends and
+receives between pp neighbours, and shifts tensors one hop round a line
+(the ring of ring attention over sp).
 """
 from __future__ import annotations
 
@@ -243,10 +245,12 @@ def in_process_groups(size: int, device: torch.device, *, timeout_s: float) -> l
 
 #: the reference's axis order (``build_mesh``); the last axis varies fastest
 AXES = (AXIS_DP, AXIS_TP, AXIS_SP, AXIS_EP, AXIS_PP)
-#: the axes a training mesh cannot have above 1 yet, and the items that bring them
-LATER_AXES = {AXIS_EP: "ROADMAP A12"}
 #: the axis lines a training mesh builds a group for
-LINE_AXES = (AXIS_DP, AXIS_TP, AXIS_SP, AXIS_PP)
+LINE_AXES = (AXIS_DP, AXIS_TP, AXIS_SP, AXIS_EP, AXIS_PP)
+#: the group over the tp × ep plane through a rank (the MoE layer's
+#: partial sums), and its axes
+EXPERT_PLANE = "tp_ep"
+EXPERT_PLANE_AXES = (AXIS_TP, AXIS_EP)
 
 
 def mesh_coords(sizes: dict[str, int], rank: int) -> dict[str, int]:
@@ -275,6 +279,14 @@ def line_ranks(sizes: dict[str, int], rank: int, axis: str) -> list[int]:
     return [mesh_rank(sizes, {**coords, axis: i}) for i in range(sizes[axis])]
 
 
+def plane_ranks(sizes: dict[str, int], rank: int, axes: Sequence[str]) -> list[int]:
+    """The world ranks of ``rank``'s plane over ``axes``: the ranks whose
+    coordinates differ from its own on those axes alone, in world order."""
+    coords = mesh_coords(sizes, rank)
+    return [r for r in range(math.prod(sizes.values()))
+            if all(c == coords[a] for a, c in mesh_coords(sizes, r).items() if a not in axes)]
+
+
 #: what :class:`TrainMesh` counts in ``host_s`` and ``calls``
 COLLECTIVES = ("p2p", "all_reduce", "all_gather", "reduce_scatter")
 
@@ -284,9 +296,11 @@ class TrainMesh:
     """One rank of a training mesh: its ``rank`` on the grid of ``sizes``
     (:func:`mesh_coords`), the ``backend`` every group uses (NCCL when each
     rank owns its own card, :func:`choose_backend`), the rank's ``device``
-    and its process groups: ``world``, and the ``dp``, ``tp``, ``sp`` and
-    ``pp`` lines through the rank (:func:`line_ranks`; ``None`` for a line
-    of one rank; a line that spans the world is the world group).  Like
+    and its process groups: ``world``, the ``dp``, ``tp``, ``sp``, ``ep``
+    and ``pp`` lines through the rank (:func:`line_ranks`) and the tp × ep
+    plane through it (``tp_ep``, :func:`plane_ranks`); ``None`` for a group
+    of one rank, the world group for one that spans the world, and the
+    line's own group for a plane that is one line.  Like
     :class:`TPGroup`'s, the groups are bare process groups, not the
     process's default group, and every call waits at most the caller's
     ``timeout_s``.  ``host_s`` and ``calls`` count the host seconds spent
@@ -325,6 +339,10 @@ class TrainMesh:
         return self.sizes[AXIS_SP]
 
     @property
+    def ep(self) -> int:
+        return self.sizes[AXIS_EP]
+
+    @property
     def pp(self) -> int:
         return self.sizes[AXIS_PP]
 
@@ -339,6 +357,10 @@ class TrainMesh:
     @property
     def sp_rank(self) -> int:
         return self.coords[AXIS_SP]
+
+    @property
+    def ep_rank(self) -> int:
+        return self.coords[AXIS_EP]
 
     @property
     def pp_rank(self) -> int:
@@ -364,9 +386,9 @@ class TrainMesh:
 
     def _group(self, over: str) -> Any:
         if over not in self.groups:
-            raise ValueError(f"no group {over!r}: world, dp, tp, sp or pp")
+            raise ValueError(f"no group {over!r}: world, dp, tp, sp, ep, pp or tp_ep")
         pg = self.groups[over]
-        if pg is None and (self.size if over == "world" else self.sizes[over]) > 1:
+        if pg is None and self._line_size(over) > 1:
             raise RuntimeError(f"rank {self.rank}: the mesh was closed")
         return pg
 
@@ -387,7 +409,19 @@ class TrainMesh:
         return t
 
     def _line_size(self, over: str) -> int:
-        return self.size if over == "world" else self.sizes[over]
+        if over == "world":
+            return self.size
+        if over == EXPERT_PLANE:
+            return math.prod(self.sizes[a] for a in EXPERT_PLANE_AXES)
+        return self.sizes[over]
+
+    def _index(self, over: str) -> int:
+        """This rank's index in the group ``over``."""
+        if over == "world":
+            return self.rank
+        if over == EXPERT_PLANE:
+            return plane_ranks(self.sizes, self.rank, EXPERT_PLANE_AXES).index(self.rank)
+        return self.coords[over]
 
     def _staged(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` as gloo takes it in a gather: contiguous, and in host
@@ -422,7 +456,7 @@ class TrainMesh:
             return t
         if t.shape[dim] % n:
             raise ValueError(f"dimension {t.shape[dim]} does not split over {over} {n}")
-        idx = self.rank if over == "world" else self.coords[over]
+        idx = self._index(over)
         per = t.shape[dim] // n
         if self.backend == "gloo":
             buf = self._staged(t).clone()
@@ -466,7 +500,7 @@ class TrainMesh:
         pg, n = self._group(over), self._line_size(over)
         if pg is None:
             return list(tensors)
-        idx = self.rank if over == "world" else self.coords[over]
+        idx = self._index(over)
         buf, layout = _pack(tensors)
         send = self._staged(buf)
         recv = torch.empty_like(send)
@@ -493,34 +527,33 @@ class TrainMesh:
              spec: MeshSpec, timeout_s: float) -> "TrainMesh":
         """Join the mesh ``spec`` over ``world`` ranks (:meth:`MeshSpec.resolve`)
         as ``rank``, over ``store``: agree the backend, then build the world
-        group and this rank's dp, tp, sp and pp lines, each under its own
-        prefix of the store.  Blocks until every rank of each group has
-        joined or ``timeout_s`` passes.  ``ValueError`` for a mesh with ep
-        above 1, naming the ROADMAP item that brings the axis."""
+        group, this rank's dp, tp, sp, ep and pp lines and its tp × ep
+        plane, each under its own prefix of the store, in that order on
+        every rank.  Blocks until every rank of each group has joined or
+        ``timeout_s`` passes."""
         sizes = spec.resolve(world)
-        for axis, item in LATER_AXES.items():
-            if sizes[axis] != 1:
-                raise ValueError(f"a training mesh with {axis} {sizes[axis]} is not supported "
-                                 f"yet ({item}); dp, tp, sp and pp only")
         if not 0 <= rank < world:
             raise ValueError(f"rank {rank} outside a world of {world}")
         timeout = datetime.timedelta(seconds=timeout_s)
         if world == 1:
             return cls(sizes=sizes, rank=rank, backend="none", device=device,
-                       groups={"world": None, **dict.fromkeys(LINE_AXES)})
+                       groups={"world": None, **dict.fromkeys((*LINE_AXES, EXPERT_PLANE))})
         backend = _agree_backend(store, rank, world, device, timeout)
         world_pg = _process_group(dist.PrefixStore("world", store), rank, world, backend, timeout)
         groups = {"world": world_pg}
-        for axis in LINE_AXES:
-            line = line_ranks(sizes, rank, axis)
+        lines = {axis: line_ranks(sizes, rank, axis) for axis in LINE_AXES}
+        lines[EXPERT_PLANE] = plane_ranks(sizes, rank, EXPERT_PLANE_AXES)
+        for name, line in lines.items():
+            same = [a for a in EXPERT_PLANE_AXES if name == EXPERT_PLANE and lines[a] == line]
             if len(line) == 1:
-                groups[axis] = None
+                groups[name] = None
             elif len(line) == world:
-                groups[axis] = world_pg
-            else:
-                name = f"{axis}/{min(line)}"  # the line's first rank names it
-                groups[axis] = _process_group(dist.PrefixStore(name, store), line.index(rank),
-                                              len(line), backend, timeout)
+                groups[name] = world_pg
+            elif same:  # a plane that is one line: that line's group
+                groups[name] = groups[same[0]]
+            else:  # the group's first rank names it
+                groups[name] = _process_group(dist.PrefixStore(f"{name}/{min(line)}", store),
+                                              line.index(rank), len(line), backend, timeout)
         logx.info("training mesh joined", rank=rank, size=world,
                   mesh={k: v for k, v in sizes.items() if v > 1}, collective=backend,
                   device=str(device))

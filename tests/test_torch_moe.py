@@ -327,7 +327,7 @@ def _before(a, ia, b, ib):
     return np.where(na | nb, na & (~nb | (ia < ib)), (a > b) | ((a == b) & (ia < ib)))
 
 
-def _emulate_route(probs, k, cap, tile, warp=32, chunk=32):
+def _emulate_route(probs, k, cap, tile, warp=32, chunk=32, room=None):
     """``moe_route_kernel``'s two launches over tiles of ``tile`` tokens,
     a thread a token, experts ``chunk`` at a time.  Pick: k passes find a
     token's picks in order (idx), each the first expert after the last;
@@ -335,8 +335,10 @@ def _emulate_route(probs, k, cap, tile, warp=32, chunk=32):
     among its tile's picks of e is its ballot prefix in its warp of
     ``warp`` lanes plus the earlier warps' counts, at slot rank(e); the
     tile's counts go to a table ``[n_tiles, E]``.  Place: each tile adds
-    the earlier tiles' counts; the tails of slot_token / slot_k are -1
-    over a grid-stride loop."""
+    the earlier tiles' counts; a pair keeps below its expert's row limit
+    (C, or ``min(room[e], C)`` with a room ``[E]``, the place kernel's
+    ``row_limit``); the tails of slot_token / slot_k, past ``min(counts,
+    limit)``, are -1 over a grid-stride loop."""
     n, e_count = probs.shape
     n_tiles = -(-n // tile)
     junk = -7  # what the allocator left
@@ -377,6 +379,7 @@ def _emulate_route(probs, k, cap, tile, warp=32, chunk=32):
                     for li in np.nonzero(b)[0]:
                         pos[lane[li], rank(lane[li], e)] = earlier + int(b[:li].sum())
     total = table.sum(0)
+    limit = [cap if room is None else max(0, min(int(room[e]), cap)) for e in range(e_count)]
     for t0 in range(n_tiles):  # the place launch
         base = table[:t0].sum(0)
         for e0 in range(0, e_count, chunk):
@@ -386,23 +389,25 @@ def _emulate_route(probs, k, cap, tile, warp=32, chunk=32):
                     if not e0 <= idx[t, s] < e0 + ne:
                         continue
                     p = base[idx[t, s]] + pos[t, s]
-                    pos[t, s], keep[t, s] = p, p < cap
-                    if p < cap:
+                    pos[t, s], keep[t, s] = p, p < limit[idx[t, s]]
+                    if p < limit[idx[t, s]]:
                         slot_token[idx[t, s], p], slot_k[idx[t, s], p] = t, s
             if t0 == 0:
                 counts[e0:e0 + ne] = total[e0:e0 + ne]
             for tid in range(tile):  # every thread of the block, past N too
                 for f in range(t0 * tile + tid, ne * cap, n_tiles * tile):
                     e, c = e0 + f // cap, f % cap
-                    if c >= min(total[e], cap):
+                    if c >= min(total[e], limit[e]):
                         slot_token[e, c] = slot_k[e, c] = -1
     return md.MoERoute(*(torch.from_numpy(a) for a in (idx, pos, keep, counts, slot_token,
-                                                       slot_k)))
+                                                       slot_k)),
+                       None if room is None else torch.as_tensor(room, dtype=torch.int32))
 
 
 def _assert_route_equal(got, want):
     for field in md.MoERoute._fields:
-        assert torch.equal(getattr(got, field), getattr(want, field)), field
+        a, b = getattr(got, field), getattr(want, field)
+        assert (a is None and b is None) or torch.equal(a, b), field
 
 
 @pytest.mark.parametrize("tile", [1, 3, 5, 1024])
@@ -635,7 +640,8 @@ def test_import_scan_covers_the_moe_slice():
 
     mods = {m.name for m in pkgutil.walk_packages(cordum_tpu_torch.__path__,
                                                    "cordum_tpu_torch.")}
-    assert {"cordum_tpu_torch.models.moe", "cordum_tpu_torch.ops.moe_dispatch"} <= mods
+    assert {"cordum_tpu_torch.models.moe", "cordum_tpu_torch.ops.moe_dispatch",
+            "cordum_tpu_torch.parallel.mesh", "cordum_tpu_torch.parallel.collectives"} <= mods
 
 
 def test_chip_smoke_moe_bounds_count_this_routes_rows():

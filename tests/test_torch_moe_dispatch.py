@@ -23,6 +23,9 @@ capacity 1, fewer rows than kept slots, a capacity cut inside a route
 tile, all tokens on one expert, k = E with drops on every expert, more
 than 32 kept slots a token (the route, the dispatch and d_out only), exact
 ties (at N 8192 planted on the route's tile edges too), bf16 and fp32.
+The route with a room (a dp rank's, phase 14.1's gate off its main shape,
+the fused and the split launches) and an ep rank's view of a route, whose
+unkept pairs hold negative or out-of-range experts the gathers never read.
 On the card (no JAX there) run them with ``python -m pytest --noconftest
 -m gpu tests/test_torch_moe_dispatch.py``.
 """
@@ -125,8 +128,7 @@ def test_more_than_32_slots_on_card(dtype):
     probs, k, cap, tokens, dy = (case[x] for x in ("probs", "k", "cap", "tokens", "dy"))
     route = md.moe_route_kernel(probs, k, cap)
     plain = md.moe_route_reference(probs, k, cap)
-    for field in md.MoERoute._fields:
-        assert torch.equal(getattr(route, field), getattr(plain, field)), field
+    assert md.route_equal(route, plain)
     w = chip_smoke.routing_weights(torch, probs, route)
     assert torch.equal(md.moe_slot_gather(tokens, route), md.moe_dispatch_reference(tokens, plain))
     out = case["expert_out"].clone().requires_grad_()
@@ -232,3 +234,62 @@ def test_library_yardsticks_compute_the_same_function_on_card(dtype):
     lib = F.embedding_bag(flat, table, per_sample_weights=route.keep.to(dtype), mode="sum")
     torch.testing.assert_close(lib.float(), md.moe_token_sum(case["expert_out"], route).float(),
                                **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("tag, kind0, kind1", chip_smoke.MOE_ROOM_CASES)
+@pytest.mark.parametrize("n", [md.ROUTE_TILE + 1, 3000])
+def test_route_with_a_room_on_card(n, tag, kind0, kind1, dtype):
+    """Phase 14.1's gate (``chip_smoke.check_room_route``) off its main
+    shape: rank 1 of a dp 2 mesh routes with the room rank 0 leaves it
+    (pick, the room from the counts, place), equal to the plain version
+    and to the whole batch's route on its rows; the gathers on that route
+    and on an ep 2 rank's view of it by 9.1's gates."""
+    dev = _need_card()
+    chip_smoke.check_room_route(torch, dev, dtype, tag, kind0, kind1, n=n, d=256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("first, count", [(4, 4), (7, 1)])
+def test_gathers_never_read_the_idx_of_an_unkept_pair_on_card(first, count, dtype):
+    """An ep rank's view (``local_experts``: experts 4-7 of 8, or expert 7
+    alone, fewer than k) leaves the other experts' pairs unkept with idx
+    negative or past its experts; planting ``INT32_MIN`` and
+    ``INT32_MAX`` there too changes no output of the five gathers, which
+    equal the plain versions on the view."""
+    dev = _need_card()
+    case = chip_smoke.moe_case(torch, dev, dtype, n=1000, d=256, kind="drop", seed=5)
+    route = md.moe_route_kernel(case["probs"], case["k"], case["cap"])
+    w = chip_smoke.routing_weights(torch, case["probs"], route)
+    view = md.local_experts(route, first, count)
+    assert (view.idx[~view.keep] < 0).any()
+    planted = view._replace(idx=torch.where(
+        view.keep, view.idx, torch.where(view.idx < 0, -2**31, 2**31 - 1)).to(torch.int32))
+    cut = slice(first, first + count)
+    local = dict(case, expert_out=case["expert_out"][cut].contiguous(),
+                 d_ei=case["d_ei"][cut].contiguous())
+    for r in (view, planted):
+        chip_smoke.check_moe_gathers(torch, local, r, w, f"experts {first}-{first + count - 1}")
+    out = [md.moe_slot_gather(case["tokens"], r) for r in (view, planted)]
+    assert torch.equal(out[0], out[1])
+
+
+@pytest.mark.gpu
+def test_route_room_is_checked_and_counted_on_card():
+    """A room of the wrong dtype, length or device is refused before the
+    place launch; a route with a room counts in ``launches`` and
+    ``room_launches``, one without it only in ``launches``."""
+    dev = _need_card()
+    case = chip_smoke.moe_case(torch, dev, torch.float32, n=300, d=64)
+    probs, k, cap = case["probs"], case["k"], case["cap"]
+    room = torch.full((probs.shape[1],), cap // 2, dtype=torch.int32, device=dev)
+    for bad in (room.long(), room[:-1], room.cpu()):
+        with pytest.raises(ValueError, match="room must be"):
+            md.moe_route_kernel(probs, k, cap, lambda counts, bad=bad: bad)
+    before = (md.moe_route_kernel.launches, md.moe_route_kernel.room_launches)
+    md.moe_route_kernel(probs, k, cap)
+    md.moe_route_kernel(probs, k, cap, lambda counts: room)
+    assert (md.moe_route_kernel.launches - before[0],
+            md.moe_route_kernel.room_launches - before[1]) == (2, 1)

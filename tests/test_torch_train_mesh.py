@@ -109,8 +109,26 @@ def test_mesh_coordinates_and_lines_are_the_reference_grid(dp, pp):
 
 @pytest.mark.parametrize("axis, item", [("ep", "A12")])
 def test_axes_not_yet_ported_are_refused(axis, item):
-    with pytest.raises(ValueError, match=f"{axis} 2 is not supported yet \\(ROADMAP {item}"):
-        in_process_meshes(MeshSpec(dp=1, **{axis: 2}), 2, CPU, timeout_s=10)
+    """The refusal this test once held (a training mesh with ep above 1,
+    not ported before ROADMAP A12) is gone: an ep 2 mesh joins, each rank
+    on its own ep coordinate, and its ep line (and the tp × ep plane, here
+    the same two ranks) sums over both ranks."""
+    meshes = in_process_meshes(MeshSpec(dp=1, **{axis: 2}), 2, CPU, timeout_s=10)
+    out: list = [None, None]
+
+    def body(mesh):
+        out[mesh.rank] = (mesh.coords[axis], mesh.ep,
+                          int(mesh.all_reduce(torch.tensor([1.0 + mesh.rank]), axis).item()),
+                          int(mesh.all_reduce(torch.tensor([1.0]), tm.EXPERT_PLANE).item()))
+
+    threads = [threading.Thread(target=body, args=(m,)) for m in meshes]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(20)
+    for m in meshes:
+        m.close()
+    assert item == "A12" and out == [(0, 2, 3, 2), (1, 2, 3, 2)]
 
 
 def test_backend_is_nccl_only_for_distinct_cards():
