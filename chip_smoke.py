@@ -170,8 +170,10 @@ Every phase raises on failure.  Phases:
     rank 0 advertises there must be token-identical to the dense greedy
     run; SIGTERM drains both.
 12. Multi-rank training over a rank mesh (``TrainMesh``), once phase 11
-    is done: rank processes of this script (``--train-rank``), each
-    joining the mesh at a TCPStore, drawing its slice of the one-process
+    is done: rank processes started by the package's launcher
+    (``cordum_tpu_torch.parallel.launch.run_ranks``, the target
+    :func:`mesh_rank`), each joining the mesh at the launcher's TCPStore,
+    drawing its slice of the one-process
     weights from the seed and taking the whole batch; every leg's
     one-process step runs first on card 0 and is freed (its losses, first
     gradients and last params written to files the ranks read), and each
@@ -241,6 +243,28 @@ Every phase raises on failure.  Phases:
     Mixtral widths at 8 of 32 layers, 9.3's batch (B 4, T 2048), 10 steps:
     ep 4 and tp 2 x ep 2, a falling loss; step p50, tokens/s a card, peak
     memory a rank and host ms a step in the collectives.
+15. The driver's entry points (``cordum_tpu_torch/graft_entry.py``), once
+    phase 14 is done.  (1) ``entry()``'s forward at the reference's entry
+    widths (Llama, vocab 32000, d 512, 4 layers, bf16, tokens [4, 128]):
+    finite logits, B9 once a layer, and in fp32 the kernel path held to
+    the plain path.  (2) ``dryrun_multichip(1)``: one rank process of the
+    package's launcher on the card, every axis 1, the dense, MoE and
+    pipeline steps (``LlamaConfig.tiny()`` widths, 2 layers; M 2), each
+    loss equal to the one-process step's on the same draws.  (3) A
+    ``train`` job of each family (``llama-tiny``, ``moe-tiny``,
+    ``pipeline``; B 4, T 32, 3 steps on one batch) through ``TrainRunner``
+    at world 1: the reference's keys, every axis 1, a falling loss.  B9 and
+    B7 launches as each step's design gives.  ``--cards`` (``--legs
+    dryrun``, four cards): a port worker that owns the four cards: an
+    ``embed`` job at ``WORKER_TP`` 2 (two replicas of the fp32 embedder,
+    one a card) equal to one card's embeddings of each replica's block and
+    near one card's of the whole batch, its heartbeat's ``chip_count`` 4,
+    and an fp32 ``train`` job of each family over the four cards (rank
+    processes, mesh as the reference resolves it) held to the same job on
+    one card; then ``dryrun_multichip(4)`` over NCCL, one rank a card
+    (dense tp 2 x sp 2, MoE tp 2 x ep 2, pipeline dp 2 x pp 2), in bf16
+    and in fp32 in one launch, the losses finite and equal on every rank,
+    each fp32 loss held to the one-process step on card 0.
 
 Tolerances (kernel vs plain version, max abs error), paged attention:
 fp32 1e-4 — the sums run in another order over up to 8192 keys, on O(1)
@@ -314,7 +338,16 @@ ranks by phase 12's gates (the expert slices against the slices of the
 one-process gradients and params); the bf16 ep 2 leg's first loss within
 1e-2 relative of 9.3's (the same weights and batch; the combine's partial
 sums are added over the ranks in bf16, in another order than one card's
-sum).
+sum).  Phase 15: every dry-run and ``train`` loss on ranks within 1e-5
+relative of one process on the same draws in fp32 (the same sums, split
+over tp, sp, ep and pp at other places; the bf16 dry run is held only to
+finite losses equal on every rank); entry()'s fp32 logits on the kernel
+path within 1e-4 of the largest plain logit (B9's 1e-5 output gate
+carried through 4 layers and lm_head); the embed at ``WORKER_TP`` 2 equal
+to one card's embeddings of the same blocks of rows, and within 1e-6 of
+one card's of the whole batch (unit vectors: cuBLAS picks its fp32 GEMM
+by the row count, so another batch size may sum in another order; 5.2e-08
+read on four H100s).
 
 Near-tie rule of phase 3, fixed before any run: tokens are compared up to
 the first generated position where the oracle's top-2 logits differ by
@@ -1046,10 +1079,11 @@ class JobDispatcher:
         return statistics.median((self.done[j] - self.sent[j]) * 1e3 for j in jids)
 
 
-def make_port_worker(torch, dev, worker_id, **compute_kw):
+def make_port_worker(torch, dev, worker_id, chips=1, **compute_kw):
     """A port ``Worker`` over the port's ``LoopbackBus`` and ``MemoryStore``,
     wired by ``attach_default_gpu_worker`` (micro-batches up to 256 rows,
-    the embedder's largest batch bucket)."""
+    the embedder's largest batch bucket), owning ``chips`` cards: one (the
+    script's card, whatever the host has) unless a phase asks for more."""
     from cordum_tpu_torch.infra.bus import LoopbackBus
     from cordum_tpu_torch.infra.kv import MemoryKV
     from cordum_tpu_torch.infra.memstore import MemoryStore
@@ -1058,7 +1092,7 @@ def make_port_worker(torch, dev, worker_id, **compute_kw):
 
     bus, store = LoopbackBus(), MemoryStore(MemoryKV())
     w = Worker(bus=bus, store=store, worker_id=worker_id, pool="gpu",
-               capabilities=["gpu"], heartbeat_interval_s=2.0, device=dev)
+               capabilities=["gpu"], heartbeat_interval_s=2.0, device=dev, chips=chips)
     compute = attach_default_gpu_worker(
         w, max_batch_rows=256, serving_cache_pages=256, seed=SEED, **compute_kw)
     return w, compute, JobDispatcher(bus, store, worker_id)
@@ -2055,7 +2089,12 @@ def free_port():
 
 def start_process(args, env, log_path):
     """``python -m <args>`` from the repo root, its stderr into
-    ``log_path``."""
+    ``log_path``.  A port worker process owns every card it sees, so on a
+    host with more than one it is pinned to card 0, the script's card, with
+    ``CUDA_VISIBLE_DEVICES`` (unless the caller set it): the phases hold
+    its launches and heartbeat to one card."""
+    if args[0] == "cordum_tpu_torch.cmd.worker" and "CUDA_VISIBLE_DEVICES" not in env:
+        env = {**env, "CUDA_VISIBLE_DEVICES": "0"}
     log = open(log_path, "w")
     try:
         return subprocess.Popen([sys.executable, "-m", *args], env=env, stdout=log,
@@ -3336,11 +3375,13 @@ def check_gang_oracle_ranks(card, ranks, oracle, served, *, where):
 
 
 def main_cards() -> int:
-    """``python3 chip_smoke.py --cards [--legs train,gang,moe]``, on a host
-    with two or more cards, one rank a card (NCCL).  ``train``, with four
-    cards: phase 12.3-12.5, 12.9, 12.10, 13.3 and 13.4
+    """``python3 chip_smoke.py --cards [--legs train,gang,moe,dryrun]``, on a
+    host with two or more cards, one rank a card (NCCL).  ``train``, with
+    four cards: phase 12.3-12.5, 12.9, 12.10, 13.3 and 13.4
     (:func:`cards_train_legs`).  ``moe``, with four cards: phase 14.3 and
-    14.4 (:func:`cards_moe_legs`).  ``gang``: at tp 2 and, with
+    14.4 (:func:`cards_moe_legs`).  ``dryrun``, with four cards: the
+    multi-rank dry run and a worker that owns the four cards
+    (:func:`cards_dryrun_leg`).  ``gang``: at tp 2 and, with
     four cards, tp 4: phase 3's fp32 oracle on one card, then the fp32 gang
     of rank processes on its weights and prompts, its tokens held to the
     oracle and to one rank (:func:`check_gang_oracle_ranks`); then phase
@@ -3355,7 +3396,7 @@ def main_cards() -> int:
         return 2
     from cordum_tpu_torch.models import llama
 
-    legs = ("train", "moe", "gang")
+    legs = ("train", "moe", "gang", "dryrun")
     if "--legs" in sys.argv:
         legs = tuple(sys.argv[sys.argv.index("--legs") + 1].split(","))
     dev = torch.device("cuda", 0)
@@ -3383,6 +3424,12 @@ def main_cards() -> int:
         torch.cuda.empty_cache()
     if "gang" in legs:
         cards_gang_legs(torch, dev, card, n)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "dryrun" in legs:
+        if n < 4:
+            raise AssertionError(f"the dryrun leg needs four cards, this host has {n}")
+        cards_dryrun_leg(torch, dev, card)
     print("\n".join(smi))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
@@ -4245,143 +4292,103 @@ def mesh_gate(torch, job, mesh, params, grads, losses):
             "oracle_losses": want["losses"], "names": names}
 
 
-def train_rank(job, rank, mesh=None):
-    """One rank of a phase-12 job: join the mesh (a TCPStore on
-    127.0.0.1 at the job's port, rank 0 hosting it) unless one is given
-    (the CPU tests' in-process meshes), draw the rank's params from the
+def train_rank(job, rank, mesh):
+    """One rank of a phase-12 job on its ``mesh`` (a rank process's, or
+    the CPU tests' in-process meshes): draw the rank's params from the
     seed, take ``steps`` steps on the one batch; with an oracle, hold the
     rank to it (:func:`mesh_gate`); with ``profile``, two more steps, under
     ``torch.profiler`` on the first and the last stage.  Returns the rank's
     numbers."""
-    import datetime
-
     import torch
-    import torch.distributed as dist
 
     from cordum_tpu_torch import optim
-    from cordum_tpu_torch.parallel.mesh import MeshSpec, TrainMesh
 
-    world = mesh_world(job)
-    if job["device"] == "cuda":
-        # one rank a card where there are enough cards, else all on card 0
-        dev = torch.device("cuda", rank if torch.cuda.device_count() >= world else 0)
-        torch.cuda.set_device(dev)
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    if on_card:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    else:
-        dev = torch.device("cpu")
-    on_card = dev.type == "cuda"
-    own = mesh is None
-    if own:
-        store = dist.TCPStore("127.0.0.1", job["port"], world, rank == 0,
-                              datetime.timedelta(seconds=MESH_TIMEOUT_S), wait_for_workers=False)
-        spec = MeshSpec(dp=job["dp"], tp=job["tp"], sp=job["sp"], ep=job.get("ep", 1),
-                        pp=job["pp"])
-        mesh = TrainMesh.join(store, rank, world, dev, spec=spec, timeout_s=MESH_TIMEOUT_S)
-    try:
-        init, step, toks, base = mesh_train_step(torch, job, dev, mesh)
-        t0 = time.monotonic()
-        params, state = init(SEED)
-        if on_card:
-            torch.cuda.synchronize(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-        init_s = time.monotonic() - t0
-        param_bytes = sum(p.numel() * p.element_size() for p in optim.tree_leaves(params))
-        if own:
-            zero_launches()
-        grads, losses, secs = [], [], []
-        # the collectives' host time and calls of steps 2 on (a one-step run's
-        # all): the first step's calls also set the communicators up
-        first = {"host_s": dict.fromkeys(mesh.host_s, 0.0), "calls": dict.fromkeys(mesh.calls, 0)}
-        for i in range(job["steps"]):
-            if i == 1:
-                first = {k: dict(getattr(mesh, k)) for k in ("host_s", "calls")}
-            t0 = time.perf_counter()
-            _, state, loss = step(params, state, toks,
-                                  grads_out=grads if i == 0 and job["oracle"] else None)
-            losses.append(loss.item())  # waits for the step
-            secs.append(time.perf_counter() - t0)
-        n = read_launches()
-        doc = {"rank": rank, "coords": mesh.coords, "collective": mesh.backend,
-               "device": str(dev), "losses": losses, "step_s": secs, "init_s": init_s,
-               "param_bytes": param_bytes, "leaves": leaf_names(params),
-               **{k: {c: v - first[k][c] for c, v in getattr(mesh, k).items()}
-                  for k in ("host_s", "calls")},
-               "launches": [n["dense_attention_fwd"], n["dense_attention_bwd"]],
-               "chunk_launches": [n["dense_attention_fwd_sp"], n["dense_attention_bwd_sp"]],
-               "ring_launches": [n[row] for row in RING_ROWS],
-               "moe_launches": {row: n[row] for row in (*MOE_KERNELS, ROOM_ROW)},
-               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else 0.0,
-               "n_layers": base.n_layers}
-        if job["oracle"]:
-            doc["gate"] = mesh_gate(torch, job, mesh, params, grads, losses)
-        del grads
-        if job["profile"]:
-            stage = mesh.coords["pp"]
-            ctx = None
-            if stage in (0, mesh.sizes["pp"] - 1) and mesh.coords["dp"] == 0:
-                ctx = gang_profile_start(torch, on_card)
-            for _ in range(2):
-                step(params, state, toks)
-            if ctx is not None:
-                doc["profile"] = gang_profile_stop(torch, on_card, ctx)
-        return doc
-    finally:
-        if own:
-            mesh.close()
+    init, step, toks, base = mesh_train_step(torch, job, dev, mesh)
+    t0 = time.monotonic()
+    params, state = init(SEED)
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    init_s = time.monotonic() - t0
+    param_bytes = sum(p.numel() * p.element_size() for p in optim.tree_leaves(params))
+    grads, losses, secs = [], [], []
+    # the collectives' host time and calls of steps 2 on (a one-step run's
+    # all): the first step's calls also set the communicators up
+    first = {"host_s": dict.fromkeys(mesh.host_s, 0.0), "calls": dict.fromkeys(mesh.calls, 0)}
+    for i in range(job["steps"]):
+        if i == 1:
+            first = {k: dict(getattr(mesh, k)) for k in ("host_s", "calls")}
+        t0 = time.perf_counter()
+        _, state, loss = step(params, state, toks,
+                              grads_out=grads if i == 0 and job["oracle"] else None)
+        losses.append(loss.item())  # waits for the step
+        secs.append(time.perf_counter() - t0)
+    n = read_launches()
+    doc = {"rank": rank, "coords": mesh.coords, "collective": mesh.backend,
+           "device": str(dev), "losses": losses, "step_s": secs, "init_s": init_s,
+           "param_bytes": param_bytes, "leaves": leaf_names(params),
+           **{k: {c: v - first[k][c] for c, v in getattr(mesh, k).items()}
+              for k in ("host_s", "calls")},
+           "launches": [n["dense_attention_fwd"], n["dense_attention_bwd"]],
+           "chunk_launches": [n["dense_attention_fwd_sp"], n["dense_attention_bwd_sp"]],
+           "ring_launches": [n[row] for row in RING_ROWS],
+           "moe_launches": {row: n[row] for row in (*MOE_KERNELS, ROOM_ROW)},
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else 0.0,
+           "n_layers": base.n_layers}
+    if job["oracle"]:
+        doc["gate"] = mesh_gate(torch, job, mesh, params, grads, losses)
+    del grads
+    if job["profile"]:
+        stage = mesh.coords["pp"]
+        ctx = None
+        if stage in (0, mesh.sizes["pp"] - 1) and mesh.coords["dp"] == 0:
+            ctx = gang_profile_start(torch, on_card)
+        for _ in range(2):
+            step(params, state, toks)
+        if ctx is not None:
+            doc["profile"] = gang_profile_stop(torch, on_card, ctx)
+    return doc
 
 
-def train_rank_main(args):
-    """``python3 chip_smoke.py --train-rank R --train-job PATH``: one rank
-    process of a phase-12 job (:func:`train_rank`); the job's JSON names
-    the store's port and where the rank writes its numbers."""
-    import argparse
-
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--train-rank", type=int, required=True)
-    ap.add_argument("--train-job", required=True)
-    a = ap.parse_args(args)
-    with open(a.train_job) as f:
-        job = json.load(f)
-    doc = train_rank(job, a.train_rank)
-    with open(os.path.join(job["out"], f"rank{a.train_rank}.json"), "w") as f:
-        json.dump(doc, f)
-    return 0
+def mesh_rank(job, mesh):
+    """A phase-12 rank process's body (the package launcher's target,
+    ``chip_smoke:mesh_rank``): :func:`train_rank` on the rank's mesh, its
+    kernel launches counted from 0."""
+    zero_launches()
+    return train_rank(job, mesh.rank, mesh)
 
 
 def run_train_ranks(job, workdir):
-    """Spawn the job's rank processes, one a mesh rank (rank r on card r
-    where the host has a card a rank, else all on card 0); returns each
-    rank's numbers.  A rank that fails or outlives the deadline fails the
-    run, with every rank's log tail printed."""
+    """The job's rank processes, one a mesh rank, through the package's
+    launcher (``cordum_tpu_torch.parallel.launch.run_ranks``; their logs
+    and results in ``workdir``): rank r on card r where the host has a card
+    a rank, else every rank on card 0 (named: the ranks share it over
+    gloo), CPU ranks for a CPU job.  Returns each rank's numbers.  A rank
+    that fails or outlives the deadline fails the run (the others are
+    stopped at once), with every rank's log tail printed."""
+    import torch
+
+    from cordum_tpu_torch.parallel.launch import RankError, run_ranks
+    from cordum_tpu_torch.parallel.mesh import MeshSpec
+
     world = mesh_world(job)
-    job = dict(job, port=free_port(), out=workdir)
-    path = os.path.join(workdir, "job.json")
-    with open(path, "w") as f:
-        json.dump(job, f)
-    procs, logs = [], []
+    if job["device"] == "cpu":
+        device = "cpu"
+    else:
+        device = None if torch.cuda.device_count() >= world else "cuda:0"
+    spec = MeshSpec(dp=job["dp"], tp=job["tp"], sp=job["sp"], ep=job.get("ep", 1), pp=job["pp"])
     try:
-        for rank in range(world):
-            logs.append(os.path.join(workdir, f"rank{rank}.log"))
-            with open(logs[-1], "w") as log_f:
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__), "--train-rank", str(rank),
-                     "--train-job", path], stdout=log_f, stderr=subprocess.STDOUT))
-        # until all are done; a rank that fails ends the others at once
-        # (they would wait for it until their groups' timeout)
-        deadline = time.monotonic() + 2 * MESH_TIMEOUT_S
-        while time.monotonic() < deadline:
-            codes = [p.poll() for p in procs]
-            if all(c is not None for c in codes) or any(c for c in codes):
-                break
-            time.sleep(0.2)
-    finally:
-        rcs = [stop_process(p, timeout_s=10) for p in procs]
-    if any(rcs):
-        for rank, path in enumerate(logs):
-            log(f"[mesh] rank {rank} log tail:\n" + open(path).read()[-3000:])
-        raise AssertionError(f"{mesh_label(job)}: rank processes exited {rcs}")
-    return [json.load(open(os.path.join(workdir, f"rank{r}.json"))) for r in range(world)]
+        return run_ranks("chip_smoke:mesh_rank", job, world=world, spec=spec, device=device,
+                         timeout_s=2 * MESH_TIMEOUT_S, peer_timeout_s=MESH_TIMEOUT_S,
+                         workdir=workdir)
+    except RankError as e:
+        log(f"[mesh] {e}")
+        raise AssertionError(f"{mesh_label(job)}: rank processes exited {e.codes}") from None
 
 
 def mesh_launches(job, docs):
@@ -5155,6 +5162,306 @@ def cards_moe_legs(torch, dev, card):
         f"{n['tokens_s'] / 4:.1f} a card" for label, n in numbers.items()) + f"  [{card}]")
 
 
+#: phase 15: the ranks' and the in-process runner's losses against one
+#: process on the same draws, fp32 (the same sums; tp, sp, ep and pp split
+#: them at other places)
+GRAFT_LOSS_REL = 1e-5
+#: phase 15: entry()'s forward on the kernel path against the plain path,
+#: fp32, max abs error over the plain logits' largest |value| (B9's fp32
+#: output gate 1e-5 carried through 4 layers and lm_head)
+GRAFT_ENTRY_REL = 1e-4
+#: phase 15's train jobs and the dryrun leg's (fixed batch, fp32 in the leg)
+GRAFT_TRAIN = {"op": "train", "steps": 3, "batch": 4, "seq": 32, "fixed_batch": True}
+GRAFT_FAMILIES = ("llama-tiny", "moe-tiny", "pipeline")
+#: the dryrun leg's embed job: texts, and the local mesh's tp (WORKER_TP)
+GRAFT_EMBED_TEXTS = 24
+GRAFT_EMBED_TP = 2
+#: the dryrun leg's embed against one card's embeddings of the whole batch
+#: (unit vectors, fp32): cuBLAS picks its GEMM by the row count, so a
+#: replica's 12 rows may sum in another order than one card's 24 (5.2e-08
+#: on four H100s); against one card's embeddings of the same blocks the
+#: embed must be exact
+GRAFT_EMBED_ATOL = 1e-6
+GRAFT_LAUNCH_ROWS = ("dense_attention_fwd", "dense_attention_bwd", "dense_attention_fwd_sp",
+                     "dense_attention_bwd_sp", *MOE_KERNELS, ROOM_ROW)
+
+
+def graft_launches(case, sizes, n_layers=2, microbatches=2):
+    """What one rank of a dry-run case launches in its one step: B9's
+    forward and backward once a layer (the pipeline: its stage's layers
+    once a microbatch), every one a chunk's where sp is above 1; the MoE
+    step's B7 modes once a layer, the route with a room where dp is above
+    1."""
+    want = dict.fromkeys(GRAFT_LAUNCH_ROWS, 0)
+    layers = n_layers // sizes["pp"] * microbatches if case.startswith("pipeline") else n_layers
+    want["dense_attention_fwd"] = want["dense_attention_bwd"] = layers
+    if sizes["sp"] > 1:
+        want["dense_attention_fwd_sp"] = want["dense_attention_bwd_sp"] = layers
+    if case.startswith("moe"):
+        want.update(dict.fromkeys(MOE_KERNELS, n_layers))
+        want[ROOM_ROW] = n_layers if sizes["dp"] > 1 else 0
+    return want
+
+
+def graft_embed_launches(replicas, n_layers):
+    """The embedder's kernel once a layer on each replica, one call."""
+    return replicas * n_layers
+
+
+def check_dryrun(results, n, *, collective, tag):
+    """The dry run's gates beyond its own (finite, equal on every rank):
+    each mesh is ``factor2``'s over ``n`` ranks, every rank used
+    ``collective``, and each case's launches are what its design gives
+    (:func:`graft_launches`) on every rank, summed.  Returns the launches
+    summed over the cases."""
+    from cordum_tpu_torch import graft_entry
+
+    cases = graft_entry.dryrun_cases(n)
+    if any(r["collective"] != collective for r in results["ranks"]):
+        raise AssertionError(f"[{tag}] the ranks' collectives {results['ranks']}; "
+                             f"{collective} expected")
+    total = dict.fromkeys(GRAFT_LAUNCH_ROWS, 0)
+    for case in cases:
+        got = results[case.name]
+        sizes = case.spec.resolve(n)
+        if got["mesh"] != sizes:
+            raise AssertionError(f"[{tag}] {case.name}: mesh {got['mesh']}, factor2 gives {sizes}")
+        want = {k: v * n for k, v in graft_launches(case.name, sizes).items()}
+        if {k: got["launches"][k] for k in GRAFT_LAUNCH_ROWS} != want:
+            raise AssertionError(f"[{tag}] {case.name}: launches {got['launches']}; {want} "
+                                 "expected (the ranks' sum)")
+        for k in GRAFT_LAUNCH_ROWS:
+            total[k] += want[k]
+    return total
+
+
+def check_graft_losses(results, oracle, tag, card):
+    """Each dry-run loss within :data:`GRAFT_LOSS_REL` of the one-process
+    step's on the same draws."""
+    for name, want in oracle.items():
+        got = results[name]["loss"]
+        rel = abs(got - want) / abs(want)
+        log(f"[{tag}] {name} mesh={results[name]['mesh']}: loss {got:.8f}, one process "
+            f"{want:.8f}, rel {rel:.3e} (bound {GRAFT_LOSS_REL:g})  [{card}]")
+        if not rel <= GRAFT_LOSS_REL:
+            raise AssertionError(f"[{tag}] {name}: loss {got} against one process's {want} "
+                                 f"(rel {rel:.3e})")
+
+
+def check_graft_train(got, want, mesh, tag):
+    """A ``train`` job's result against the same job on one card: the
+    reference's keys, complete, ``mesh`` as resolved, its first and last
+    losses within :data:`GRAFT_LOSS_REL`."""
+    if set(got) != TRAIN_RESULT_KEYS:
+        raise AssertionError(f"[{tag}] train result keys {sorted(got)} != the reference's")
+    if not got["completed"] or got["mesh"] != mesh:
+        raise AssertionError(f"[{tag}] {got['model']}: {got}; mesh {mesh} expected")
+    for k in ("loss_first", "final_loss"):
+        rel = abs(got[k] - want[k]) / abs(want[k])
+        if not rel <= GRAFT_LOSS_REL:
+            raise AssertionError(f"[{tag}] {got['model']} on {mesh}: {k} {got[k]} against one "
+                                 f"card's {want[k]} (rel {rel:.3e})")
+
+
+def phase_graft(torch, dev, card, ckpt_root):
+    """15. The driver's entry points on the one card.  (1) ``entry()``'s
+    forward (Llama at vocab 32000, d 512, 4 layers, bf16, tokens [4, 128]):
+    finite logits of the right shape, B9 launched once a layer; the same
+    weights in fp32 held to the plain path (:data:`GRAFT_ENTRY_REL`).  (2)
+    ``dryrun_multichip(1)``: one rank process, every axis 1, its three
+    steps' launches as the design gives, each loss equal to the
+    one-process step's on the same draws (:data:`GRAFT_LOSS_REL`).  (3) A
+    ``train`` job of each family through ``TrainRunner`` at world 1 (fixed
+    batch, 3 steps): the reference's keys, a falling loss, every axis 1.
+    Returns the launches by kernel row (bf16)."""
+    import dataclasses as dc
+
+    from cordum_tpu_torch import graft_entry, optim
+    from cordum_tpu_torch.models import llama
+    from cordum_tpu_torch.worker.training import TrainRunner
+
+    t0 = time.monotonic()
+    launches = dict.fromkeys(GRAFT_LAUNCH_ROWS, 0)
+    ones = {"dp": 1, "tp": 1, "sp": 1, "ep": 1, "pp": 1}
+    fn, (params, tokens) = graft_entry.entry(device=dev)
+    cfg = llama.LlamaConfig(**graft_entry.ENTRY_CONFIG)
+    zero_launches()
+    with torch.no_grad():
+        logits = fn(params, tokens)
+    n = read_launches()
+    if tuple(logits.shape) != (*graft_entry.ENTRY_TOKENS, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[graft] entry(): logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    want = graft_launches("entry", ones, n_layers=cfg.n_layers)["dense_attention_fwd"]
+    if n["dense_attention_fwd"] != want:
+        raise AssertionError(f"[graft] entry(): B9 launched {n['dense_attention_fwd']} times, "
+                             f"{want} expected (once a layer)")
+    launches["dense_attention_fwd"] += n["dense_attention_fwd"]
+    cfg32 = dc.replace(cfg, dtype=torch.float32)
+    params32 = optim.tree_map(lambda t: t.float(), params)
+    with torch.no_grad():
+        got = llama.forward(params32, tokens, cfg32)
+        want = llama.forward(params32, tokens, cfg32, attention=plain_attention)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    if not rel <= GRAFT_ENTRY_REL:
+        raise AssertionError(f"[graft] entry() in fp32: kernel path against the plain path "
+                             f"{rel:.3e} of the largest logit")
+    del params, params32, logits, got, want
+    log(f"[graft] entry(): logits {tuple(graft_entry.ENTRY_TOKENS)} x {cfg.vocab_size} bf16, "
+        f"finite; B9 {n['dense_attention_fwd']} launches; fp32 kernel path against the plain path "
+        f"{rel:.3e} of the largest logit (bound {GRAFT_ENTRY_REL:g})  [{card}]")
+
+    [results] = graft_entry.dryrun_multichip(1, device=None if dev.type == "cuda" else "cpu",
+                                             log=log)
+    for k, v in check_dryrun(results, 1, collective="none", tag="graft").items():
+        launches[k] += v
+    check_graft_losses(results, graft_entry.dryrun_one_process(1, device=dev), "graft", card)
+
+    runner = TrainRunner(ckpt_root=ckpt_root, device=dev, ranks=1)
+    for model in GRAFT_FAMILIES:
+        zero_launches()
+        out = runner.train({**GRAFT_TRAIN, "model": model})
+        n = read_launches()
+        if set(out) != TRAIN_RESULT_KEYS or out["mesh"] != ones or not out["completed"] \
+                or not out["final_loss"] < out["loss_first"]:
+            raise AssertionError(f"[graft] {model} through TrainRunner at world 1: {out}")
+        want = {k: v * GRAFT_TRAIN["steps"]
+                for k, v in graft_launches(model, ones, microbatches=2).items()}
+        if {k: n[k] for k in GRAFT_LAUNCH_ROWS} != want:
+            raise AssertionError(f"[graft] {model}: launches {n}; {want} expected")
+        for k in GRAFT_LAUNCH_ROWS:
+            launches[k] += n[k]
+        log(f"[graft] {model} at world 1: loss {out['loss_first']:.4f} -> "
+            f"{out['final_loss']:.4f} in {out['steps_done']} steps  [{card}]")
+    log(f"[graft] phase 15 in {time.monotonic() - t0:.1f} s; launches {launches}  [{card}]")
+    return {row: {"bfloat16": v, "float32": 0} for row, v in launches.items()}
+
+
+async def drive_graft_worker(torch, dev, card, n, ckpt_root):
+    """The dryrun leg's worker: a port worker owning ``n`` cards
+    (``chips=n``) with the embedder's local mesh at
+    :data:`GRAFT_EMBED_TP` (``WORKER_TP``) in fp32.  An ``embed`` job must
+    return exactly one card's embeddings of each replica's block (the same
+    weights, texts and padding on one card) and one card's embeddings of
+    the whole batch within :data:`GRAFT_EMBED_ATOL`, the embedder's kernel
+    launched once a layer on each of the ``n / tp`` replicas; its
+    heartbeat's ``chip_count`` is ``n``.
+    Then an fp32 ``train`` job of each family (mesh ``factor2``'s) must
+    report the resolved mesh and lose as one card does
+    (:data:`GRAFT_LOSS_REL`)."""
+    import dataclasses as dc
+
+    from cordum_tpu_torch import graft_entry
+    from cordum_tpu_torch.models.embedder import Embedder, EmbedderConfig, batch_tokenize
+    from cordum_tpu_torch.worker.training import TrainRunner
+
+    ecfg = dc.replace(EmbedderConfig(), dtype=torch.float32)
+    w, compute, sched = make_port_worker(torch, dev, "w-graft", chips=n, tp=GRAFT_EMBED_TP,
+                                         embedder_cfg=ecfg, batching=False, serving=False,
+                                         gang=False, ckpt_root=ckpt_root)
+    texts = make_texts(np.random.default_rng(SEED + 15), GRAFT_EMBED_TEXTS, 2, 40)
+    from cordum_tpu_torch.parallel.mesh import MeshSpec
+
+    (tp, sp), _ = graft_entry.factor2(n, 2)
+    (tp2, ep), _ = graft_entry.factor2(n, 2)
+    meshes = {"llama-tiny": {"tp": tp, "sp": sp}, "moe-tiny": {"tp": tp2, "ep": ep},
+              "pipeline": {}}
+    # the reference's resolution over n cards: the asked axes, dp the rest;
+    # the pipeline's pp 2 on an even n
+    resolved = {"llama-tiny": MeshSpec(dp=-1, tp=tp, sp=sp).resolve(n),
+                "moe-tiny": MeshSpec(dp=-1, tp=tp2, ep=ep).resolve(n),
+                "pipeline": MeshSpec(dp=-1, pp=2 if n % 2 == 0 else 1).resolve(n)}
+    payloads = [{**GRAFT_TRAIN, "model": m, "dtype": "float32", "mesh": meshes[m]}
+                for m in GRAFT_FAMILIES]
+    one = Embedder(ecfg, seed=SEED, device=dev)
+    whole = one.embed(texts)
+    dp = n // compute.tp
+    # one card's embeddings of each replica's block: the rows padded to a
+    # multiple of n, cut into dp blocks (the worker's split, done here)
+    ids, mask = batch_tokenize(texts, ecfg)
+    pad = -len(texts) % n
+    ids, mask = np.pad(ids, ((0, pad), (0, 0))), np.pad(mask, ((0, pad), (0, 0)))
+    rows = len(ids) // dp
+    blocks = np.concatenate([one.embed_tokens(ids[i * rows:(i + 1) * rows],
+                                              mask[i * rows:(i + 1) * rows])
+                             for i in range(dp)])[:len(texts)]
+    await sched.start()
+    await w.start()
+    try:
+        zero_launches()
+        [(_, doc)] = await sched.run([{"op": "embed", "texts": texts}], "graft-embed")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        embed_launches = read_launches()["embed_attention"]
+        got = np.asarray(doc["embeddings"], np.float32)
+        err = float(np.abs(got - whole).max())
+        if compute.tp != GRAFT_EMBED_TP or not np.array_equal(got, blocks) \
+                or not err <= GRAFT_EMBED_ATOL:
+            raise AssertionError(
+                f"[graft-cards] embed at tp {compute.tp} over {n} cards: against one card's "
+                f"embeddings of the same blocks max error "
+                f"{float(np.abs(got - blocks).max()):.3e} (exact expected), against one card's "
+                f"of the whole batch {err:.3e} (bound {GRAFT_EMBED_ATOL:g})")
+        want = graft_embed_launches(dp, ecfg.n_layers)
+        if embed_launches != want:
+            raise AssertionError(f"[graft-cards] embed: B5 launched {embed_launches} times, "
+                                 f"{want} expected ({dp} replicas x {ecfg.n_layers} layers)")
+        await w.send_heartbeat()
+        hb = sched.heartbeats[-1]
+        if hb.chip_count != n:
+            raise AssertionError(f"[graft-cards] heartbeat chip_count {hb.chip_count}, "
+                                 f"{n} expected")
+        log(f"[graft-cards] embed of {len(texts)} texts at WORKER_TP {compute.tp} over {n} "
+            f"cards (dp {dp}), fp32: equal to one card's embeddings of the same {rows}-row "
+            f"blocks; against one card's {len(texts)}-row batch max error {err:.3e} (bound "
+            f"{GRAFT_EMBED_ATOL:g}); B5 {embed_launches} launches; heartbeat chip_count "
+            f"{hb.chip_count}  [{card}]")
+        trained = [doc_ for _, doc_ in await sched.run(payloads, "graft-train")]
+    finally:
+        await w.stop()
+    runner = TrainRunner(ckpt_root=os.path.join(ckpt_root, "one"), device=dev, ranks=1)
+    for payload, out in zip(payloads, trained):
+        check_graft_train(out, runner.train(payload), resolved[payload["model"]], "graft-cards")
+        log(f"[graft-cards] {payload['model']} on a worker of {n} cards, mesh "
+            f"{ {k: v for k, v in out['mesh'].items() if v > 1} }: loss {out['loss_first']:.6f} "
+            f"-> {out['final_loss']:.6f}, equal to one card's within {GRAFT_LOSS_REL:g}, "
+            f"{out['seconds']:.2f} s  [{card}]")
+    return embed_launches
+
+
+def cards_dryrun_leg(torch, dev, card, n=4):
+    """``--cards --legs dryrun``: the multi-rank dry run and a worker that
+    owns the host's cards.  First :func:`drive_graft_worker`; then
+    ``dryrun_multichip(n)`` over NCCL, one rank a card (``factor2``: at n 4
+    dense tp 2 x sp 2, MoE tp 2 x ep 2, pipeline dp 2 x pp 2), the steps
+    in bf16 and then in fp32 on the same meshes in one launch: each loss
+    finite and equal on every rank, every launch as the design gives; each
+    fp32 loss held to the one-process step on card 0
+    (:data:`GRAFT_LOSS_REL`).  Returns the launches (the ranks' sums,
+    bf16 and fp32, and the embed's)."""
+    import tempfile
+
+    from cordum_tpu_torch import graft_entry
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="cordum-graft-") as ckpt_root:
+        embed = asyncio.run(drive_graft_worker(torch, dev, card, n, ckpt_root))
+    # one rank a card, NCCL; the CPU rehearsal's gloo CPU ranks
+    device, collective = (None, "nccl") if dev.type == "cuda" else ("cpu", "gloo")
+    results, fp32 = graft_entry.dryrun_multichip(n, device=device,
+                                                 dtypes=(None, torch.float32), log=log)
+    launches = check_dryrun(results, n, collective=collective, tag="graft-cards")
+    for k, v in check_dryrun(fp32, n, collective=collective, tag="graft-cards").items():
+        launches[k] += v
+    check_graft_losses(fp32, graft_entry.dryrun_one_process(n, device=dev, dtype=torch.float32),
+                       "graft-cards", card)
+    launches["embed_attention"] = embed
+    log(f"[graft-cards] dryrun leg in {time.monotonic() - t0:.1f} s; launches of the dry runs "
+        f"and the embed {launches}  [{card}]")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -5185,10 +5492,10 @@ def build_kernels():
 def main() -> int:
     if "--gang-rank" in sys.argv:
         return gang_rank_main(sys.argv[1:])
-    if "--train-rank" in sys.argv:
-        return train_rank_main(sys.argv[1:])
     if "--cards" in sys.argv:
         return main_cards()
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -5254,6 +5561,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernel.update(phase_moe_room_kernel(torch, dev, smi))
     moe_mesh = phase_moe_mesh(torch, dev, smi, moe_first_loss)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="cordum-graft-") as ckpt_root:
+        graft = phase_graft(torch, dev, smi, ckpt_root)
 
     # phase 8's worker process serves an fp32 Llama and the bf16 embedder
     launches = {
@@ -5294,6 +5605,11 @@ def main() -> int:
     for name in ("dense_attention_fwd", "dense_attention_bwd", *MOE_KERNELS):
         for dtype in ("float32", "bfloat16"):
             launches[name][dtype] += moe_mesh[name][dtype]
+    # phase 15: entry()'s forward, the dry run's rank and the train jobs at
+    # world 1 (bf16; the route with a room launches only where dp is above 1)
+    for name in GRAFT_LAUNCH_ROWS:
+        if name != ROOM_ROW:
+            launches[name]["bfloat16"] += graft[name]["bfloat16"]
     line = {"kernels": [
         {"name": f"{name}_{dtype}", "route": "cuda", "source": sources[name],
          "replaces": KERNELS[name][1], "launches": launches[name][dtype],

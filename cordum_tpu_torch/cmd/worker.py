@@ -1,6 +1,6 @@
 """GPU worker binary: ``python -m cordum_tpu_torch.cmd.worker``, the port's
-counterpart of ``python -m cordum_tpu.cmd.worker``: a worker that owns one
-CUDA card and takes jobs from the control plane over the statebus
+counterpart of ``python -m cordum_tpu.cmd.worker``: a worker that owns the
+CUDA cards it sees and takes jobs from the control plane over the statebus
 (``CORDUM_STATEBUS_URL``: its KV holds the job payloads and results, its
 bus carries dispatches, results, heartbeats and telemetry).
 
@@ -9,7 +9,13 @@ It serves what the reference binary serves: ``LlamaConfig.tiny()`` for
 overrides its dtype) and the default ``EmbedderConfig()`` for ``embed``,
 with weights drawn from a seeded generator on the card.  It runs on the
 current CUDA card and raises without one; ``CORDUM_FORCE_CPU=1`` runs it on
-the CPU instead (the tests do).
+the CPU instead (the tests do).  It owns every card the process sees
+(``CUDA_VISIBLE_DEVICES`` limits them): ``infer``, ``matmul`` and serving
+run on the first, ``train`` jobs over all of them (one rank process a
+card), and the embedder over WORKER_TP, the width of the reference's local
+``simple_mesh(tp)``: the batch splits over ``cards / tp`` replicas of its
+weights, one a card (a tp that does not divide the cards is 1).  The
+heartbeat's ``chip_count`` is the number of cards.
 
 Env, as the reference reads it: WORKER_ID, WORKER_POOL, WORKER_TOPICS
 (comma), WORKER_CAPABILITIES, WORKER_MAX_PARALLEL, WORKER_HEARTBEAT_INTERVAL,
@@ -42,11 +48,6 @@ to when they live on other hosts.  The store listens on every interface.
 NCCL and gloo pick their own interface for the group's traffic, from
 NCCL_SOCKET_IFNAME and GLOO_SOCKET_IFNAME, which torch reads itself; this
 worker sets neither.
-
-Not ported: WORKER_TP > 1, the width of the local device mesh the
-reference's ``TPUCompute`` shards one worker's own ops over (several chips
-in one worker process); asking for it exits with an error that says so and
-names ROADMAP A13.
 """
 from __future__ import annotations
 
@@ -67,16 +68,6 @@ from ..obs.telemetry import TelemetryExporter
 from ..worker.handlers import attach_default_gpu_worker
 from ..worker.runtime import Worker
 from . import _boot
-
-
-def _refuse_unported(env) -> None:
-    tp = _boot.env_int("WORKER_TP", 1)
-    if tp > 1:
-        raise SystemExit(
-            f"cordum_tpu_torch worker: WORKER_TP={tp}: a local device mesh for this worker's "
-            "own ops (the reference's TPUCompute over several chips in one process) is not "
-            "ported; this worker's compute runs on one card (ROADMAP A13). Tensor-parallel "
-            "serving runs as a gang of workers instead (WORKER_GANG, on by default)")
 
 
 def _gang_options(env) -> dict:
@@ -120,7 +111,6 @@ def _llama_cfg(env) -> llama.LlamaConfig:
 
 async def main() -> None:
     env = os.environ
-    _refuse_unported(env)
     cfg = _boot.setup()
     device = resolve_device(_device())  # raises here, before any connection, without a card
     kv, bus, conn = await _boot.connect_statebus(cfg)
@@ -147,6 +137,7 @@ async def main() -> None:
         worker,
         metrics=metrics,
         llama_cfg=_llama_cfg(env),
+        tp=_boot.env_int("WORKER_TP", 1),
         batching=env.get("WORKER_BATCHING", "1") != "0",
         max_batch_rows=_boot.env_int("WORKER_MAX_BATCH_SIZE", 0)
         or (pool.max_batch_size if pool else 0) or 32,
@@ -198,6 +189,7 @@ async def main() -> None:
     await telemetry.start()
     await profiler.start()
     logx.info("worker ready", worker_id=worker.worker_id, device=str(worker.device),
+              chips=worker.chips, tp=compute.tp,
               llama_dtype=str(compute.llama_cfg.dtype).split(".")[-1])
     stop = asyncio.Event()
     drain_timeout = _boot.env_float("WORKER_DRAIN_TIMEOUT", 30.0)

@@ -25,3 +25,27 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def local_world(device: torch.device, count: Optional[int] = None) -> int:
+    """How many cards an owner on ``device`` (a worker, a training runner)
+    computes over: ``count`` when given (on a card at most the cards the
+    process sees; on the CPU, that many CPU "cards"), else every card the
+    process sees on a card and one on the CPU (the reference's
+    ``len(jax.devices())``).  ``ValueError`` for a count below 1 or above
+    the host's cards."""
+    if count is None:
+        return torch.cuda.device_count() if device.type == "cuda" else 1
+    if count < 1:
+        raise ValueError(f"a local world needs at least one card, got {count}")
+    if device.type == "cuda" and count > torch.cuda.device_count():
+        raise ValueError(f"{count} cards asked, this host has {torch.cuda.device_count()}")
+    return count
+
+
+def local_devices(device: torch.device, count: int) -> list[torch.device]:
+    """The ``count`` devices of a local world on ``device``'s kind: cards
+    0 .. count-1, or the CPU ``count`` times."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(count)]
+    return [device] * count

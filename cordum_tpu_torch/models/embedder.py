@@ -28,6 +28,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops.embed_attention import embed_attention
+from ..optim import tree_map
 from .llama import _tensor_from_numpy
 
 Params = dict
@@ -176,14 +177,24 @@ def forward(
 
 
 class Embedder:
-    """Params plus the forward, on one device.  ``params`` (e.g. from
+    """Params plus the forward.  ``params`` (e.g. from
     :func:`params_from_jax`) are used as given; otherwise they are drawn
-    from a torch generator seeded with ``seed``.  ``device=None`` is the
-    current CUDA card and raises without one."""
+    from a torch generator seeded with ``seed`` on ``device``
+    (``device=None`` is the current CUDA card and raises without one).
+
+    ``devices`` (a worker's local cards) with ``tp``: the reference's
+    ``simple_mesh(tp)`` over them, the params replicated and the batch
+    split over its dp axis (``n / tp`` blocks, ``cordum_tpu/models/
+    embedder.py:140-170``): one replica of the params on each of the first
+    ``n / tp`` devices, the batch padded to a multiple of ``n`` as the
+    reference pads it to the mesh, and each block's forward on its own
+    device, all launched before any is read back.  One process, no
+    collective; every row's embedding is computed as on one device."""
 
     def __init__(
         self, cfg: Optional[EmbedderConfig] = None, *, seed: int = 0,
         device: DeviceLike = None, params: Optional[Params] = None,
+        devices: Optional[Sequence[DeviceLike]] = None, tp: int = 1,
     ):
         self.cfg = cfg or EmbedderConfig()
         self.device = resolve_device(device)
@@ -191,6 +202,12 @@ class Embedder:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(self.cfg, generator=gen, device=self.device)
         self.params = params
+        devs = [self.device] if devices is None else [torch.device(d) for d in devices]
+        if tp < 1 or len(devs) % tp:
+            raise ValueError(f"{len(devs)} devices do not split over tp={tp}")
+        self.mesh_size = len(devs)
+        self.replicas = [(d, tree_map(lambda t, d=d: t.to(d), params))
+                         for d in devs[:len(devs) // tp]]
 
     def embed(self, texts: Sequence[str]) -> np.ndarray:
         ids, mask = batch_tokenize(texts, self.cfg)
@@ -199,11 +216,16 @@ class Embedder:
     def embed_tokens(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """Forward pre-tokenized (already padded/bucketed) rows — the
         micro-batcher's entry point; ``embed`` is tokenizer + this."""
+        b = ids.shape[0]
+        pad = -b % self.mesh_size
+        ids = np.pad(ids, ((0, pad), (0, 0)))
+        mask = np.pad(np.asarray(mask, np.float32), ((0, pad), (0, 0)))
+        rows = (b + pad) // len(self.replicas)
         with torch.no_grad():
-            out = forward(
-                self.params,
-                torch.from_numpy(np.ascontiguousarray(ids)).to(self.device),
-                torch.from_numpy(np.ascontiguousarray(mask, np.float32)).to(self.device),
+            outs = [forward(
+                params,
+                torch.from_numpy(np.ascontiguousarray(ids[i * rows:(i + 1) * rows])).to(dev),
+                torch.from_numpy(np.ascontiguousarray(mask[i * rows:(i + 1) * rows])).to(dev),
                 self.cfg,
-            )
-        return out.cpu().numpy()
+            ) for i, (dev, params) in enumerate(self.replicas)]
+            return torch.cat([o.cpu() for o in outs]).numpy()[:b]

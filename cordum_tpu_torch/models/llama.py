@@ -45,7 +45,7 @@ from ..ops.dense_attention import dense_attention, gqa_attention
 from ..ops.paged_attention import AttentionPlan, paged_attention
 from ..ops.ring_attention import ring_attention
 from ..parallel.collectives import copy_to_tp, gather_seq, reduce_from_tp
-from ..parallel.mesh import AXIS_DP, AXIS_SP, TrainMesh
+from ..parallel.mesh import AXIS_DP, AXIS_SP, AXIS_TP, TrainMesh
 
 Params = dict
 
@@ -211,6 +211,27 @@ def shard_params(params: Params, cfg: LlamaConfig, rank: int, tp: int) -> Params
         ],
         "final_norm": params["final_norm"],
         "lm_head": params["lm_head"],
+    }
+
+
+def gather_params(params: Params, cfg: LlamaConfig, mesh: Optional[TrainMesh]) -> Params:
+    """The inverse of :func:`shard_params` over a mesh rank's tp line: each
+    sliced layer leaf joined from the line's slices along its
+    :func:`param_specs` axis (``TrainMesh.all_gather``), in the order of
+    the ranks' tp coordinates; the whole leaves as they are.  Every rank of
+    the line gets the whole tree, and every rank of the mesh must call it
+    (a collective).  Works on any tree of the params' structure (the AdamW
+    moments too); pass detached tensors.  No mesh, or tp 1: ``params``."""
+    if mesh is None or mesh.tp == 1:
+        return params
+    specs = param_specs(cfg)["layers"][0]
+    return {
+        **params,
+        "layers": [
+            {k: (v if specs.get(k) is None else mesh.all_gather(v, AXIS_TP, specs[k]))
+             for k, v in layer.items()}
+            for layer in params["layers"]
+        ],
     }
 
 

@@ -154,6 +154,30 @@ def shard_params(params: Params, cfg: MoEConfig, shard: Shard) -> Params:
     return base
 
 
+def gather_params(params: Params, cfg: MoEConfig, mesh: Optional[TrainMesh]) -> Params:
+    """The inverse of :func:`shard_params` over a mesh rank's lines: the
+    base leaves by :func:`.llama.gather_params` (tp), then each MoE leaf
+    joined dim by dim over the axis :func:`moe_layer_specs` gives it (ep,
+    then tp), from the slices of the ranks that differ from this one on
+    that axis.  Every rank of the mesh must call it (a collective) and gets
+    the whole tree; any tree of the params' structure (the AdamW moments
+    too), detached.  No mesh, or tp and ep 1: ``params``."""
+    if mesh is None or mesh.tp == mesh.ep == 1:
+        return params
+    whole = llama.gather_params({**params, "layers": [
+        {k: v for k, v in layer.items() if k != "moe"} for layer in params["layers"]]},
+        cfg.base, mesh)
+    specs = moe_layer_specs()
+    for layer, sliced in zip(whole["layers"], params["layers"]):
+        layer["moe"] = {}
+        for k, w in sliced["moe"].items():
+            for dim, axis in enumerate(specs[k]):
+                if axis is not None and mesh.sizes[axis] > 1:
+                    w = mesh.all_gather(w, axis, dim)
+            layer["moe"][k] = w
+    return whole
+
+
 def init_moe_layer(cfg: MoEConfig, *, generator: torch.Generator,
                    device: DeviceLike = None, shard: Optional[Shard] = None) -> dict:
     """One layer's router and experts, the shapes and scale of the JAX

@@ -48,7 +48,7 @@ import torch
 
 from .. import optim
 from ..device import DeviceLike, resolve_device
-from ..parallel.mesh import TrainMesh
+from ..parallel.mesh import AXIS_PP, TrainMesh
 from . import llama
 from .llama import LlamaConfig, Params, rms_norm
 
@@ -167,6 +167,40 @@ def gather_params(slices: list[Params]) -> Params:
         "final_norm": slices[-1]["final_norm"],
         "lm_head": slices[-1]["lm_head"],
     }
+
+
+def restack(params: Params, n_stages: int) -> Params:
+    """The same tree with every stage leaf ``[S, L/S, ...]`` reshaped to
+    ``[n_stages, L/n_stages, ...]``: the layers stay in order, so a tree
+    of one stage count is the tree of another (``n_stages=1``: the
+    one-card layout checkpoints keep)."""
+    return {**params, "stages": {k: v.reshape(n_stages, -1, *v.shape[2:])
+                                 for k, v in params["stages"].items()}}
+
+
+def gather_stages(params: Params, cfg: PipelineConfig,
+                  mesh: Optional[TrainMesh]) -> Optional[Params]:
+    """The inverse of :func:`stage_slice` over a mesh rank's pp line: the
+    whole stacked tree on the line's first stage (``None`` on its other
+    ranks) — every stage leaf gathered over pp along its stage axis, and
+    ``final_norm`` and ``lm_head`` sent from the last stage.  Every rank of
+    the mesh must call it (collectives); any tree of the params' structure
+    (the AdamW moments too), detached.  No mesh, or pp 1: ``params``."""
+    if mesh is None or mesh.pp == 1:
+        return params
+    stages = {k: mesh.all_gather(v, AXIS_PP, 0) for k, v in params["stages"].items()}
+    last = mesh.pp - 1
+    if mesh.pp_rank == last:
+        for tag, name in enumerate(("final_norm", "lm_head")):
+            mesh.send(params[name], 0, tag)
+        return None
+    if mesh.pp_rank != 0:
+        return None
+    d, v, dtype = cfg.base.d_model, cfg.base.vocab_size, cfg.base.dtype
+    final_norm, lm_head = (mesh.recv(shape, dtype, last, tag)
+                           for tag, shape in enumerate(((d,), (d, v))))
+    return {"embed": params["embed"], "stages": stages, "final_norm": final_norm,
+            "lm_head": lm_head}
 
 
 def params_from_jax(tree: Params, *, device: DeviceLike = None,

@@ -28,9 +28,9 @@ list).  The member then:
      ``seq`` order against their slices until the final marker.  The group
      is torn down on every exit: done, abort or cancel.
    * **SPMD train** (``op: "train"``, unless MPMD below): every member runs
-     the port's :class:`~.training.TrainRunner` on its own card (dense,
-     MoE or the one-device pipeline), as the reference's members each run
-     a replica on one device.
+     the port's :class:`~.training.TrainRunner` on its own cards (dense,
+     MoE or the pipeline, over the member's local mesh), as the
+     reference's members each run one over their local devices.
    * **MPMD pipeline** (``op: "train"`` with ``mesh.pp`` equal to the gang's
      size, size > 1): rank ``r`` owns stage ``r`` of a pipeline model
      (rank 0 also embeds, the last rank owns the head and the loss).

@@ -1,4 +1,4 @@
-"""Built-in job handlers for a worker that owns one CUDA card: the PyTorch
+"""Built-in job handlers for a worker that owns CUDA cards: the PyTorch
 counterpart of ``cordum_tpu/worker/handlers.py``.
 
 Job payloads arrive via context pointers as JSON: ``{"op": ..., ...}``.
@@ -35,7 +35,7 @@ import torch
 
 from ..batching.buckets import bucket_for, pow2_buckets
 from ..batching.engine import BatchParts, MicroBatcher
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, local_devices, local_world, resolve_device
 from ..models import llama as llama_mod
 from ..models.embedder import Embedder, EmbedderConfig, batch_tokenize, token_count
 from ..serving.backend import LlamaServingBackend
@@ -72,15 +72,26 @@ def matmul_chain(x: torch.Tensor, y: torch.Tensor, y_back: torch.Tensor,
 
 
 class GPUCompute:
-    """The device state shared by the op handlers of a worker that owns one
-    CUDA card: the counterpart of ``TPUCompute``.
+    """The device state shared by the op handlers of a worker: the
+    counterpart of ``TPUCompute``.
 
     Holds the embedder and one copy of the Llama params (shared with the
     serving engine through :meth:`llama_params`).  Either set of params may
     be injected (``llama_params=``, ``embedder_params=``, e.g. from
     ``params_from_jax``); otherwise each is drawn from a torch generator
     seeded with ``seed`` on first use.  ``device=None`` is the current CUDA
-    card and raises without one."""
+    card and raises without one.
+
+    The worker's local mesh: ``chips`` cards (default: every card the
+    process sees; on the CPU, ``chips`` CPU "cards", one by default,
+    :func:`~..device.local_world`) with ``tp`` the width of the
+    reference's ``simple_mesh(tp)`` over them (``WORKER_TP``; a tp that
+    does not divide the cards is 1, as the reference's).  As in the
+    reference only the embedder uses it: the batch splits over ``dp =
+    chips / tp`` replicas of its params, one a card.  ``infer``,
+    ``matmul`` and serving run on ``device``, the first card, where the
+    reference runs them unsharded; ``train`` jobs run over all ``chips``
+    (:class:`.training.TrainRunner`)."""
 
     def __init__(
         self,
@@ -92,11 +103,17 @@ class GPUCompute:
         llama_params: Optional[llama_mod.Params] = None,
         embedder_params: Optional[dict] = None,
         ckpt_root: Optional[str] = None,
+        tp: int = 1,
+        chips: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         self.ckpt_root = ckpt_root
+        self.chips = local_world(self.device, chips)
+        width = min(max(1, tp), self.chips)
+        self.tp = width if self.chips % width == 0 else 1
         self.embedder = Embedder(embedder_cfg, seed=seed, device=self.device,
-                                 params=embedder_params)
+                                 params=embedder_params,
+                                 devices=local_devices(self.device, self.chips), tp=self.tp)
         self.llama_cfg = llama_cfg or llama_mod.LlamaConfig.tiny()
         self._llama_params = llama_params
         self._llama_lock = threading.Lock()
@@ -109,6 +126,10 @@ class GPUCompute:
         seen = shape in self._batch_shapes
         self._batch_shapes.add(shape)
         return seen
+
+    def trainer(self) -> TrainRunner:
+        """A runner of ``train`` jobs over this worker's cards."""
+        return TrainRunner(ckpt_root=self.ckpt_root, device=self.device, ranks=self.chips)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -288,10 +309,10 @@ def make_gpu_handlers(compute: GPUCompute):
             def report(frac: float, msg: str) -> None:
                 asyncio.run_coroutine_threadsafe(ctx.progress(100 * frac, msg), loop)
 
-            runner = TrainRunner(ckpt_root=compute.ckpt_root, device=compute.device)
             return await ctx.worker.run_in_executor(
                 functools.partial(
-                    runner.train, payload, cancelled=ctx.cancelled.is_set, progress=report,
+                    compute.trainer().train, payload, cancelled=ctx.cancelled.is_set,
+                    progress=report,
                 )
             )
         raise HandlerError(f"unknown op {op!r}")
@@ -518,7 +539,7 @@ def attach_default_gpu_worker(
     gang's rendezvous store when set) onto a worker, on the worker's
     device.  ``kw`` goes to :class:`GPUCompute` (configs, ``seed``, injected
     params)."""
-    compute = GPUCompute(device=worker.device, **kw)
+    compute = GPUCompute(device=worker.device, chips=worker.chips, **kw)
     worker.register_default(make_gpu_handlers(compute))
     if batching:
         worker.attach_batcher(make_micro_batcher(
@@ -546,7 +567,7 @@ def attach_default_gpu_worker(
 
         worker.attach_gang(GangRunner(
             worker,
-            trainer=TrainRunner(ckpt_root=compute.ckpt_root, device=compute.device),
+            trainer=compute.trainer(),
             rendezvous_timeout_s=gang_rendezvous_timeout_s,
             peer_timeout_s=gang_peer_timeout_s,
             store_host=gang_addr,

@@ -1,4 +1,4 @@
-"""Worker runtime: the in-tree worker that executes jobs on one CUDA card
+"""Worker runtime: the in-tree worker that executes jobs on its CUDA cards
 (the PyTorch counterpart of ``cordum_tpu/worker/runtime.py``).
 
 Recreates the reference worker runtime contract (``sdk/runtime/worker.go``):
@@ -8,9 +8,11 @@ queue-subscribe pool subjects + the direct ``worker.<id>.jobs`` subject,
 inferred from handler outcome, ``progress()`` helper.
 
 Device-worker deltas:
-  * the worker owns its card: handlers run PyTorch computations in a
-    thread-pool executor so the asyncio loop keeps heartbeating while the
-    device works; every executor call pins the worker's device
+  * the worker owns its cards (``chips``, every card the process sees by
+    default; the heartbeat's ``chip_count``): handlers run PyTorch
+    computations in a thread-pool executor so the asyncio loop keeps
+    heartbeating while the device works; every executor call pins the
+    worker's device, its first card
   * heartbeats carry device telemetry (device kind, chip count, HBM use,
     duty-cycle estimate, a one-op liveness probe) read from ``torch.cuda``
     for the worker's own ``device``; there is no silent CPU fallback
@@ -35,7 +37,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..batching.engine import BatchCancelled, BatchParts, MicroBatcher
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, local_world, resolve_device
 from ..infra import logging as logx
 from ..infra.bus import Bus
 from ..infra.memstore import MemoryStore
@@ -148,10 +150,14 @@ class Worker:
         region: str = "",
         serving_role: str = SERVING_ROLE_MIXED,
         device: DeviceLike = None,
+        chips: Optional[int] = None,
     ):
-        # the card this worker owns; None is the current CUDA card and
+        # the worker's first card; None is the current CUDA card and
         # raises without one (device="cpu" runs on the CPU by request)
         self.device = resolve_device(device)
+        # the cards it owns: every card the process sees unless told
+        # (on the CPU, that many CPU "cards"; one by default)
+        self.chips = local_world(self.device, chips)
         self.bus = bus
         self.store = store
         self.worker_id = worker_id
@@ -217,7 +223,7 @@ class Worker:
         self._draining = False
         self._drained = asyncio.Event()
         self._drain_task: Optional[asyncio.Task] = None
-        self._telemetry = _device_telemetry(self.device)
+        self._telemetry = _device_telemetry(self.device, self.chips)
         # capacity observatory (ISSUE 10): online per-(op, bucket) device
         # profiles published in the telemetry beacon's `capacity` block
         self.capacity = CapacityProfiler(self._telemetry["device_kind"] or "cpu")
@@ -1339,17 +1345,18 @@ def _host_cpu_load() -> float:
         return 0.0
 
 
-def _device_telemetry(device: torch.device) -> dict:
-    """Telemetry probes for the worker's own device, read from
-    ``torch.cuda``: the card's name, one chip, HBM from ``mem_get_info`` and
-    a one-op liveness check.  ``device`` is resolved already (a worker
-    without a card and without ``device="cpu"`` never gets here); a CPU
-    worker reports the CPU, never a card."""
+def _device_telemetry(device: torch.device, chips: int) -> dict:
+    """Telemetry probes for the worker's own devices, read from
+    ``torch.cuda``: the first card's name, the ``chips`` cards the worker
+    owns, HBM from ``mem_get_info`` and a one-op liveness check.
+    ``device`` is resolved already (a worker without a card and without
+    ``device="cpu"`` never gets here); a CPU worker reports the CPU, never
+    a card."""
     if device.type != "cuda":
         return {
             "type": "cpu",
             "device_kind": "cpu",
-            "chip_count": 1,
+            "chip_count": chips,
             "topology": "",
             "hbm": lambda: (0.0, 0.0),
             "healthy": lambda: _device_alive(device),
@@ -1357,7 +1364,7 @@ def _device_telemetry(device: torch.device) -> dict:
     return {
         "type": "gpu",
         "device_kind": torch.cuda.get_device_name(device),
-        "chip_count": 1,
+        "chip_count": chips,
         "topology": "",
         "hbm": lambda: _hbm_gb(device),
         "healthy": lambda: _device_alive(device),

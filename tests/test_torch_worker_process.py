@@ -12,8 +12,9 @@ cordum_tpu_torch.cmd.worker``), on the CPU (``CORDUM_FORCE_CPU=1``,
 * SIGTERM drains the worker process: exit 0, no cancelled session, while a
   generation is in flight.
 * The binary refuses what it cannot do: no card without
-  ``CORDUM_FORCE_CPU=1``, ``WORKER_TP`` > 1 (ROADMAP A13); ``WORKER_GANG=1``
-  is accepted (gang members run on ``worker/gang.py``).
+  ``CORDUM_FORCE_CPU=1``; ``WORKER_TP`` > 1 is accepted (the embedder's
+  local mesh) and so is ``WORKER_GANG=1`` (gang members run on
+  ``worker/gang.py``).
 
 Each test that spawns a process bounds it (a deadline under 120 s) and
 kills it on the way out.
@@ -216,9 +217,10 @@ async def test_sigterm_drains_the_worker_process_mid_generation():
 
 @pytest.mark.parametrize("extra, message", [
     ({"CORDUM_FORCE_CPU": ""}, "no CUDA device"),
-    ({"WORKER_TP": "2"}, "ROADMAP A13"),
-    # gang members are served now: WORKER_GANG=1 passes the boot checks and
-    # the worker stops only at the unreachable statebus
+    # a local mesh and gang members are served now: WORKER_TP=2 and
+    # WORKER_GANG=1 pass the boot checks and the worker stops only at the
+    # unreachable statebus
+    ({"WORKER_TP": "2"}, "Connect call failed"),
     ({"WORKER_GANG": "1"}, "Connect call failed"),
 ], ids=["no-card", "tp", "gang"])
 def test_worker_process_refuses_what_it_cannot_do(extra, message):
