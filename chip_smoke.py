@@ -265,6 +265,44 @@ Every phase raises on failure.  Phases:
     (dense tp 2 x sp 2, MoE tp 2 x ep 2, pipeline dp 2 x pp 2), in bf16
     and in fp32 in one launch, the losses finite and equal on every rank,
     each fp32 loss held to the one-process step on card 0.
+16. The scheduler service, run right after phase 6 on phase 6's bf16
+    worker (Llama-3-8B, the default bf16 embedder; the same weights), and
+    after phase 8 as processes.  The port's ``Engine`` is built as
+    ``python -m cordum_tpu_torch.cmd.scheduler`` builds it by default: the
+    embedded ``SafetyKernel`` on ``config/safety.yaml``,
+    ``ThroughputAwareStrategy`` with its capacity view, serving placer and
+    decode rebalancer, and the native C scan (built with ``cc`` into
+    ``build/``; a failed build fails the phase).  Jobs are submitted on
+    ``sys.job.submit`` as the gateway submits them (context in the KV, a
+    PENDING record, the request).  The pools document is phase 16's own
+    (``SCHED_POOLS``: ``job.gpu.>`` to pool ``gpu``, which requires
+    ``gpu`` and one card).  (1) Phase 6's ``echo``, ``infer``, one-text
+    ``embed`` and ``llm.generate`` jobs, one at a time, straight to the
+    worker and then through the scheduler: each reaches SUCCEEDED in the
+    job store with a result pointer, dispatched to the card's worker; the
+    scheduled tokens, next tokens and embeddings equal the direct ones bit
+    for bit (one job at a time on one worker: the same shapes, the same
+    kernels), the embeddings equal phase 6's own too, and B1, B5 and B9
+    launch as often as on the direct path.  (2) The policy gate: a
+    ``require_approval`` rule for ``llm.generate`` jobs that require
+    ``gpu`` parks one in APPROVAL_REQUIRED; the same request republished
+    with the approval label completes with 16.1's tokens; a request
+    edited after the decision and republished with the label stays parked
+    (the hash check) and is never dispatched; a ``deny`` rule sends its
+    job to DENIED and the DLQ with code ``SAFETY_DENY``.  (3) 1000
+    synthetic workers (two pools, 1-8 cards, three topologies, varied load,
+    capabilities and health) beside the card's worker, answered by a
+    responder on their direct subjects; 20,000 ``echo`` jobs in bursts of
+    256 a tick: each is dispatched once and ends SUCCEEDED once; then
+    10,000 picks of the C scan equal the Python scan's on the same
+    registry.  Prints scheduled jobs/s (submit to DISPATCHED), submit to
+    result p50 and p99 and the C scan's share of the picks.  (4) The
+    port's statebus, scheduler and worker (phase 8's fp32
+    ``LlamaConfig.tiny()``) as processes over TCP: ``echo``, ``infer``,
+    ``embed`` and ``llm.generate`` complete with phase 8's results
+    (tokens under the near-tie rule, next tokens and one-text embeddings
+    equal); SIGTERM stops the scheduler with exit 0; every process is
+    stopped on every path.
 
 Tolerances (kernel vs plain version, max abs error), paged attention:
 fp32 1e-4 — the sums run in another order over up to 8192 keys, on O(1)
@@ -1079,11 +1117,13 @@ class JobDispatcher:
         return statistics.median((self.done[j] - self.sent[j]) * 1e3 for j in jids)
 
 
-def make_port_worker(torch, dev, worker_id, chips=1, **compute_kw):
+def make_port_worker(torch, dev, worker_id, chips=1, topics=(), **compute_kw):
     """A port ``Worker`` over the port's ``LoopbackBus`` and ``MemoryStore``,
     wired by ``attach_default_gpu_worker`` (micro-batches up to 256 rows,
     the embedder's largest batch bucket), owning ``chips`` cards: one (the
-    script's card, whatever the host has) unless a phase asks for more."""
+    script's card, whatever the host has) unless a phase asks for more.
+    It listens on its direct subject, and on ``topics`` (queue group: its
+    pool) where given."""
     from cordum_tpu_torch.infra.bus import LoopbackBus
     from cordum_tpu_torch.infra.kv import MemoryKV
     from cordum_tpu_torch.infra.memstore import MemoryStore
@@ -1091,7 +1131,7 @@ def make_port_worker(torch, dev, worker_id, chips=1, **compute_kw):
     from cordum_tpu_torch.worker.runtime import Worker
 
     bus, store = LoopbackBus(), MemoryStore(MemoryKV())
-    w = Worker(bus=bus, store=store, worker_id=worker_id, pool="gpu",
+    w = Worker(bus=bus, store=store, worker_id=worker_id, pool="gpu", topics=list(topics),
                capabilities=["gpu"], heartbeat_interval_s=2.0, device=dev, chips=chips)
     compute = attach_default_gpu_worker(
         w, max_batch_rows=256, serving_cache_pages=256, seed=SEED, **compute_kw)
@@ -1248,11 +1288,16 @@ async def drive_fp32_worker(torch, dev, card, cfg, params, prompts, oracle, *, n
     return launches
 
 
-async def drive_bf16_worker(torch, dev, card, cfg, params, *, n_new=16):
+async def drive_bf16_worker(torch, dev, card, cfg, params, *, n_new=16, then=None):
     """Llama-3-8B bf16 (phase 4's weights) and the default bf16 embedder
-    behind a port worker: every op of the table through the bus."""
-    w, compute, sched = make_port_worker(torch, dev, "w-bf16", llama_cfg=cfg,
-                                          llama_params=params)
+    behind a port worker: every op of the table through the bus.  ``then``,
+    when given, is awaited with the worker, the dispatcher and the record
+    of the jobs (phase 16) before the worker stops; its result is returned
+    third."""
+    # the worker binary's default topics: phase 16's scheduler sends a job
+    # there when the worker's heartbeat reads overloaded (a busy duty cycle)
+    w, compute, sched = make_port_worker(torch, dev, "w-bf16", topics=["job.gpu.>"],
+                                          llama_cfg=cfg, llama_params=params)
     await sched.start()
     await w.start()
     rng = np.random.default_rng(SEED + 7)
@@ -1264,64 +1309,69 @@ async def drive_bf16_worker(torch, dev, card, cfg, params, *, n_new=16):
         echo_rate = len(echo) / (time.monotonic() - t0)
         mm = [j for _ in range(4) for j in await sched.run(
             [{"op": "matmul", "b": 8, "n": 512, "k": 512, "m": 512, "iters": 4}], "matmul")]
-        infer = await sched.run([{"op": "infer", "tokens": [
+        infer_jobs = [{"op": "infer", "tokens": [
             rng.integers(0, cfg.vocab_size, 32).tolist(),
-            rng.integers(0, cfg.vocab_size, 20).tolist()]} for _ in range(4)], "infer")
+            rng.integers(0, cfg.vocab_size, 20).tolist()]} for _ in range(4)]
+        infer = await sched.run(infer_jobs, "infer")
         single, single_texts, single_wall = await embed_jobs(
             sched, make_texts(rng, 16, 1, 126), 1, "embed1", one_at_a_time=True)
         batched, batched_texts, batched_wall = await embed_jobs(
             sched, make_texts(rng, 256, 70, 126), 4, "embedB", one_at_a_time=False)
         await profile_embeds(torch, card, sched, make_texts(rng, 256, 70, 126))
         prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (8, 50, 120, 200)]
-        gens = await sched.run([{"op": "llm.generate", "tokens": p, "max_new_tokens": n_new}
-                                 for p in prompts], "gen")
+        gen_jobs = [{"op": "llm.generate", "tokens": p, "max_new_tokens": n_new} for p in prompts]
+        gens = await sched.run(gen_jobs, "gen")
         torch.cuda.synchronize()
         launches = check_worker_launches(compute.embedder.cfg.n_layers, cfg.n_layers,
                                          w.serving.stats.steps, infer=True)
+        for jid, doc in echo:
+            if doc["echo"]["op"] != "echo" or doc["worker"] != "w-bf16":
+                raise AssertionError(f"{jid}: bad echo {doc}")
+        for jid, doc in mm:
+            if doc["shape"] != [8, 512, 512] or not math.isfinite(doc["checksum"]):
+                raise AssertionError(f"{jid}: bad matmul {doc}")
+        for jid, doc in infer:
+            if len(doc["next_tokens"]) != 2 or not all(0 <= t < cfg.vocab_size
+                                                       for t in doc["next_tokens"]):
+                raise AssertionError(f"{jid}: bad infer {doc}")
+        for jid, doc in gens:
+            if len(doc["tokens"]) != n_new or not all(0 <= t < cfg.vocab_size for t in doc["tokens"]):
+                raise AssertionError(f"{jid}: bad generate {doc}")
+            if sched.streams.get(jid) != doc["tokens"]:
+                raise AssertionError(f"{jid}: streamed tokens differ from the result")
+        err = max(check_embeddings(torch, compute, single, single_texts, "bfloat16"),
+                  check_embeddings(torch, compute, batched, batched_texts, "bfloat16"))
+        hb = sched.heartbeats[0] if sched.heartbeats else None
+        if hb is None or hb.device_kind != kind or hb.type != "gpu" or not hb.devices_healthy:
+            raise AssertionError(f"the worker's heartbeat does not name the card: {hb}")
+        ttft = statistics.median((sched.first_token[j] - sched.sent[j]) * 1e3 for j, _ in gens)
+        p50 = {op: sched.p50_ms([j for j, _ in jobs]) for op, jobs in (
+            ("echo", echo), ("matmul", mm), ("infer", infer), ("embed (one at a time)", single),
+            ("embed (coalesced)", batched), ("llm.generate", gens))}
+        n_single = sum(len(t) for t in single_texts.values())
+        n_batched = sum(len(t) for t in batched_texts.values())
+        log(f"[worker] bf16: heartbeat device_kind {hb.device_kind!r}, hbm "
+            f"{hb.hbm_used_gb:.1f}/{hb.hbm_total_gb:.1f} GB, healthy {hb.devices_healthy}")
+        log(f"[worker] bf16: echo {echo_rate:.1f} jobs/s ({len(echo)} jobs together); "
+            f"embeds/s one job at a time {n_single / single_wall:.1f} ({n_single} texts), "
+            f"coalesced {n_batched / batched_wall:.1f} ({n_batched} texts in {len(batched)} jobs); "
+            f"TTFT p50 through the worker {ttft:.1f} ms ({len(gens)} requests, {n_new} new "
+            f"tokens each); embeddings within {err:.3e} of the plain version  [{card}]")
+        log("[worker] bf16: p50 dispatch->result ms: " + ", ".join(
+            f"{op} {ms:.2f}" for op, ms in p50.items()) + f"  [{card}]")
+        log(f"[worker] bf16: launches paged_attention {launches['paged_attention']} (= "
+            f"{cfg.n_layers} layers x {launches['paged_attention'] // cfg.n_layers} steps), "
+            f"embed_attention {launches['embed_attention']}, dense_attention_fwd "
+            f"{launches['dense_attention_fwd']} (= {cfg.n_layers} layers x "
+            f"{launches['dense_attention_fwd'] // cfg.n_layers} infer calls)  [{card}]")
+        numbers = worker_numbers(echo_rate, n_single / single_wall, n_batched / batched_wall, ttft, p50)
+        record = {"infer": list(zip(infer_jobs, (doc for _, doc in infer))),
+                  "embed1": [({"op": "embed", "texts": single_texts[jid]}, doc) for jid, doc in single],
+                  "gen": list(zip(gen_jobs, (doc for _, doc in gens)))}
+        after = None if then is None else await then(w, sched, record)
     finally:
         await w.stop()
-    for jid, doc in echo:
-        if doc["echo"]["op"] != "echo" or doc["worker"] != "w-bf16":
-            raise AssertionError(f"{jid}: bad echo {doc}")
-    for jid, doc in mm:
-        if doc["shape"] != [8, 512, 512] or not math.isfinite(doc["checksum"]):
-            raise AssertionError(f"{jid}: bad matmul {doc}")
-    for jid, doc in infer:
-        if len(doc["next_tokens"]) != 2 or not all(0 <= t < cfg.vocab_size
-                                                   for t in doc["next_tokens"]):
-            raise AssertionError(f"{jid}: bad infer {doc}")
-    for jid, doc in gens:
-        if len(doc["tokens"]) != n_new or not all(0 <= t < cfg.vocab_size for t in doc["tokens"]):
-            raise AssertionError(f"{jid}: bad generate {doc}")
-        if sched.streams.get(jid) != doc["tokens"]:
-            raise AssertionError(f"{jid}: streamed tokens differ from the result")
-    err = max(check_embeddings(torch, compute, single, single_texts, "bfloat16"),
-              check_embeddings(torch, compute, batched, batched_texts, "bfloat16"))
-    hb = sched.heartbeats[0] if sched.heartbeats else None
-    if hb is None or hb.device_kind != kind or hb.type != "gpu" or not hb.devices_healthy:
-        raise AssertionError(f"the worker's heartbeat does not name the card: {hb}")
-    ttft = statistics.median((sched.first_token[j] - sched.sent[j]) * 1e3 for j, _ in gens)
-    p50 = {op: sched.p50_ms([j for j, _ in jobs]) for op, jobs in (
-        ("echo", echo), ("matmul", mm), ("infer", infer), ("embed (one at a time)", single),
-        ("embed (coalesced)", batched), ("llm.generate", gens))}
-    n_single = sum(len(t) for t in single_texts.values())
-    n_batched = sum(len(t) for t in batched_texts.values())
-    log(f"[worker] bf16: heartbeat device_kind {hb.device_kind!r}, hbm "
-        f"{hb.hbm_used_gb:.1f}/{hb.hbm_total_gb:.1f} GB, healthy {hb.devices_healthy}")
-    log(f"[worker] bf16: echo {echo_rate:.1f} jobs/s ({len(echo)} jobs together); "
-        f"embeds/s one job at a time {n_single / single_wall:.1f} ({n_single} texts), "
-        f"coalesced {n_batched / batched_wall:.1f} ({n_batched} texts in {len(batched)} jobs); "
-        f"TTFT p50 through the worker {ttft:.1f} ms ({len(gens)} requests, {n_new} new "
-        f"tokens each); embeddings within {err:.3e} of the plain version  [{card}]")
-    log("[worker] bf16: p50 dispatch->result ms: " + ", ".join(
-        f"{op} {ms:.2f}" for op, ms in p50.items()) + f"  [{card}]")
-    log(f"[worker] bf16: launches paged_attention {launches['paged_attention']} (= "
-        f"{cfg.n_layers} layers x {launches['paged_attention'] // cfg.n_layers} steps), "
-        f"embed_attention {launches['embed_attention']}, dense_attention_fwd "
-        f"{launches['dense_attention_fwd']} (= {cfg.n_layers} layers x "
-        f"{launches['dense_attention_fwd'] // cfg.n_layers} infer calls)  [{card}]")
-    numbers = worker_numbers(echo_rate, n_single / single_wall, n_batched / batched_wall, ttft, p50)
-    return launches, numbers
+    return launches, numbers, after
 
 
 def worker_numbers(echo_rate, single_rate, coalesced_rate, ttft_ms, p50):
@@ -1364,13 +1414,19 @@ async def profile_embeds(torch, card, sched, texts):
 
 def phase_worker(torch, dev, card, *, fp32, bf16, n_new=16):
     """``fp32`` = (cfg, params, prompts, oracle) of phase 3; ``bf16`` =
-    (cfg, params) of phase 4.  Returns each dtype's main-path launches and
-    the bf16 worker's end-to-end numbers."""
+    (cfg, params) of phase 4.  Returns each dtype's main-path launches, the
+    bf16 worker's end-to-end numbers and phase 16.1-16.3's launches and
+    numbers (run on the bf16 worker)."""
     cfg32, params32, prompts, oracle = fp32
     launches32 = asyncio.run(drive_fp32_worker(torch, dev, card, cfg32, params32, prompts,
                                                oracle, n_new=n_new))
-    launches16, numbers = asyncio.run(drive_bf16_worker(torch, dev, card, *bf16, n_new=n_new))
-    return {"float32": launches32, "bfloat16": launches16}, numbers
+
+    async def scheduler(w, sched, record):
+        return await phase_scheduler(torch, dev, card, w, sched, record)
+
+    launches16, numbers, sched16 = asyncio.run(drive_bf16_worker(
+        torch, dev, card, *bf16, n_new=n_new, then=scheduler))
+    return {"float32": launches32, "bfloat16": launches16}, numbers, sched16
 
 
 # ---------------------------------------------------------------------------
@@ -2194,9 +2250,10 @@ async def drive_worker_process(torch, dev, card, workdir, *, n_new=16):
         echo_rate = len(echo) / (time.monotonic() - t0)
         mm = [j for _ in range(4) for j in await sched.run(
             [{"op": "matmul", "b": 8, "n": 512, "k": 512, "m": 512, "iters": 4}], "matmul")]
-        infer = await sched.run([{"op": "infer", "tokens": [
+        infer_jobs = [{"op": "infer", "tokens": [
             rng.integers(0, cfg.vocab_size, 32).tolist(),
-            rng.integers(0, cfg.vocab_size, 20).tolist()]} for _ in range(4)], "infer")
+            rng.integers(0, cfg.vocab_size, 20).tolist()]} for _ in range(4)]
+        infer = await sched.run(infer_jobs, "infer")
         single, single_texts, single_wall = await embed_jobs(
             sched, make_texts(rng, 16, 1, 126), 1, "embed1", one_at_a_time=True)
         batched, batched_texts, batched_wall = await embed_jobs(
@@ -2238,11 +2295,12 @@ async def drive_worker_process(torch, dev, card, workdir, *, n_new=16):
     # on the card seeded as GPUCompute seeds its own
     params = llama.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(WORKER_SEED),
                                device=dev)
-    ties_n = 0
+    ties_n, all_ties = 0, []
     for p, (jid, doc) in zip(prompts, gens):
         want, ties = dense_greedy(torch, llama, params, cfg, p, n_new, dev)
         upto = ties[0] if ties else n_new
         ties_n += len(ties)
+        all_ties.append(ties)
         if doc["tokens"][:upto] != want[:upto] or len(doc["tokens"]) != n_new:
             raise AssertionError(f"worker process generate of a {len(p)}-token prompt gave "
                                  f"{doc['tokens']}, oracle {want} (compared up to {upto})")
@@ -2276,20 +2334,26 @@ async def drive_worker_process(torch, dev, card, workdir, *, n_new=16):
         f"to the dense oracle ({ties_n} near-tie positions); {n_single + n_batched} embeddings "
         f"within {err:.3e} of the plain version; launches {launches} ({steps} serving steps)  "
         f"[{card}]")
-    return launches, numbers
+    record = {"infer": list(zip(infer_jobs, (doc for _, doc in infer))),
+              "embed1": [({"op": "embed", "texts": single_texts[jid]}, doc) for jid, doc in single],
+              "gen": [({"op": "llm.generate", "tokens": p, "max_new_tokens": n_new}, doc)
+                      for p, (_, doc) in zip(prompts, gens)],
+              "ties": all_ties}
+    return launches, numbers, record
 
 
 def phase_worker_process(torch, dev, card, numbers6):
     """Phase 8, then its numbers beside phase 6's (in-process; phase 6
-    serves Llama-3-8B bf16, phase 8 LlamaConfig.tiny() fp32)."""
+    serves Llama-3-8B bf16, phase 8 LlamaConfig.tiny() fp32).  Returns the
+    launches and the record of the jobs phase 16.4 repeats."""
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="cordum-proc-") as workdir:
-        launches, numbers = asyncio.run(drive_worker_process(torch, dev, card, workdir))
+        launches, numbers, record = asyncio.run(drive_worker_process(torch, dev, card, workdir))
     for key, value in numbers.items():
         log(f"[worker-proc] {key}: process over TCP {value:.2f}, in-process (phase 6) "
             f"{numbers6.get(key, float('nan')):.2f}  [{card}]")
-    return launches
+    return launches, record
 
 
 # ---------------------------------------------------------------------------
@@ -5465,6 +5529,705 @@ def cards_dryrun_leg(torch, dev, card, n=4):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the scheduler service
+# ---------------------------------------------------------------------------
+
+#: the pools document phase 16 loads.  config/pools.yaml routes job.tpu.> to
+#: a pool that requires ``tpu``, which no port worker advertises: here
+#: job.gpu.> goes to pool ``gpu`` (the port's workers run with
+#: WORKER_POOL=gpu) and job.batch.> to a second pool of the synthetic fleet
+SCHED_POOLS = {"topics": {"job.gpu.>": "gpu", "job.batch.>": "batch"},
+               "pools": {"gpu": {"requires": ["gpu"], "min_chips": 1},
+                         "batch": {"requires": ["gpu"], "min_chips": 1}}}
+#: 16.2's rules, added after config/safety.yaml's own (the first match wins)
+SCHED_RULES = (
+    {"id": "approve-gpu-generate",
+     "match": {"topics": ["job.gpu.llm.generate"], "requires": ["gpu"]},
+     "decision": "require_approval", "reason": "generation that asks for a card needs approval"},
+    {"id": "deny-exfiltration", "match": {"risk_tags": ["exfiltration"]},
+     "decision": "deny", "reason": "exfiltration is never allowed"},
+)
+#: the reference's DLQ code for a safety denial
+SCHED_DENY_CODE = "SAFETY_DENY"
+#: 16.3: the synthetic fleet (README's scale), the backlog, its bursts and
+#: the C-scan-against-Python picks
+SCHED_WORKERS, SCHED_JOBS, SCHED_BURST, SCHED_PICKS = 1000, 20000, 256, 10000
+#: the synthetic fleet beats this often (the registry's TTL is 30 s)
+SCHED_BEAT_S = 5.0
+SCHED_TIMEOUT_S = 300.0
+#: 16.3's job shapes: (share, topic, requires); each has eligible workers
+SCHED_SHAPES = ((0.45, "job.gpu.echo", ()), (0.25, "job.batch.echo", ()),
+                (0.1, "job.gpu.echo", ("chips:4",)), (0.08, "job.batch.echo", ("topology:2x4",)),
+                (0.07, "job.gpu.echo", ("fp8",)), (0.05, "job.gpu.echo", ("chips:2", "topology:2x2")))
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def sched_policy():
+    """``config/safety.yaml`` with 16.2's rules after its own."""
+    import yaml
+
+    with open(os.path.join(REPO_DIR, "config", "safety.yaml")) as f:
+        doc = yaml.safe_load(f) or {}
+    doc["rules"] = list(doc.get("rules") or []) + [dict(r) for r in SCHED_RULES]
+    return doc
+
+
+class SchedStack:
+    """The port's scheduler as ``cmd/scheduler.py`` builds it by default, in
+    this process over ``bus`` and ``kv``: the embedded safety kernel on
+    ``policy_doc``, ``ThroughputAwareStrategy`` with its capacity view,
+    serving placer and decode rebalancer, and the native scan, which must
+    have loaded (a failed build raises while the strategy is built)."""
+
+    def __init__(self, bus, kv, *, policy_doc, pools_doc=SCHED_POOLS):
+        from cordum_tpu_torch.controlplane.safetykernel.kernel import SafetyKernel
+        from cordum_tpu_torch.controlplane.scheduler.engine import Engine
+        from cordum_tpu_torch.controlplane.scheduler.placer import DecodeRebalancer, ServingPlacer
+        from cordum_tpu_torch.controlplane.scheduler.safety_client import SafetyClient
+        from cordum_tpu_torch.controlplane.scheduler.strategy import ThroughputAwareStrategy
+        from cordum_tpu_torch.infra.config import parse_pool_config
+        from cordum_tpu_torch.infra.jobstore import JobStore
+        from cordum_tpu_torch.infra.memstore import MemoryStore
+        from cordum_tpu_torch.infra.metrics import Metrics
+        from cordum_tpu_torch.infra.registry import WorkerRegistry
+        from cordum_tpu_torch.obs.capacity import CapacityView
+
+        self.bus = bus
+        self.registry = WorkerRegistry()
+        self.pools = parse_pool_config(pools_doc)
+        self.metrics = Metrics()
+        self.capacity = CapacityView()
+        self.strategy = ThroughputAwareStrategy(
+            self.registry, self.pools, capacity=self.capacity,
+            placer=ServingPlacer(self.capacity, metrics=self.metrics), metrics=self.metrics)
+        self.packed = self.strategy._packed
+        if self.packed is None:
+            raise AssertionError("the native scan did not load: no C compiler on this host")
+        self.rebalancer = DecodeRebalancer.from_config(
+            bus, self.capacity, self.registry, self.pools.rebalancer, metrics=self.metrics)
+        self.kernel = SafetyKernel(policy_doc=policy_doc)
+        self.job_store = JobStore(kv)
+        self.mem = MemoryStore(kv)
+        self.engine = Engine(bus=bus, job_store=self.job_store,
+                             safety=SafetyClient(self.kernel.check), strategy=self.strategy,
+                             registry=self.registry, metrics=self.metrics)
+
+    async def start(self):
+        await self.kernel.reload()
+        await self.capacity.start(self.bus)
+        await self.engine.start()
+        await self.rebalancer.start()
+
+    async def stop(self):
+        await self.rebalancer.stop()
+        await self.engine.stop()
+        await self.capacity.stop()
+
+
+async def gateway_submit(stack, job_id, topic, payload, *, requires=(), risk_tags=(),
+                         publish=True):
+    """Submit a job as the gateway does: the payload into the KV behind a
+    context pointer, the ``cordum.op`` label, then the ``JobRequest`` on
+    ``sys.job.submit`` (the scheduler writes the PENDING record).  Returns
+    the request and its packet (``publish=False`` leaves the publish to the
+    caller)."""
+    from cordum_tpu_torch.protocol import subjects as subj
+    from cordum_tpu_torch.protocol.types import LABEL_OP, BusPacket, JobMetadata, JobRequest
+    from cordum_tpu_torch.utils.ids import new_id
+
+    ptr = await stack.mem.put_context(job_id, payload)
+    req = JobRequest(job_id=job_id, topic=topic, context_ptr=ptr, tenant_id="default",
+                     labels={LABEL_OP: payload["op"]},
+                     metadata=JobMetadata(requires=list(requires), risk_tags=list(risk_tags)))
+    pkt = BusPacket.wrap(req, trace_id=new_id(), sender_id="gateway")
+    if publish:
+        await stack.bus.publish(subj.submit_subject_for(job_id, 1), pkt)
+    return req, pkt
+
+
+async def sched_wait(job_store, job_ids, states=None, timeout_s=SCHED_TIMEOUT_S):
+    """Each job's state once every one is in ``states`` (default: a
+    terminal state); raises naming the jobs still out after
+    ``timeout_s``."""
+    from cordum_tpu_torch.protocol.types import TERMINAL_STATES
+
+    states = states or tuple(sorted(st.value for st in TERMINAL_STATES))
+    deadline = time.monotonic() + timeout_s
+    pending, out = list(job_ids), {}
+    while pending:
+        for jid in list(pending):
+            st = await job_store.get_state(jid)
+            if st in states:
+                out[jid] = st
+                pending.remove(jid)
+        if pending:
+            if time.monotonic() > deadline:
+                seen = {j: {k: v for k, v in (await job_store.get_meta(j)).items()
+                            if k in ("state", "dispatch_subject", "worker_id")}
+                        for j in pending[:5]}
+                raise AssertionError(f"{len(pending)} jobs never reached {states}: {seen}")
+            await asyncio.sleep(0.005)
+    return out
+
+
+async def sched_job(stack, job_id, topic, payload, **kw):
+    """One job through the scheduler to SUCCEEDED; returns its result and
+    its meta.  Raises on any other end, or on a missing result pointer."""
+    await gateway_submit(stack, job_id, topic, payload, **kw)
+    state = (await sched_wait(stack.job_store, [job_id]))[job_id]
+    meta = await stack.job_store.get_meta(job_id)
+    if state != "SUCCEEDED" or not meta.get("result_ptr"):
+        raise AssertionError(f"{job_id}: {state}, meta {meta}")
+    return await stack.mem.get_pointer(meta["result_ptr"]), meta
+
+
+def ran_on(meta, worker_id, topic):
+    """The job went to ``worker_id``: dispatched on its direct subject, or
+    on the topic it listens to when its heartbeat read overloaded, and its
+    result came from it.  Returns whether it went by the topic."""
+    from cordum_tpu_torch.protocol.subjects import direct_subject
+
+    subject = meta.get("dispatch_subject")
+    if subject not in (direct_subject(worker_id), topic) or meta.get("worker_id") != worker_id:
+        raise AssertionError(f"dispatched on {subject}, result from {meta.get('worker_id')}")
+    return subject == topic
+
+
+def sched_payloads(record):
+    """16.1's jobs, from phase 6's: (tag, payload) in submission order."""
+    return ([("echo", {"op": "echo", "i": i}) for i in range(4)]
+            + [("infer", p) for p, _ in record["infer"]]
+            + [("embed", p) for p, _ in record["embed1"]]
+            + [("gen", p) for p, _ in record["gen"]])
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+async def sched_direct_path(torch, dev, dispatcher, record):
+    """16.1's yardstick: phase 6's jobs one at a time straight to the
+    worker, before the scheduler listens.  Returns the results and the
+    launches."""
+    zero_launches()
+    direct = []
+    for tag, payload in sched_payloads(record):
+        direct += await dispatcher.run([payload], f"direct16-{tag}")
+    sync(torch, dev)
+    return [doc for _, doc in direct], read_launches()
+
+
+async def sched_main_path(torch, dev, stack, worker_id, record, direct, want):
+    """16.1: phase 6's jobs one at a time through the scheduler, held to
+    the direct path's results ``direct`` and launches ``want``; returns
+    the scheduled run's launches and the tokens of each generate prompt."""
+    jobs = sched_payloads(record)
+    zero_launches()
+    got, by_topic = [], 0
+    for i, (tag, payload) in enumerate(jobs):
+        topic = f"job.gpu.{payload['op']}"
+        doc, meta = await sched_job(stack, f"sched16-{i}-{tag}", topic, payload)
+        by_topic += ran_on(meta, worker_id, topic)
+        got.append(doc)
+    sync(torch, dev)
+    launches = read_launches()
+    embeds = iter(doc for _, doc in record["embed1"])
+    tokens = {}
+    for (tag, payload), d, g in zip(jobs, direct, got):
+        if tag == "echo" and (g["echo"] != payload or g["worker"] != worker_id):
+            raise AssertionError(f"scheduled echo: {g}")
+        if tag == "infer" and g["next_tokens"] != d["next_tokens"]:
+            raise AssertionError(f"scheduled infer {g['next_tokens']}, direct {d['next_tokens']}")
+        if tag == "embed":
+            six = next(embeds)
+            if not (np.array_equal(np.asarray(g["embeddings"]), np.asarray(d["embeddings"]))
+                    and np.array_equal(np.asarray(g["embeddings"]),
+                                       np.asarray(six["embeddings"]))):
+                raise AssertionError("scheduled embeddings differ from the direct and phase 6's")
+        if tag == "gen":
+            if g["tokens"] != d["tokens"] or not g["tokens"]:
+                raise AssertionError(f"scheduled tokens {g['tokens']}, direct {d['tokens']}")
+            tokens[tuple(payload["tokens"])] = g["tokens"]
+    for name in ("paged_attention", "embed_attention", "dense_attention_fwd"):
+        if launches[name] != want[name] or not launches[name]:
+            raise AssertionError(f"{name}: {launches[name]} launches through the scheduler, "
+                                 f"{want[name]} direct")
+    return launches, tokens, by_topic
+
+
+async def sched_policy_gate(torch, dev, stack, worker_id, gen_payload, want_tokens):
+    """16.2: approval, an edit after the decision, a denial.  Returns the
+    launches of the approved job."""
+    from cordum_tpu_torch.protocol import subjects as subj
+    from cordum_tpu_torch.protocol.jobhash import job_hash
+    from cordum_tpu_torch.protocol.types import LABEL_APPROVAL_GRANTED, BusPacket
+
+    bus, js = stack.bus, stack.job_store
+    topic = "job.gpu.llm.generate"
+    parked = {}
+    for jid in ("approve16", "edited16"):
+        req, _ = await gateway_submit(stack, jid, topic, gen_payload, requires=["gpu"])
+        await sched_wait(js, [jid], ("APPROVAL_REQUIRED",))
+        rec = await js.get_safety_decision(jid)
+        if (rec is None or rec.decision != "REQUIRE_APPROVAL"
+                or rec.rule_id != "approve-gpu-generate" or rec.job_hash != job_hash(req)):
+            raise AssertionError(f"{jid}: decision record {rec}")
+        parked[jid] = req
+    zero_launches()
+    req = parked["approve16"]
+    await bus.publish(subj.SUBMIT, BusPacket.wrap(dataclasses.replace(
+        req, labels={**req.labels, LABEL_APPROVAL_GRANTED: "true"}), sender_id="gateway"))
+    state = (await sched_wait(js, ["approve16"]))["approve16"]
+    meta = await js.get_meta("approve16")
+    doc = await stack.mem.get_pointer(meta.get("result_ptr", "")) if meta.get("result_ptr") else None
+    sync(torch, dev)
+    launches = read_launches()
+    if state != "SUCCEEDED" or doc is None or doc["tokens"] != want_tokens:
+        raise AssertionError(f"approved job: {state}, {doc}, want {want_tokens}")
+    ran_on(meta, worker_id, topic)
+    req = parked["edited16"]
+    mark = len(bus.published)
+    await bus.publish(subj.SUBMIT, BusPacket.wrap(dataclasses.replace(
+        req, labels={**req.labels, "note": "edited after approval",
+                     LABEL_APPROVAL_GRANTED: "true"}), sender_id="gateway"))
+    await asyncio.sleep(0.5)
+    await bus.drain()
+    state = await js.get_state("edited16")
+    sent = [s for s, p in bus.published[mark:]
+            if p.job_request is not None and p.job_request.job_id == "edited16"
+            and s != subj.SUBMIT]
+    if state != "APPROVAL_REQUIRED" or sent:
+        raise AssertionError(f"edited job: {state}, dispatched on {sent}")
+    stored = await js.get_request("edited16")
+    if stored is None or job_hash(stored) != job_hash(req):
+        raise AssertionError("the edited republish replaced the parked request")
+    mark = len(bus.published)
+    await gateway_submit(stack, "deny16", "job.gpu.echo", {"op": "echo"},
+                         risk_tags=["exfiltration"])
+    state = (await sched_wait(js, ["deny16"]))["deny16"]
+    await bus.drain()
+    dlq = [p.job_result for s, p in bus.published[mark:] if s == subj.DLQ
+           and p.job_result is not None and p.job_result.job_id == "deny16"]
+    rec = await js.get_safety_decision("deny16")
+    if (state != "DENIED" or len(dlq) != 1 or dlq[0].error_code != SCHED_DENY_CODE
+            or rec is None or rec.rule_id != "deny-exfiltration"):
+        raise AssertionError(f"denied job: {state}, DLQ {dlq}, decision {rec}")
+    return launches
+
+
+def sched_fleet(n, seed=SEED + 16):
+    """``n`` synthetic workers' heartbeats: 7 in 10 in pool ``gpu``, the
+    rest in ``batch``; 1-8 cards; no topology, 2x2 or 2x4; load, queue
+    depth, capabilities (``fp8`` on some, ``gpu`` missing on a few) and
+    health varied."""
+    from cordum_tpu_torch.protocol.types import Heartbeat
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        caps = ["gpu", "echo"] + (["fp8"] if rng.random() < 0.3 else [])
+        if rng.random() < 0.05:
+            caps = ["echo"]
+        maxp = int(rng.choice([8, 16, 32, 64]))
+        out.append(Heartbeat(
+            worker_id=f"syn-{i:04d}", pool="gpu" if i % 10 < 7 else "batch", type="gpu",
+            device_kind="H100", capabilities=caps, chip_count=int(rng.choice([1, 2, 4, 8])),
+            slice_topology=str(rng.choice(["", "2x2", "2x4"])), max_parallel_jobs=maxp,
+            active_jobs=int(rng.integers(0, maxp)), cpu_load=float(rng.uniform(0, 95)),
+            tpu_duty_cycle=float(rng.uniform(0, 95)), hbm_total_gb=80.0,
+            hbm_used_gb=float(rng.uniform(0, 80)), devices_healthy=bool(rng.random() > 0.02)))
+    return out
+
+
+def sched_requests(n, seed=SEED + 17):
+    """``n`` (topic, requires) drawn from ``SCHED_SHAPES``."""
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(len(SCHED_SHAPES), size=n, p=[s[0] for s in SCHED_SHAPES])
+    return [SCHED_SHAPES[i][1:] for i in idx]
+
+
+class FleetResponder:
+    """The synthetic workers: one subscription a worker on its direct
+    subject; each job's result is put in the KV and a ``JobResult``
+    published at once.  Counts each job's deliveries.  ``drop`` names jobs
+    it swallows (a rehearsal's planted fault)."""
+
+    def __init__(self, bus, mem, heartbeats, *, drop=()):
+        self.bus, self.mem, self.heartbeats = bus, mem, heartbeats
+        self.drop = set(drop)
+        self.delivered: dict[str, int] = {}
+        self._subs = []
+        self._beat = None
+
+    async def start(self):
+        from cordum_tpu_torch.protocol.subjects import direct_subject
+
+        for hb in self.heartbeats:
+            self._subs.append(await self.bus.subscribe(
+                direct_subject(hb.worker_id), self._handler(hb.worker_id)))
+        await self.beat()
+        self._beat = asyncio.ensure_future(self._beat_loop())
+
+    async def beat(self):
+        from cordum_tpu_torch.protocol import subjects as subj
+        from cordum_tpu_torch.protocol.types import BusPacket
+
+        for hb in self.heartbeats:
+            await self.bus.publish(subj.HEARTBEAT, BusPacket.wrap(hb, sender_id=hb.worker_id))
+
+    async def _beat_loop(self):
+        while True:
+            await asyncio.sleep(SCHED_BEAT_S)
+            await self.beat()
+
+    def _handler(self, worker_id):
+        from cordum_tpu_torch.protocol import subjects as subj
+        from cordum_tpu_torch.protocol.types import BusPacket, JobResult
+
+        async def on_job(subject, pkt):
+            req = pkt.job_request
+            if req is None:
+                return
+            self.delivered[req.job_id] = self.delivered.get(req.job_id, 0) + 1
+            if req.job_id in self.drop:
+                return
+            payload = await self.mem.get_context(req.context_ptr)
+            ptr = await self.mem.put_result(req.job_id, {"echo": payload, "worker": worker_id})
+            await self.bus.publish(subj.RESULT, BusPacket.wrap(JobResult(
+                job_id=req.job_id, status="SUCCEEDED", result_ptr=ptr, worker_id=worker_id),
+                sender_id=worker_id))
+        return on_job
+
+    async def stop(self):
+        if self._beat is not None:
+            self._beat.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await self._beat
+        for sub in self._subs:
+            sub.unsubscribe()
+
+
+async def sched_backlog(stack, n_jobs, burst, *, timeout_s=SCHED_TIMEOUT_S):
+    """16.3's backlog: ``n_jobs`` echo jobs of ``SCHED_SHAPES``, ``burst``
+    published in one event-loop tick (their records written before), then
+    every job waited for in the job store.  Checks each was dispatched
+    once and ended SUCCEEDED once; returns the numbers."""
+    from cordum_tpu_torch.infra.jobstore import index_key
+    from cordum_tpu_torch.protocol import subjects as subj
+
+    js, bus = stack.job_store, stack.bus
+    shapes = sched_requests(n_jobs)
+    ids = [f"fleet16-{i:05d}" for i in range(n_jobs)]
+    mark = len(bus.published)
+    picks0, dispatched0 = stack.packed.native_picks, stack.metrics.jobs_dispatched.total()
+    done0 = await js.kv.zcard(index_key("SUCCEEDED"))
+    sent_at = {}
+    for lo in range(0, n_jobs, burst):
+        pkts = []
+        for jid, (topic, requires) in zip(ids[lo:lo + burst], shapes[lo:lo + burst]):
+            _, pkt = await gateway_submit(stack, jid, topic, {"op": "echo", "job": jid},
+                                          requires=requires, publish=False)
+            pkts.append((jid, pkt))
+        now = time.time()
+        for jid, pkt in pkts:  # one tick: publish never yields on the loopback bus
+            sent_at[jid] = now
+            await bus.publish(subj.submit_subject_for(jid, 1), pkt)
+        await asyncio.sleep(0)
+    deadline = time.monotonic() + timeout_s
+    while await js.kv.zcard(index_key("SUCCEEDED")) - done0 < n_jobs:
+        if time.monotonic() > deadline:
+            break
+        await asyncio.sleep(0.02)
+    await bus.drain()
+    states = await asyncio.gather(*(js.get_state(j) for j in ids))
+    lost = [(j, s) for j, s in zip(ids, states) if s != "SUCCEEDED"]
+    if lost:
+        raise AssertionError(f"{len(lost)} of {n_jobs} jobs did not end SUCCEEDED: {lost[:5]}")
+    sent: dict[str, int] = {}
+    for s, p in bus.published[mark:]:
+        r = p.job_request
+        if r is not None and s != subj.SUBMIT and not s.startswith("sys."):
+            sent[r.job_id] = sent.get(r.job_id, 0) + 1
+    twice = [j for j in ids if sent.get(j) != 1]
+    if twice:
+        raise AssertionError(f"{len(twice)} jobs not dispatched exactly once: "
+                             f"{[(j, sent.get(j)) for j in twice[:5]]}")
+    events = await asyncio.gather(*(js.events(j) for j in ids))
+    dispatched_at, lat = [], []
+    for jid, evs in zip(ids, events):
+        ends = [e for e in evs if e.get("state") == "SUCCEEDED"]
+        disp = [e for e in evs if e.get("state") == "DISPATCHED"]
+        if len(ends) != 1 or len(disp) != 1:
+            raise AssertionError(f"{jid}: events {[e.get('state') for e in evs]}")
+        dispatched_at.append(disp[0]["ts_us"] / 1e6)
+        lat.append((ends[0]["ts_us"] / 1e6 - sent_at[jid]) * 1e3)
+    picks = stack.packed.native_picks - picks0
+    dispatched = stack.metrics.jobs_dispatched.total() - dispatched0
+    first = min(sent_at.values())
+    return {"jobs": n_jobs, "scheduled jobs/s": n_jobs / (max(dispatched_at) - first),
+            "submit->result p50 ms": float(np.percentile(lat, 50)),
+            "submit->result p99 ms": float(np.percentile(lat, 99)),
+            "C scan share of picks": picks / dispatched if dispatched else float("nan"),
+            "workers": len(stack.registry.snapshot())}
+
+
+def check_native_picks(registry, pools, n):
+    """``n`` picks of the C scan against the Python scan's on ``registry``
+    (two ``LeastLoadedStrategy``, native on and off); every pick must be the
+    C scan's (no shape of ``SCHED_SHAPES`` falls back) and equal."""
+    from cordum_tpu_torch.controlplane.scheduler.strategy import LeastLoadedStrategy
+    from cordum_tpu_torch.protocol.types import JobMetadata, JobRequest
+
+    native = LeastLoadedStrategy(registry, pools)
+    plain = LeastLoadedStrategy(registry, pools, native=False)
+    if native._packed is None:
+        raise AssertionError("the native scan did not load")
+    picks0 = native._packed.native_picks
+    wrong = []
+    for i, (topic, requires) in enumerate(sched_requests(n, seed=SEED + 18)):
+        req = JobRequest(job_id=f"pick-{i}", topic=topic,
+                         metadata=JobMetadata(requires=list(requires)))
+        a, b = native.pick_subject(req), plain.pick_subject(req)
+        if a != b:
+            wrong.append((topic, requires, a, b))
+    served = native._packed.native_picks - picks0
+    if wrong or served != n:
+        raise AssertionError(f"C scan against Python: {len(wrong)} of {n} picks differ "
+                             f"{wrong[:3]}; the C scan served {served}")
+    return served
+
+
+async def sched_cluster(stack, *, n_workers=SCHED_WORKERS, n_jobs=SCHED_JOBS,
+                        burst=SCHED_BURST, n_picks=SCHED_PICKS, drop=(),
+                        timeout_s=SCHED_TIMEOUT_S):
+    """16.3: the fleet beside the card's worker, the backlog, then the C
+    scan against the Python scan on the same registry."""
+    fleet = FleetResponder(stack.bus, stack.mem, sched_fleet(n_workers), drop=drop)
+    await fleet.start()
+    try:
+        await stack.bus.drain()
+        numbers = await sched_backlog(stack, n_jobs, burst, timeout_s=timeout_s)
+        numbers["native picks checked"] = check_native_picks(stack.registry, stack.pools,
+                                                             n_picks)
+    finally:
+        await fleet.stop()
+    return numbers
+
+
+async def phase_scheduler(torch, dev, card, w, dispatcher, record, **cluster_kw):
+    """16.1-16.3 on phase 6's bf16 worker ``w``; returns the launches of
+    16.1's scheduled jobs and 16.2's approved one, and 16.3's numbers
+    (``cluster_kw`` sizes 16.3 for a rehearsal)."""
+    from cordum_tpu_torch.infra.kv import MemoryKV
+
+    kv = dispatcher.store.kv
+    if not isinstance(kv, MemoryKV):
+        raise AssertionError("phase 16 shares phase 6's in-process KV")
+    direct, want = await sched_direct_path(torch, dev, dispatcher, record)
+    stack = SchedStack(w.bus, kv, policy_doc=sched_policy())
+    await stack.start()
+    try:
+        t0 = time.monotonic()
+        while stack.registry.get(w.worker_id) is None:
+            if time.monotonic() - t0 > 30:
+                raise AssertionError("the scheduler never heard the card worker's heartbeat")
+            await asyncio.sleep(0.05)
+        t0 = time.monotonic()
+        main, tokens, by_topic = await sched_main_path(torch, dev, stack, w.worker_id, record,
+                                                       direct, want)
+        main_s = time.monotonic() - t0
+        gen = record["gen"][0][0]
+        gate = await sched_policy_gate(torch, dev, stack, w.worker_id, gen,
+                                       tokens[tuple(gen["tokens"])])
+        t0 = time.monotonic()
+        zero_launches()
+        cluster = await sched_cluster(stack, **cluster_kw)
+        sync(torch, dev)
+        # echo jobs only: no kernel of the port runs while 16.3 schedules
+        cluster["kernel launches"] = sum(read_launches().values())
+        cluster_s = time.monotonic() - t0
+    finally:
+        await stack.stop()
+    launches = {k: main[k] + gate[k] for k in main}
+    log(f"[sched] 16.1: {len(sched_payloads(record))} jobs of phase 6 through the port's "
+        f"scheduler (embedded safety kernel, ThroughputAwareStrategy, native scan) to the card's "
+        f"worker in {main_s:.1f} s ({by_topic} by its topic: its heartbeat read overloaded): "
+        f"results equal to the direct path's, launches equal "
+        f"(paged_attention {main['paged_attention']}, embed_attention "
+        f"{main['embed_attention']}, dense_attention_fwd {main['dense_attention_fwd']})  [{card}]")
+    log(f"[sched] 16.2: approval parked and released with 16.1's tokens (paged_attention "
+        f"{gate['paged_attention']}), an edit after approval refused by the hash check, "
+        f"a denial to the DLQ with {SCHED_DENY_CODE}  [{card}]")
+    log(f"[sched] 16.3: {cluster['jobs']} echo jobs over {cluster['workers']} live workers "
+        f"in bursts of {cluster_kw.get('burst', SCHED_BURST)}, each dispatched once and SUCCEEDED once, in "
+        f"{cluster_s:.1f} s; {cluster['native picks checked']} C-scan picks equal to the "
+        f"Python scan's  [{card}]")
+    log("[sched] 16.3 (information): " + ", ".join(
+        f"{k} {v!r}" for k, v in cluster.items()) + f"  [{card}]")
+    return launches, cluster
+
+
+async def wait_log(path, text, proc, timeout_s=120.0):
+    """Wait until the process's log at ``path`` holds ``text``."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        with open(path) as f:
+            if text in f.read():
+                return
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError(f"{text!r} never appeared (rc {proc.poll()}); see {path}")
+        await asyncio.sleep(0.1)
+
+
+def sched_process_jobs(record):
+    """16.4's jobs, from phase 8's: (tag, topic, payload)."""
+    return ([("echo", "job.gpu.echo", {"op": "echo", "i": i}) for i in range(4)]
+            + [("infer", "job.gpu.infer", p) for p, _ in record["infer"]]
+            + [("embed", "job.gpu.embed", p) for p, _ in record["embed1"]]
+            + [("gen", "job.gpu.llm.generate", p) for p, _ in record["gen"]])
+
+
+async def drive_scheduler_process(torch, dev, card, workdir, record, *, timeout_s=300.0):
+    """16.4: the port's statebus, scheduler and worker binaries as
+    processes over TCP (pools ``SCHED_POOLS``, policy
+    ``config/safety.yaml``, the worker at phase 8's config with
+    ``WORKER_POOL=gpu``); this script submits as the gateway does, over the
+    port's statebus client.  ``record`` holds phase 8's jobs and results
+    (``infer``, ``embed1`` and ``gen`` as (payload, result) pairs, ``ties``
+    each generate prompt's near-tie positions).  Returns the scheduler's
+    exit code and the worker's exit record; every process is stopped on
+    every path."""
+    import yaml
+
+    from cordum_tpu_torch.infra import statebus
+    from cordum_tpu_torch.infra.jobstore import JobStore
+    from cordum_tpu_torch.infra.memstore import MemoryStore
+    from cordum_tpu_torch.protocol import subjects as subj
+
+    port = free_port()
+    url = f"statebus://127.0.0.1:{port}"
+    pools = os.path.join(workdir, "pools.yaml")
+    with open(pools, "w") as f:
+        yaml.safe_dump(SCHED_POOLS, f)
+    env = {**os.environ, "STATEBUS_PORT": str(port), "CORDUM_STATEBUS_URL": url,
+           "POOL_CONFIG_PATH": pools,
+           "SAFETY_POLICY_PATH": os.path.join(REPO_DIR, "config", "safety.yaml"),
+           "TIMEOUT_CONFIG_PATH": os.path.join(REPO_DIR, "config", "timeouts.yaml"),
+           "WORKER_ID": "w-sched", "WORKER_POOL": "gpu", "WORKER_LLAMA_DTYPE": "float32",
+           "WORKER_MAX_BATCH_SIZE": "256", "WORKER_HEARTBEAT_INTERVAL": "1",
+           "CORDUM_LOG_FORMAT": "json", "PYTHONDONTWRITEBYTECODE": "1"}
+    for k in ("CORDUM_FORCE_CPU", "SAFETY_KERNEL_ADDR", "WORKER_TOPICS", "WORKER_CAPABILITIES"):
+        env.pop(k, None)
+    if torch.device(dev).type == "cpu":
+        env["CORDUM_FORCE_CPU"] = "1"
+    logs = {name: os.path.join(workdir, f"{name}.log")
+            for name in ("statebus", "scheduler", "worker")}
+    procs = {"statebus": start_process(["cordum_tpu_torch.cmd.statebus"], env, logs["statebus"])}
+    conn = None
+    try:
+        kv, bus, conn = await connect_when_up(statebus, url, procs["statebus"])
+        stack = types.SimpleNamespace(bus=bus, job_store=JobStore(kv), mem=MemoryStore(kv))
+        beats = []
+
+        async def on_beat(subject, pkt):
+            if pkt.heartbeat is not None and pkt.heartbeat.worker_id == "w-sched":
+                beats.append(pkt.heartbeat)
+
+        await bus.subscribe(subj.HEARTBEAT, on_beat)
+        procs["scheduler"] = start_process(["cordum_tpu_torch.cmd.scheduler"], env,
+                                           logs["scheduler"])
+        await wait_log(logs["scheduler"], '"scheduler running"', procs["scheduler"])
+        procs["worker"] = start_process(["cordum_tpu_torch.cmd.worker"], env, logs["worker"])
+        t0 = time.monotonic()
+        while not beats:
+            if procs["worker"].poll() is not None or time.monotonic() - t0 > timeout_s:
+                raise AssertionError(f"the worker process never beat; see {logs['worker']}")
+            await asyncio.sleep(0.1)
+        await asyncio.sleep(1.5)  # the scheduler hears the same heartbeat
+        jobs = sched_process_jobs(record)
+        ids = [f"proc16-{i}-{tag}" for i, (tag, _, _) in enumerate(jobs)]
+        t0 = time.monotonic()
+        for jid, (tag, topic, payload) in zip(ids, jobs):
+            if tag == "embed":  # one at a time, as phase 8 ran them
+                await sched_job(stack, jid, topic, payload)
+            else:
+                await gateway_submit(stack, jid, topic, payload)
+        states = await sched_wait(stack.job_store, ids, timeout_s=timeout_s)
+        wall = time.monotonic() - t0
+        metas = [await stack.job_store.get_meta(j) for j in ids]
+        docs = [await stack.mem.get_pointer(m["result_ptr"]) if m.get("result_ptr") else None
+                for m in metas]
+        rc = stop_process(procs["scheduler"])
+        wrc = stop_process(procs["worker"])
+    finally:
+        if conn is not None:
+            await conn.close()
+        for proc in procs.values():
+            stop_process(proc)
+    bad = {j: s for j, s in states.items() if s != "SUCCEEDED"}
+    if bad or any(d is None for d in docs):
+        raise AssertionError(f"jobs through the scheduler process: {bad}; see {logs}")
+    by_topic = sum(ran_on(m, "w-sched", topic) for m, (_, topic, _) in zip(metas, jobs))
+    if rc != 0:
+        raise AssertionError(f"SIGTERM: the scheduler exited {rc}; see {logs['scheduler']}")
+    with open(logs["scheduler"]) as f:
+        if "native strategy scan loaded" not in f.read():
+            raise AssertionError(f"the scheduler process did not load the native scan; "
+                                 f"see {logs['scheduler']}")
+    exit_doc = worker_exit_line(logs["worker"])
+    if wrc != 0 or exit_doc.get("cancelled_sessions") != 0:
+        raise AssertionError(f"SIGTERM: the worker exited {wrc}, {exit_doc}")
+    infer8 = iter(doc for _, doc in record["infer"])
+    embed8 = iter(doc for _, doc in record["embed1"])
+    gen8 = iter(zip(record["gen"], record["ties"]))
+    ties_n = 0
+    for (tag, _, payload), doc in zip(jobs, docs):
+        if tag == "echo" and (doc["echo"] != payload or doc["worker"] != "w-sched"):
+            raise AssertionError(f"echo through the scheduler process: {doc}")
+        if tag == "infer" and doc["next_tokens"] != next(infer8)["next_tokens"]:
+            raise AssertionError(f"infer through the scheduler process: {doc}")
+        if tag == "embed" and not np.array_equal(np.asarray(doc["embeddings"]),
+                                                 np.asarray(next(embed8)["embeddings"])):
+            raise AssertionError("embeddings through the scheduler process differ from phase 8's")
+        if tag == "gen":
+            (_, want), ties = next(gen8)
+            ties_n += len(ties)
+            compare_near_tie(doc["tokens"], want["tokens"], ties, "generate through the "
+                             "scheduler process")
+    log(f"[sched-proc] 16.4: statebus, scheduler and worker processes over TCP: {len(jobs)} "
+        f"jobs ({', '.join(sorted(set(t for t, _, _ in jobs)))}) SUCCEEDED through "
+        f"the scheduler in {wall:.1f} s ({by_topic} by the worker's topic) with phase 8's "
+        f"results ({ties_n} near-tie positions); "
+        f"SIGTERM: scheduler exit {rc}, worker exit {wrc}  [{card}]")
+    return rc, exit_doc
+
+
+def check_sched_process_launches(exit_doc, n_layers, n_layers_embed):
+    """16.4's worker process launched B1 once a layer a serving step and
+    B5 once a layer a flush."""
+    launches, steps = exit_doc["kernel_launches"], exit_doc["serving_steps"]
+    if not (launches["paged_attention"] == n_layers * steps > 0
+            and launches["embed_attention"] > 0
+            and launches["embed_attention"] % n_layers_embed == 0):
+        raise AssertionError(f"scheduler-process worker launches {launches} ({steps} steps)")
+    return launches
+
+
+def phase_scheduler_process(torch, dev, card, record8):
+    """16.4 on the card; returns the worker process's launches."""
+    import tempfile
+
+    from cordum_tpu_torch.models import llama
+    from cordum_tpu_torch.models.embedder import EmbedderConfig
+
+    with tempfile.TemporaryDirectory(prefix="cordum-sched-") as workdir:
+        _, exit_doc = asyncio.run(drive_scheduler_process(torch, dev, card, workdir, record8))
+    return check_sched_process_launches(exit_doc, llama.LlamaConfig.tiny().n_layers,
+                                        EmbedderConfig().n_layers)
+
+
 def build_kernels():
     """One ``nvcc`` per kernel source, all started together.  Returns each
     kernel row's source and each module's build log (empty where the
@@ -5528,8 +6291,8 @@ def main() -> int:
     bf16_launches, params8b, serve4 = phase_serve(torch, dev, smi, cfg8b)
     torch.cuda.empty_cache()
     kernel["embed_attention"] = phase_embed_kernel(torch, dev, smi)
-    worker, numbers6 = phase_worker(torch, dev, smi, fp32=(cfg32, params32, prompts, oracle),
-                                    bf16=(cfg8b, params8b))
+    worker, numbers6, (sched16, _) = phase_worker(
+        torch, dev, smi, fp32=(cfg32, params32, prompts, oracle), bf16=(cfg8b, params8b))
     del params32, params8b  # phase 7 needs the room
     gc.collect()  # whatever of the stopped workers sits in reference cycles
     torch.cuda.empty_cache()
@@ -5539,7 +6302,8 @@ def main() -> int:
     kernel.update(dense)
     gc.collect()
     torch.cuda.empty_cache()
-    proc = phase_worker_process(torch, dev, smi, numbers6)
+    proc, record8 = phase_worker_process(torch, dev, smi, numbers6)
+    sched_proc = phase_scheduler_process(torch, dev, smi, record8)
     gc.collect()
     torch.cuda.empty_cache()
     moe_rows, moe, moe_first_loss = phase_moe(torch, dev, smi)
@@ -5591,6 +6355,14 @@ def main() -> int:
     }
     # phase 11.4's serving leg runs B1 at full heads (fp32)
     launches["paged_attention"]["float32"] += pipe_b1
+    # phase 16: 16.1's and 16.2's jobs through the scheduler on phase 6's
+    # bf16 worker; 16.4's worker process serves phase 8's fp32 Llama and the
+    # bf16 embedder
+    for name in ("paged_attention", "embed_attention", "dense_attention_fwd"):
+        launches[name]["bfloat16"] += sched16[name]
+    launches["paged_attention"]["float32"] += sched_proc["paged_attention"]
+    launches["embed_attention"]["bfloat16"] += sched_proc["embed_attention"]
+    launches["dense_attention_fwd"]["float32"] += sched_proc["dense_attention_fwd"]
     # phase 12's rank processes, and 13.2's ring chunks' forward launches
     for name in ("dense_attention_fwd", "dense_attention_bwd"):
         for dtype in ("float32", "bfloat16"):

@@ -12,11 +12,18 @@ runs where no ``msgpack`` is installed.
   ``raw=False, strict_map_key=False`` do: str as str, bin as bytes, arrays
   as lists, maps as dicts with keys of any type, float32 and float64.  An
   ext type or a reserved byte raises :class:`FormatError`.
+* :func:`pack_record` and :func:`unpack_record` encode the job store's
+  records (event-log entries, safety decisions, approvals) as msgpack and
+  read them back, JSON records of older builds included;
+  :func:`dumps_env_json` and :func:`loads_env_json` own the JSON that
+  stays JSON (values embedded in worker env vars).  They write the bytes
+  the reference's codec (``cordum_tpu/infra/codec.py``) writes.
 """
 from __future__ import annotations
 
+import json
 import struct
-from typing import Any, Iterator
+from typing import Any, Iterator, Optional
 
 _B = struct.Struct(">B")
 _H = struct.Struct(">H")
@@ -287,3 +294,54 @@ class Unpacker:
         except OutOfData:
             raise StopIteration from None
 
+
+
+# ---------------------------------------------------------------------------
+# stored records and the env-var JSON contract
+# ---------------------------------------------------------------------------
+
+# records of older builds were json.dumps(dict): they start with one of
+# these bytes (after any whitespace), which msgpack would misread
+_JSON_HEADS = frozenset(b"{[\"")
+
+
+def pack_record(obj: Any) -> bytes:
+    """Encode a stored record (event-log entry, decision, approval)."""
+    return packb(obj)
+
+
+def unpack_record(b: bytes) -> Any:
+    """Decode a stored record written by this build (msgpack) or an older
+    one (JSON)."""
+    head = b.lstrip()[:1] if b else b""
+    if head and head[0] in _JSON_HEADS:
+        return json.loads(b)
+    return unpackb(b)
+
+
+_PARSE_CACHE: dict[str, Any] = {}
+_PARSE_CACHE_CAP = 256
+
+
+def dumps_env_json(obj: Any, *, sort_keys: bool = False) -> str:
+    """JSON for values embedded in worker env vars (CORDUM_POLICY_CONSTRAINTS
+    etc.): the env contract is JSON so that non-Python workers read it."""
+    return json.dumps(obj, sort_keys=sort_keys)
+
+
+def loads_env_json(s: str) -> Optional[Any]:
+    """Parse a JSON env-contract string, interning the result: the scheduler
+    sees the same effective-config string once per job, so the parse is
+    cached by the exact string.  Callers treat the returned object as
+    read-only (it is shared across calls).  None on invalid JSON."""
+    hit = _PARSE_CACHE.get(s)
+    if hit is not None:
+        return hit
+    try:
+        parsed = json.loads(s)
+    except (ValueError, TypeError):
+        return None
+    if len(_PARSE_CACHE) >= _PARSE_CACHE_CAP:
+        _PARSE_CACHE.clear()  # tiny cache; a wholesale reset is fine
+    _PARSE_CACHE[s] = parsed
+    return parsed

@@ -1,13 +1,17 @@
-"""Static configuration a worker process reads: env vars (:func:`load`) and
-the pools file (:func:`load_pool_config`), as the reference reads them
-(``cordum_tpu/infra/config.py``).
+"""Static configuration: env vars (:func:`load`), the pools file
+(:func:`load_pool_config`) and the timeouts file (:func:`load_timeouts`),
+as the reference reads them (``cordum_tpu/infra/config.py``).
 
-A pool stanza carries the micro-batching and serving limits of the
-pool's workers.  The reference also validates the document against its
-JSON schema before it parses it; the port parses the same keys with the
-same casts and leaves schema validation to the control plane that loads
-the file (a value that cannot be cast raises, and the worker binary then
-warns and boots on its built-in defaults, as the reference does).
+A pool stanza carries the slice constraints the scheduler's strategy
+checks against worker heartbeats (``requires``, ``min_chips``,
+``topology``, ``device_kind``) and the micro-batching and serving limits of
+the pool's workers.  The timeouts file is validated against its JSON
+schema (:mod:`.configschema`) before it is parsed, as the reference
+validates it.  The pools file is parsed with the reference's keys and
+casts but not validated against its schema: the worker binary reads it at
+boot, where importing ``jsonschema`` costs seconds.  A value that cannot
+be cast raises, and the worker binary then warns and boots on its
+built-in defaults, as the reference's does.
 """
 from __future__ import annotations
 
@@ -152,3 +156,48 @@ def load_pool_config(path: str) -> PoolConfig:
         return parse_pool_config({"topics": {"job.default": "default"}, "pools": {"default": {}}})
     with open(path) as f:
         return parse_pool_config(yaml.safe_load(f) or {})
+
+
+@dataclass
+class Timeouts:
+    dispatch_timeout_s: float = 300.0
+    running_timeout_s: float = 9000.0
+    scan_interval_s: float = 30.0
+    # how long a job may sit PENDING before the replayer re-drives it.
+    # Deliberately much shorter than dispatch_timeout_s: a PENDING job whose
+    # submit exhausted its bus redeliveries (tenant-concurrency backpressure
+    # on a burst, or its owner shard being down) is safe to replay early —
+    # the job lock + in-flight short-circuit make replays idempotent.
+    pending_replay_s: float = 15.0
+    # how long a job may sit DISPATCHED/RUNNING before the replayer
+    # re-delivers it to its dispatch subject.  The worker side is
+    # idempotent (in-flight redeliveries dropped, completed jobs republish
+    # the cached result), so this is a result-replay request: it recovers
+    # dispatches and terminal results lost to a statebus failover window
+    # without re-running work.
+    result_replay_s: float = 20.0
+    per_workflow: dict[str, float] = field(default_factory=dict)
+    per_topic: dict[str, float] = field(default_factory=dict)
+
+
+def parse_timeouts(doc: dict, *, source: str = "timeouts") -> Timeouts:
+    from .configschema import TIMEOUTS_SCHEMA, validate
+
+    validate(doc, TIMEOUTS_SCHEMA, source)
+    t = Timeouts()
+    rec = doc.get("reconciler") or {}
+    t.dispatch_timeout_s = float(rec.get("dispatch_timeout_seconds", t.dispatch_timeout_s))
+    t.running_timeout_s = float(rec.get("running_timeout_seconds", t.running_timeout_s))
+    t.scan_interval_s = float(rec.get("scan_interval_seconds", t.scan_interval_s))
+    t.pending_replay_s = float(rec.get("pending_replay_seconds", t.pending_replay_s))
+    t.result_replay_s = float(rec.get("result_replay_seconds", t.result_replay_s))
+    t.per_workflow = {k: float(v) for k, v in (doc.get("workflows") or {}).items()}
+    t.per_topic = {k: float(v) for k, v in (doc.get("topics") or {}).items()}
+    return t
+
+
+def load_timeouts(path: str) -> Timeouts:
+    if not os.path.exists(path):
+        return Timeouts()
+    with open(path) as f:
+        return parse_timeouts(yaml.safe_load(f) or {}, source=path)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import asyncio
 import time
-from typing import Any, Optional
+from typing import Any, Iterable, Optional
 
 POINTER_SCHEME = "kv://"
 
@@ -32,6 +32,110 @@ def key_from_pointer(ptr: str) -> str:
         if ptr.startswith(scheme):
             return ptr[len(scheme):]
     return ptr
+
+
+class TxnConflict(Exception):
+    """Optimistic transaction lost the race; caller retries."""
+
+
+# Mutating ops a Pipeline may buffer (superset of the old commit() op table).
+# frozenset: membership checks sit on the scheduler hot path (one per
+# buffered op), and a tuple scan was measurable at bench job rates.
+PIPELINE_OPS = frozenset((
+    "set", "delete", "hset", "hdel", "zadd", "zrem", "rpush", "ltrim",
+    "sadd", "expire", "del_eq",
+))
+
+
+class Pipeline:
+    """Buffered multi-op batch with optional version watches.
+
+    Ops are queued client-side and applied in ONE backend round trip:
+    ``MemoryKV`` executes the whole batch inside a single lock acquisition;
+    ``StateBusKV`` ships it as a single ``PIPE`` wire frame that the server
+    applies atomically (the Redis MULTI/EXEC + pipelining equivalent the
+    reference job store leans on for its hot path).
+
+    ``watch(key, version)`` turns the batch into an optimistic transaction:
+    it applies iff every watched key still carries the given version
+    (version 0 = key absent).  ``execute()`` returns True on success and
+    False on conflict; after a successful execute, ``new_versions`` maps
+    each watched key to its post-commit version so chained transactions on
+    the same key need no re-read round trip.
+
+    Ops are validated (by name) before anything is applied — an unknown op
+    rejects the WHOLE batch with ``ValueError`` and leaves state untouched.
+    """
+
+    __slots__ = ("_kv", "_watches", "_ops", "new_versions")
+
+    def __init__(self, kv: "KV") -> None:
+        self._kv = kv
+        self._watches: dict[str, int] = {}
+        self._ops: list[tuple] = []
+        self.new_versions: dict[str, int] = {}
+
+    def __len__(self) -> int:
+        return len(self._ops)
+
+    @property
+    def ops(self) -> list[tuple]:
+        return list(self._ops)
+
+    def watch(self, key: str, version: int) -> "Pipeline":
+        self._watches[key] = version
+        return self
+
+    def op(self, name: str, *args: Any) -> "Pipeline":
+        if name not in PIPELINE_OPS:
+            raise ValueError(f"op {name!r} is not pipelineable")
+        self._ops.append((name, *args))
+        return self
+
+    def extend(self, ops: Iterable[tuple]) -> "Pipeline":
+        for o in ops:
+            self.op(*o)
+        return self
+
+    # buffered op builders ------------------------------------------------
+    def set(self, key: str, value: bytes, ttl_s: Optional[float] = None) -> "Pipeline":
+        return self.op("set", key, value, ttl_s)
+
+    def delete(self, *keys: str) -> "Pipeline":
+        return self.op("delete", *keys)
+
+    def del_eq(self, key: str, expect: bytes) -> "Pipeline":
+        return self.op("del_eq", key, expect)
+
+    def hset(self, key: str, mapping: dict[str, bytes]) -> "Pipeline":
+        return self.op("hset", key, mapping)
+
+    def hdel(self, key: str, *fields: str) -> "Pipeline":
+        return self.op("hdel", key, *fields)
+
+    def zadd(self, key: str, member: str, score: float) -> "Pipeline":
+        return self.op("zadd", key, member, score)
+
+    def zrem(self, key: str, *members: str) -> "Pipeline":
+        return self.op("zrem", key, *members)
+
+    def rpush(self, key: str, *values: bytes) -> "Pipeline":
+        return self.op("rpush", key, *values)
+
+    def ltrim(self, key: str, start: int, stop: int) -> "Pipeline":
+        return self.op("ltrim", key, start, stop)
+
+    def sadd(self, key: str, *members: str) -> "Pipeline":
+        return self.op("sadd", key, *members)
+
+    def expire(self, key: str, ttl_s: float) -> "Pipeline":
+        return self.op("expire", key, ttl_s)
+
+    async def execute(self) -> bool:
+        ok, versions = await self._kv.pipe_execute(dict(self._watches), list(self._ops))
+        self.new_versions = versions
+        return ok
+
 
 
 class KV:
@@ -156,7 +260,19 @@ class KV:
         conflict (the WATCH-abort equivalent)."""
         raise NotImplementedError
 
-    # batched commits ---------------------------------------------------
+    # pipelining ----------------------------------------------------------
+    def pipeline(self) -> Pipeline:
+        """Start a buffered multi-op batch (see :class:`Pipeline`)."""
+        return Pipeline(self)
+
+    def pipe_group(self, key: str) -> int:
+        """Grouping hint for CROSS-KEY pipelined commits: keys mapping to the
+        same group may be folded into one ``pipe_execute`` and commit
+        atomically (the scheduler's tick batching relies on this).  Single-
+        server stores put every key in group 0; the partitioned client
+        returns the key's partition index."""
+        return 0
+
     async def pipe_execute(
         self, watches: dict[str, int], ops: list[tuple]
     ) -> tuple[bool, dict[str, int]]:
