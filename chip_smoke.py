@@ -303,6 +303,41 @@ Every phase raises on failure.  Phases:
     (tokens under the near-tie rule, next tokens and one-text embeddings
     equal); SIGTERM stops the scheduler with exit 0; every process is
     stopped on every path.
+17. The API gateway, run right after phase 16 on phase 6's bf16 worker,
+    and after 16.4 as processes.  The port's ``Gateway`` is built as
+    ``python -m cordum_tpu_torch.cmd.gateway`` builds it (the embedded
+    ``SafetyKernel``, the embedded workflow engine, the ``ContextService``
+    whose embeds leave as ``embed`` jobs through ``BusEmbedder``), beside
+    a workflow engine service as ``python -m
+    cordum_tpu_torch.cmd.workflow_engine`` builds it and a scheduler built
+    as phase 16's; it listens on 127.0.0.1 and this script is its HTTP
+    client.
+    The pools are phase 16's with ``job.tpu.>`` (``BusEmbedder``'s topic,
+    the reference's) routed to pool ``gpu`` too.  (1) Phase 6's
+    ``llm.generate`` jobs over ``POST /api/v1/jobs``, one at a time: the
+    tokens equal 16.1's direct and scheduled tokens bit for bit, and B1
+    launches as often as in 16.1.  (2) Sixteen chunks (one embed job)
+    over ``PUT /api/v1/context/chunks`` and a RAG window over ``POST
+    /api/v1/context/window``: the stored vectors equal the same texts'
+    ``embed`` job sent straight to the worker bit for bit, the window ranks
+    the chunks by their cosine to the query's vector, and B5 launches as
+    often as on the direct path; then a workflow (``context.update``,
+    ``context.window``, ``llm.generate``) over ``POST /api/v1/workflows``
+    and its run: SUCCEEDED, the run's memory holds the same vectors, B5
+    and B1 launched; then 256 chunks for context embeds/s, within 2e-2 of
+    the plain-version embedder.  (3) 16.3's fleet of 1000 synthetic
+    workers and 5000 ``echo`` jobs (a quarter of 16.3's backlog, for the
+    time limit) over ``POST /api/v1/jobs:batch`` in batches of 256: each
+    accepted, dispatched once and SUCCEEDED once.  Prints accepted and
+    scheduled jobs/s, dispatch→result p50 and p99 and context embeds/s,
+    each beside the card's name and power limit.  (4) The port's
+    statebus, scheduler, workflow engine, gateway and worker (16.4's
+    config) as processes over TCP: 16.4's jobs over HTTP complete with
+    phase 8's results, each dispatched once; a context window's embeds
+    and a workflow with ``context.*`` steps run on the worker process (its
+    ``embed`` job's vectors bit for bit; the workflow's tokens under the
+    near-tie rule); SIGTERM stops every process with exit 0; every
+    process is stopped on every path.
 
 Tolerances (kernel vs plain version, max abs error), paged attention:
 fp32 1e-4 — the sums run in another order over up to 8192 keys, on O(1)
@@ -1291,12 +1326,14 @@ async def drive_fp32_worker(torch, dev, card, cfg, params, prompts, oracle, *, n
 async def drive_bf16_worker(torch, dev, card, cfg, params, *, n_new=16, then=None):
     """Llama-3-8B bf16 (phase 4's weights) and the default bf16 embedder
     behind a port worker: every op of the table through the bus.  ``then``,
-    when given, is awaited with the worker, the dispatcher and the record
-    of the jobs (phase 16) before the worker stops; its result is returned
-    third."""
+    when given, is awaited with the worker, the dispatcher, the record of
+    the jobs and the worker's compute (phases 16 and 17) before the worker
+    stops; its result is returned third."""
     # the worker binary's default topics: phase 16's scheduler sends a job
-    # there when the worker's heartbeat reads overloaded (a busy duty cycle)
-    w, compute, sched = make_port_worker(torch, dev, "w-bf16", topics=["job.gpu.>"],
+    # there when the worker's heartbeat reads overloaded (a busy duty
+    # cycle); job.tpu.embed is the context service's embed topic (phase 17)
+    w, compute, sched = make_port_worker(torch, dev, "w-bf16",
+                                          topics=["job.gpu.>", GATEWAY_EMBED_TOPIC],
                                           llama_cfg=cfg, llama_params=params)
     await sched.start()
     await w.start()
@@ -1368,7 +1405,7 @@ async def drive_bf16_worker(torch, dev, card, cfg, params, *, n_new=16, then=Non
         record = {"infer": list(zip(infer_jobs, (doc for _, doc in infer))),
                   "embed1": [({"op": "embed", "texts": single_texts[jid]}, doc) for jid, doc in single],
                   "gen": list(zip(gen_jobs, (doc for _, doc in gens)))}
-        after = None if then is None else await then(w, sched, record)
+        after = None if then is None else await then(w, sched, record, compute)
     finally:
         await w.stop()
     return launches, numbers, after
@@ -1415,14 +1452,18 @@ async def profile_embeds(torch, card, sched, texts):
 def phase_worker(torch, dev, card, *, fp32, bf16, n_new=16):
     """``fp32`` = (cfg, params, prompts, oracle) of phase 3; ``bf16`` =
     (cfg, params) of phase 4.  Returns each dtype's main-path launches, the
-    bf16 worker's end-to-end numbers and phase 16.1-16.3's launches and
-    numbers (run on the bf16 worker)."""
+    bf16 worker's end-to-end numbers, phase 16.1-16.3's launches and
+    numbers and phase 17.1-17.3's launches and numbers (both run on the
+    bf16 worker)."""
     cfg32, params32, prompts, oracle = fp32
     launches32 = asyncio.run(drive_fp32_worker(torch, dev, card, cfg32, params32, prompts,
                                                oracle, n_new=n_new))
 
-    async def scheduler(w, sched, record):
-        return await phase_scheduler(torch, dev, card, w, sched, record)
+    async def scheduler(w, sched, record, compute):
+        seen = {}
+        launches, cluster = await phase_scheduler(torch, dev, card, w, sched, record, out=seen)
+        return launches, cluster, await phase_gateway(torch, dev, card, w, sched, compute,
+                                                      record, seen)
 
     launches16, numbers, sched16 = asyncio.run(drive_bf16_worker(
         torch, dev, card, *bf16, n_new=n_new, then=scheduler))
@@ -6016,10 +6057,12 @@ async def sched_cluster(stack, *, n_workers=SCHED_WORKERS, n_jobs=SCHED_JOBS,
     return numbers
 
 
-async def phase_scheduler(torch, dev, card, w, dispatcher, record, **cluster_kw):
+async def phase_scheduler(torch, dev, card, w, dispatcher, record, *, out=None, **cluster_kw):
     """16.1-16.3 on phase 6's bf16 worker ``w``; returns the launches of
     16.1's scheduled jobs and 16.2's approved one, and 16.3's numbers
-    (``cluster_kw`` sizes 16.3 for a rehearsal)."""
+    (``cluster_kw`` sizes 16.3 for a rehearsal).  ``out``, when given,
+    receives 16.1's tokens of each generate prompt, scheduled and direct,
+    and its launches, scheduled and direct (phase 17 is held to them)."""
     from cordum_tpu_torch.infra.kv import MemoryKV
 
     kv = dispatcher.store.kv
@@ -6038,6 +6081,10 @@ async def phase_scheduler(torch, dev, card, w, dispatcher, record, **cluster_kw)
         main, tokens, by_topic = await sched_main_path(torch, dev, stack, w.worker_id, record,
                                                        direct, want)
         main_s = time.monotonic() - t0
+        if out is not None:
+            gens = [(p, d) for (tag, p), d in zip(sched_payloads(record), direct) if tag == "gen"]
+            out.update(tokens=tokens, main=main, want=want,
+                       direct_tokens={tuple(p["tokens"]): d["tokens"] for p, d in gens})
         gen = record["gen"][0][0]
         gate = await sched_policy_gate(torch, dev, stack, w.worker_id, gen,
                                        tokens[tuple(gen["tokens"])])
@@ -6179,29 +6226,36 @@ async def drive_scheduler_process(torch, dev, card, workdir, record, *, timeout_
     exit_doc = worker_exit_line(logs["worker"])
     if wrc != 0 or exit_doc.get("cancelled_sessions") != 0:
         raise AssertionError(f"SIGTERM: the worker exited {wrc}, {exit_doc}")
-    infer8 = iter(doc for _, doc in record["infer"])
-    embed8 = iter(doc for _, doc in record["embed1"])
-    gen8 = iter(zip(record["gen"], record["ties"]))
-    ties_n = 0
-    for (tag, _, payload), doc in zip(jobs, docs):
-        if tag == "echo" and (doc["echo"] != payload or doc["worker"] != "w-sched"):
-            raise AssertionError(f"echo through the scheduler process: {doc}")
-        if tag == "infer" and doc["next_tokens"] != next(infer8)["next_tokens"]:
-            raise AssertionError(f"infer through the scheduler process: {doc}")
-        if tag == "embed" and not np.array_equal(np.asarray(doc["embeddings"]),
-                                                 np.asarray(next(embed8)["embeddings"])):
-            raise AssertionError("embeddings through the scheduler process differ from phase 8's")
-        if tag == "gen":
-            (_, want), ties = next(gen8)
-            ties_n += len(ties)
-            compare_near_tie(doc["tokens"], want["tokens"], ties, "generate through the "
-                             "scheduler process")
+    ties_n = check_process_docs(jobs, docs, record, "w-sched", "the scheduler process")
     log(f"[sched-proc] 16.4: statebus, scheduler and worker processes over TCP: {len(jobs)} "
         f"jobs ({', '.join(sorted(set(t for t, _, _ in jobs)))}) SUCCEEDED through "
         f"the scheduler in {wall:.1f} s ({by_topic} by the worker's topic) with phase 8's "
         f"results ({ties_n} near-tie positions); "
         f"SIGTERM: scheduler exit {rc}, worker exit {wrc}  [{card}]")
     return rc, exit_doc
+
+
+def check_process_docs(jobs, docs, record, worker_id, what):
+    """16.4's jobs' results ``docs`` against phase 8's ``record``: echoes
+    from ``worker_id``, next tokens and one-text embeddings equal, tokens
+    under the near-tie rule.  Returns the number of near-tie positions."""
+    infer8 = iter(doc for _, doc in record["infer"])
+    embed8 = iter(doc for _, doc in record["embed1"])
+    gen8 = iter(zip(record["gen"], record["ties"]))
+    ties_n = 0
+    for (tag, _, payload), doc in zip(jobs, docs):
+        if tag == "echo" and (doc["echo"] != payload or doc["worker"] != worker_id):
+            raise AssertionError(f"echo through {what}: {doc}")
+        if tag == "infer" and doc["next_tokens"] != next(infer8)["next_tokens"]:
+            raise AssertionError(f"infer through {what}: {doc}")
+        if tag == "embed" and not np.array_equal(np.asarray(doc["embeddings"]),
+                                                 np.asarray(next(embed8)["embeddings"])):
+            raise AssertionError(f"embeddings through {what} differ from phase 8's")
+        if tag == "gen":
+            (_, want), ties = next(gen8)
+            ties_n += len(ties)
+            compare_near_tie(doc["tokens"], want["tokens"], ties, f"generate through {what}")
+    return ties_n
 
 
 def check_sched_process_launches(exit_doc, n_layers, n_layers_embed):
@@ -6224,6 +6278,536 @@ def phase_scheduler_process(torch, dev, card, record8):
 
     with tempfile.TemporaryDirectory(prefix="cordum-sched-") as workdir:
         _, exit_doc = asyncio.run(drive_scheduler_process(torch, dev, card, workdir, record8))
+    return check_sched_process_launches(exit_doc, llama.LlamaConfig.tiny().n_layers,
+                                        EmbedderConfig().n_layers)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the API gateway
+# ---------------------------------------------------------------------------
+
+#: the context service's embed topic (``BusEmbedder``'s default, the
+#: reference's); phase 17's pools route it to pool ``gpu`` with phase 16's
+GATEWAY_EMBED_TOPIC = "job.tpu.embed"
+GATEWAY_POOLS = {"topics": {**SCHED_POOLS["topics"], "job.tpu.>": "gpu"},
+                 "pools": SCHED_POOLS["pools"]}
+GATEWAY_KEY, GATEWAY_ADMIN_KEY = "phase17-key", "phase17-admin"
+#: 17.2: chunks of one embed job (``BusEmbedder`` sends 16 texts a job),
+#: then the chunks behind the embeds/s reading
+GATEWAY_CHUNKS, GATEWAY_EMBED_TEXTS = 16, 256
+#: 17.3: the backlog (a quarter of 16.3's, cut for the time limit) and the
+#: bulk route's batch (the gateway's ``MAX_BULK_JOBS``)
+GATEWAY_JOBS, GATEWAY_BULK = 5000, 256
+GATEWAY_TIMEOUT_S = 300.0
+GATEWAY_QUERY = "which agent recalls the workflow context"
+
+
+class GatewayStack:
+    """The port's gateway as ``cmd/gateway.py`` builds it, in this process
+    over ``bus`` and ``kv``: the embedded ``SafetyKernel`` on
+    ``policy_doc``, the embedded workflow engine and the ``ContextService``
+    whose embedder is a ``BusEmbedder``; beside it the workflow engine's
+    result service as ``cmd/workflow_engine.py`` builds it."""
+
+    def __init__(self, bus, kv, *, policy_doc):
+        from cordum_tpu_torch.context.service import BusEmbedder, ContextService
+        from cordum_tpu_torch.controlplane.gateway.app import Gateway
+        from cordum_tpu_torch.controlplane.gateway.auth import BasicAuthProvider
+        from cordum_tpu_torch.controlplane.safetykernel.kernel import SafetyKernel
+        from cordum_tpu_torch.controlplane.workflowengine.service import WorkflowEngineService
+        from cordum_tpu_torch.infra.configsvc import ConfigService
+        from cordum_tpu_torch.infra.jobstore import JobStore
+        from cordum_tpu_torch.infra.memstore import MemoryStore
+        from cordum_tpu_torch.infra.metrics import Metrics
+        from cordum_tpu_torch.infra.registry import WorkerRegistry
+        from cordum_tpu_torch.infra.schemareg import SchemaRegistry
+        from cordum_tpu_torch.workflow.engine import Engine as WorkflowEngine
+        from cordum_tpu_torch.workflow.store import WorkflowStore
+
+        configsvc = ConfigService(kv)
+        self.kernel = SafetyKernel(policy_doc=policy_doc, configsvc=configsvc)
+        self.mem, self.kv = MemoryStore(kv), kv
+        wf_store, schemas = WorkflowStore(kv), SchemaRegistry(kv)
+        self.embedders = [BusEmbedder(bus, self.mem), BusEmbedder(bus, self.mem)]
+        self.context = ContextService(kv, embedder=self.embedders[0])
+        metrics = Metrics()
+        wf_engine = WorkflowEngine(store=wf_store, bus=bus, mem=self.mem, schemas=schemas,
+                                   configsvc=configsvc, instance_id="gateway-wf",
+                                   metrics=metrics, context_svc=self.context)
+        self.gateway = Gateway(
+            kv=kv, bus=bus, job_store=JobStore(kv), mem=self.mem, kernel=self.kernel,
+            metrics=metrics, wf_store=wf_store, wf_engine=wf_engine, schemas=schemas,
+            configsvc=configsvc, registry=WorkerRegistry(), context_svc=self.context,
+            auth=BasicAuthProvider([GATEWAY_KEY], admin_keys=[GATEWAY_ADMIN_KEY]))
+        self.wf_service = WorkflowEngineService(
+            engine=WorkflowEngine(store=wf_store, bus=bus, mem=self.mem, schemas=schemas,
+                                  configsvc=configsvc, metrics=Metrics(),
+                                  context_svc=ContextService(kv, embedder=self.embedders[1])),
+            bus=bus, job_store=JobStore(kv))
+        self.port = free_port()
+        self.url = f"http://127.0.0.1:{self.port}"
+
+    async def start(self):
+        await self.kernel.reload()
+        await self.wf_service.start()
+        await self.gateway.start("127.0.0.1", self.port)
+
+    async def stop(self):
+        await self.gateway.stop()
+        await self.wf_service.stop()
+        for e in self.embedders:
+            await e.stop()
+
+
+class GatewayClient:
+    """An HTTP client of the gateway at ``url`` (aiohttp, one session)."""
+
+    def __init__(self, url, key=GATEWAY_KEY):
+        self.url, self.key = url, key
+        self.http = None
+
+    async def __aenter__(self):
+        import aiohttp
+
+        self.http = aiohttp.ClientSession(headers={"X-Api-Key": self.key},
+                                          timeout=aiohttp.ClientTimeout(total=GATEWAY_TIMEOUT_S))
+        return self
+
+    async def __aexit__(self, *exc):
+        await self.http.close()
+
+    async def call(self, method, path, want=200, **kw):
+        async with self.http.request(method, self.url + path, **kw) as r:
+            doc = await r.json()
+            if r.status != want:
+                raise AssertionError(f"{method} {path}: {r.status} {doc}")
+            return doc
+
+    async def submit(self, job_id, topic, payload, **body):
+        doc = await self.call("POST", "/api/v1/jobs", 202, json={
+            "job_id": job_id, "topic": topic, "payload": payload, **body})
+        if doc.get("job_id") != job_id or doc.get("state") != "PENDING":
+            raise AssertionError(f"submit {job_id}: {doc}")
+        return doc
+
+    async def wait_job(self, job_id, timeout_s=GATEWAY_TIMEOUT_S):
+        """The job's document once it is terminal (its result and events
+        read back through the gateway); raises unless it SUCCEEDED."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            doc = await self.call("GET", f"/api/v1/jobs/{job_id}?result=true&events=true")
+            if doc.get("state") in ("SUCCEEDED", "FAILED", "DENIED", "CANCELLED", "TIMEOUT"):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{job_id} not terminal after {timeout_s} s: {doc}")
+            await asyncio.sleep(0.01)
+        if doc["state"] != "SUCCEEDED" or "result" not in doc:
+            raise AssertionError(f"{job_id}: {doc}")
+        once = [sum(e.get("state") == s for e in doc["events"]) for s in ("DISPATCHED", "SUCCEEDED")]
+        if once != [1, 1]:
+            raise AssertionError(f"{job_id}: dispatched and SUCCEEDED {once} times")
+        return doc
+
+    async def run_workflow(self, wf, run_input, timeout_s=GATEWAY_TIMEOUT_S):
+        """Register ``wf``, start a run and wait for its end; returns the
+        run's document (raises unless it SUCCEEDED)."""
+        await self.call("POST", "/api/v1/workflows", 201, json=wf)
+        run_id = (await self.call("POST", f"/api/v1/workflows/{wf['id']}/runs", 202,
+                                  json={"input": run_input}))["run_id"]
+        deadline = time.monotonic() + timeout_s
+        while True:
+            run = await self.call("GET", f"/api/v1/runs/{run_id}")
+            if run["status"] in ("SUCCEEDED", "FAILED", "CANCELLED"):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"run {run_id} not done after {timeout_s} s: {run}")
+            await asyncio.sleep(0.02)
+        if run["status"] != "SUCCEEDED":
+            raise AssertionError(f"run {run_id}: {run['status']} {run.get('error')} "
+                                 f"{ {k: s.get('error') for k, s in run['steps'].items()} }")
+        return run
+
+
+def context_workflow(wf_id, texts, prompt, n_new):
+    """17.2's agent loop: index ``texts`` in the run's memory, read a RAG
+    window for ``GATEWAY_QUERY``, then generate from ``prompt``."""
+    return {"id": wf_id, "name": "phase 17 agent loop", "steps": {
+        "remember": {"topic": "job.gpu.context", "input": {
+            "op": "context.update", "user_payload": GATEWAY_QUERY,
+            "chunks": [{"file_path": f"doc{i}", "content": t} for i, t in enumerate(texts)]}},
+        "recall": {"topic": "job.gpu.context", "depends_on": ["remember"], "input": {
+            "op": "context.window", "mode": "RAG", "query": GATEWAY_QUERY}},
+        "answer": {"topic": "job.gpu.llm.generate", "depends_on": ["recall"], "input": {
+            "op": "llm.generate", "tokens": prompt, "max_new_tokens": n_new}}}}
+
+
+async def stored_vectors(kv, memory_id, texts):
+    """The context service's vectors of chunks ``texts`` (``doc<i>``) in
+    ``memory_id``, as it stored them in the KV."""
+    from cordum_tpu_torch.context.service import _chunk_hash
+
+    out = []
+    for i, t in enumerate(texts):
+        b = await kv.get(f"mem:{memory_id}:embed:{_chunk_hash({'file_path': f'doc{i}', 'content': t})}")
+        if b is None:
+            raise AssertionError(f"{memory_id}: chunk doc{i} was never embedded")
+        out.append(np.frombuffer(b, np.float32))
+    return np.stack(out)
+
+
+def check_window(window, chunk_vecs, query_vec, texts):
+    """The RAG window's chunks are the top ten by cosine to the query, in
+    order, with the scores the service prints; the query ends it."""
+    q = np.asarray(query_vec, np.float32)
+    scores = [float(q @ v) / (float(np.linalg.norm(q) * np.linalg.norm(v)) or 1.0)
+              for v in chunk_vecs]
+    order = sorted(range(len(texts)), key=lambda i: scores[i], reverse=True)[:10]
+    rag = [m for m in window if m["source"].startswith("rag:")]
+    want = [(f"[doc{i}] {texts[i]}", f"rag:{scores[i]:.3f}") for i in order]
+    if [(m["content"], m["source"]) for m in rag] != want or window[-1]["content"] != GATEWAY_QUERY:
+        raise AssertionError(f"RAG window {[(m['content'][:20], m['source']) for m in window]}, "
+                             f"want {[(c[:20], s) for c, s in want]}")
+
+
+async def gateway_generate(client, record, seen):
+    """17.1: phase 6's generate jobs over HTTP, one at a time; returns the
+    launches.  Tokens equal 16.1's scheduled and direct tokens, B1's
+    launches 16.1's."""
+    zero_launches()
+    for i, (payload, _) in enumerate(record["gen"]):
+        jid = f"gw17-gen-{i}"
+        await client.submit(jid, "job.gpu.llm.generate", payload)
+        doc = await client.wait_job(jid)
+        key = tuple(payload["tokens"])
+        if not (doc["result"]["tokens"] == seen["tokens"][key] == seen["direct_tokens"][key]):
+            raise AssertionError(f"{jid}: tokens {doc['result']['tokens']} over HTTP, 16.1 "
+                                 f"scheduled {seen['tokens'][key]}, direct "
+                                 f"{seen['direct_tokens'][key]}")
+    return read_launches()
+
+
+async def gateway_context(torch, dev, stack, client, compute, record, direct):
+    """17.2: chunks and a window over HTTP, then the agent-loop workflow,
+    then 256 chunks for embeds/s.  ``direct`` holds the chunk texts, their
+    vectors and the query's from embed jobs sent straight to the worker,
+    and those jobs' launches.  Returns the launches and the numbers."""
+    texts, vecs, qvec, want = direct
+    zero_launches()
+    doc = await client.call("PUT", "/api/v1/context/chunks/gw17", json={
+        "chunks": [{"file_path": f"doc{i}", "content": t} for i, t in enumerate(texts)]})
+    window = (await client.call("POST", "/api/v1/context/window", json={
+        "memory_id": "gw17", "mode": "RAG", "payload": GATEWAY_QUERY}))["messages"]
+    sync(torch, dev)
+    http = read_launches()
+    got = await stored_vectors(stack.kv, "gw17", texts)
+    if doc != {"embedded": len(texts)} or not np.array_equal(got, vecs):
+        raise AssertionError(f"chunk vectors over HTTP differ from the direct embed job's "
+                             f"(max {float(np.abs(got - vecs).max()):.3e}); {doc}")
+    check_window(window, got, qvec, texts)
+    if http["embed_attention"] != want["embed_attention"] or not http["embed_attention"]:
+        raise AssertionError(f"embed_attention: {http['embed_attention']} launches over HTTP, "
+                             f"{want['embed_attention']} direct")
+    gen_payload = record["gen"][0][0]
+    zero_launches()
+    run = await client.run_workflow(
+        context_workflow("agent17", texts, gen_payload["tokens"], gen_payload["max_new_tokens"]),
+        {})
+    sync(torch, dev)
+    flow = read_launches()
+    memory = run["context"]["steps"]["remember"]["memory_id"]
+    recall = run["context"]["steps"]["recall"]
+    tokens = run["context"]["steps"]["answer"].get("tokens") or []
+    if not np.array_equal(await stored_vectors(stack.kv, memory, texts), vecs):
+        raise AssertionError("the workflow's chunk vectors differ from the direct embed job's")
+    check_window(recall["messages"], vecs, qvec, texts)
+    if (flow["embed_attention"] != want["embed_attention"] or not flow["paged_attention"]
+            or len(tokens) != gen_payload["max_new_tokens"]):
+        raise AssertionError(f"agent loop: launches {flow}, {len(tokens)} tokens")
+    rng = np.random.default_rng(SEED + 18)
+    many = make_texts(rng, GATEWAY_EMBED_TEXTS, 70, 126)
+    zero_launches()
+    jobs0 = stack.embedders[0].jobs_total
+    t0 = time.monotonic()
+    await client.call("PUT", "/api/v1/context/chunks/gw17-many", json={
+        "chunks": [{"file_path": f"doc{i}", "content": t} for i, t in enumerate(many)]})
+    wall = time.monotonic() - t0
+    sync(torch, dev)
+    bulk = read_launches()
+    err = float(np.abs(await stored_vectors(stack.kv, "gw17-many", many)
+                       - plain_embeddings(torch, compute.embedder, many)).max())
+    if not err <= EMBED_ATOL["bfloat16"] or not bulk["embed_attention"]:
+        raise AssertionError(f"256 chunks over HTTP: max abs err {err}, launches {bulk}")
+    launches = {k: http[k] + flow[k] + bulk[k] for k in http}
+    return launches, {"context embeds/s": len(many) / wall,
+                      "context embed jobs": stack.embedders[0].jobs_total - jobs0,
+                      "embed max abs err": err, "workflow memory": memory,
+                      "window messages": len(window)}
+
+
+async def gateway_backlog(stack, client, n_jobs, *, timeout_s=SCHED_TIMEOUT_S):
+    """17.3's backlog over ``POST /api/v1/jobs:batch``; checks each job was
+    accepted, dispatched once and SUCCEEDED once; returns the numbers."""
+    from cordum_tpu_torch.infra.jobstore import index_key
+    from cordum_tpu_torch.protocol import subjects as subj
+
+    js, bus = stack.job_store, stack.bus
+    shapes = sched_requests(n_jobs, seed=SEED + 19)
+    ids = [f"fleet17-{i:05d}" for i in range(n_jobs)]
+    mark = len(bus.published)
+    done0 = await js.kv.zcard(index_key("SUCCEEDED"))
+    t0 = time.time()
+    for lo in range(0, n_jobs, GATEWAY_BULK):
+        batch = [{"job_id": jid, "topic": topic, "payload": {"op": "echo", "job": jid},
+                  "metadata": {"requires": list(requires)}}
+                 for jid, (topic, requires) in zip(ids[lo:lo + GATEWAY_BULK],
+                                                   shapes[lo:lo + GATEWAY_BULK])]
+        doc = await client.call("POST", "/api/v1/jobs:batch", 202, json={"jobs": batch})
+        if doc["accepted"] != len(batch):
+            raise AssertionError(f"bulk submit: {doc['rejected']} of {len(batch)} rejected: "
+                                 f"{[j for j in doc['jobs'] if 'error' in j][:3]}")
+    accepted_s = time.time() - t0
+    deadline = time.monotonic() + timeout_s
+    while await js.kv.zcard(index_key("SUCCEEDED")) - done0 < n_jobs:
+        if time.monotonic() > deadline:
+            break
+        await asyncio.sleep(0.02)
+    await bus.drain()
+    states = await asyncio.gather(*(js.get_state(j) for j in ids))
+    lost = [(j, s) for j, s in zip(ids, states) if s != "SUCCEEDED"]
+    if lost:
+        raise AssertionError(f"{len(lost)} of {n_jobs} jobs did not end SUCCEEDED: {lost[:5]}")
+    sent: dict[str, int] = {}
+    for s, p in bus.published[mark:]:
+        r = p.job_request
+        if r is not None and not s.startswith("sys."):
+            sent[r.job_id] = sent.get(r.job_id, 0) + 1
+    twice = [j for j in ids if sent.get(j) != 1]
+    if twice:
+        raise AssertionError(f"{len(twice)} jobs not dispatched exactly once: "
+                             f"{[(j, sent.get(j)) for j in twice[:5]]}")
+    events = await asyncio.gather(*(js.events(j) for j in ids))
+    dispatched_at, lat, e2e = [], [], []
+    for jid, evs in zip(ids, events):
+        ends = [e for e in evs if e.get("state") == "SUCCEEDED"]
+        disp = [e for e in evs if e.get("state") == "DISPATCHED"]
+        subm = [e for e in evs if e.get("event") == "submit"]
+        if len(ends) != 1 or len(disp) != 1 or len(subm) != 1:
+            raise AssertionError(f"{jid}: events {[(e.get('state'), e.get('event')) for e in evs]}")
+        dispatched_at.append(disp[0]["ts_us"] / 1e6)
+        lat.append((ends[0]["ts_us"] - disp[0]["ts_us"]) / 1e3)
+        e2e.append((ends[0]["ts_us"] - subm[0]["ts_us"]) / 1e3)
+    return {"jobs": n_jobs, "accepted jobs/s": n_jobs / accepted_s,
+            "scheduled jobs/s": n_jobs / (max(dispatched_at) - t0),
+            "dispatch->result p50 ms": float(np.percentile(lat, 50)),
+            "dispatch->result p99 ms": float(np.percentile(lat, 99)),
+            "submit->result p50 ms": float(np.percentile(e2e, 50)),
+            "submit->result p99 ms": float(np.percentile(e2e, 99)),
+            "workers": len(stack.registry.snapshot())}
+
+
+async def phase_gateway(torch, dev, card, w, dispatcher, compute, record, seen, *,
+                        n_workers=SCHED_WORKERS, n_jobs=GATEWAY_JOBS, n_chunks=GATEWAY_CHUNKS,
+                        timeout_s=SCHED_TIMEOUT_S):
+    """17.1-17.3 on phase 6's bf16 worker ``w`` after phase 16 (``seen``
+    holds 16.1's tokens and launches); returns the launches of 17.1 and
+    17.2 and the numbers."""
+    from cordum_tpu_torch.infra.kv import MemoryKV
+
+    kv = dispatcher.store.kv
+    if not isinstance(kv, MemoryKV):
+        raise AssertionError("phase 17 shares phase 6's in-process KV")
+    rng = np.random.default_rng(SEED + 17)
+    texts = make_texts(rng, n_chunks, 8, 60)
+    # the yardstick, before any scheduler listens: the chunks' embed job and
+    # the query's, straight to the worker, one at a time
+    zero_launches()
+    (_, chunk_doc), = await dispatcher.run([{"op": "embed", "texts": texts}], "direct17")
+    (_, query_doc), = await dispatcher.run([{"op": "embed", "texts": [GATEWAY_QUERY]}], "direct17")
+    sync(torch, dev)
+    direct = (texts, np.asarray(chunk_doc["embeddings"], np.float32),
+              np.asarray(query_doc["embeddings"], np.float32)[0], read_launches())
+    stack = SchedStack(w.bus, kv, policy_doc=sched_policy(), pools_doc=GATEWAY_POOLS)
+    gw = GatewayStack(w.bus, kv, policy_doc=sched_policy())
+    await stack.start()
+    fleet = None
+    try:
+        await gw.start()
+        t0 = time.monotonic()
+        while stack.registry.get(w.worker_id) is None:
+            if time.monotonic() - t0 > 30:
+                raise AssertionError("the scheduler never heard the card worker's heartbeat")
+            await asyncio.sleep(0.05)
+        async with GatewayClient(gw.url) as client:
+            t0 = time.monotonic()
+            gen = await gateway_generate(client, record, seen)
+            gen_s = time.monotonic() - t0
+            if gen["paged_attention"] != seen["main"]["paged_attention"] or not gen["paged_attention"]:
+                raise AssertionError(f"paged_attention: {gen['paged_attention']} launches over "
+                                     f"HTTP, {seen['main']['paged_attention']} in 16.1")
+            ctx, ctx_numbers = await gateway_context(torch, dev, gw, client, compute, record,
+                                                     direct)
+            fleet = FleetResponder(stack.bus, stack.mem, sched_fleet(n_workers))
+            await fleet.start()
+            await stack.bus.drain()
+            zero_launches()
+            t0 = time.monotonic()
+            backlog = await gateway_backlog(stack, client, n_jobs, timeout_s=timeout_s)
+            backlog_s = time.monotonic() - t0
+            sync(torch, dev)
+            backlog["kernel launches"] = sum(read_launches().values())
+    finally:
+        if fleet is not None:
+            await fleet.stop()
+        await gw.stop()
+        await stack.stop()
+    launches = {k: gen[k] + ctx[k] for k in gen}
+    numbers = {**backlog, **{k: v for k, v in ctx_numbers.items() if k != "workflow memory"}}
+    log(f"[gateway] 17.1: {len(record['gen'])} llm.generate jobs of phase 6 over HTTP through "
+        f"the port's gateway and scheduler in {gen_s:.1f} s: tokens equal to 16.1's scheduled "
+        f"and direct tokens, paged_attention {gen['paged_attention']} launches as in 16.1  [{card}]")
+    log(f"[gateway] 17.2: {len(texts)} chunks and a RAG window over HTTP: vectors equal to the "
+        f"direct embed job's bit for bit, embed_attention {direct[3]['embed_attention']} "
+        f"launches as direct; the agent-loop workflow SUCCEEDED (memory "
+        f"{ctx_numbers['workflow memory']}, the same vectors); {GATEWAY_EMBED_TEXTS} chunks "
+        f"within {ctx_numbers['embed max abs err']:.3e} of the plain version  [{card}]")
+    log(f"[gateway] 17.3: {backlog['jobs']} echo jobs over POST /api/v1/jobs:batch to "
+        f"{backlog['workers']} live workers, each accepted, dispatched once and SUCCEEDED "
+        f"once, in {backlog_s:.1f} s  [{card}]")
+    for k in ("accepted jobs/s", "scheduled jobs/s", "dispatch->result p50 ms",
+              "dispatch->result p99 ms", "submit->result p50 ms", "submit->result p99 ms",
+              "context embeds/s"):
+        log(f"[gateway] 17 (information): {k} {numbers[k]!r}  [{card}]")
+    return launches, numbers
+
+
+def gateway_process_env(workdir, port, url, http_port, dev, torch):
+    """17.4's environment: 16.4's, with the gateway's address and keys, the
+    workflow engine's reconcile interval, phase 17's pools and the embed
+    topic on the worker."""
+    import yaml
+
+    pools = os.path.join(workdir, "pools17.yaml")
+    with open(pools, "w") as f:
+        yaml.safe_dump(GATEWAY_POOLS, f)
+    env = {**os.environ, "STATEBUS_PORT": str(port), "CORDUM_STATEBUS_URL": url,
+           "POOL_CONFIG_PATH": pools,
+           "SAFETY_POLICY_PATH": os.path.join(REPO_DIR, "config", "safety.yaml"),
+           "TIMEOUT_CONFIG_PATH": os.path.join(REPO_DIR, "config", "timeouts.yaml"),
+           "GATEWAY_HTTP_ADDR": f"127.0.0.1:{http_port}", "CORDUM_API_KEYS": GATEWAY_KEY,
+           "CORDUM_ADMIN_KEYS": GATEWAY_ADMIN_KEY, "WF_RECONCILE_INTERVAL": "1",
+           "WORKER_ID": "w-gw", "WORKER_POOL": "gpu", "WORKER_LLAMA_DTYPE": "float32",
+           "WORKER_TOPICS": f"job.gpu.>,{GATEWAY_EMBED_TOPIC}",
+           "WORKER_MAX_BATCH_SIZE": "256", "WORKER_HEARTBEAT_INTERVAL": "1",
+           "CORDUM_LOG_FORMAT": "json", "PYTHONDONTWRITEBYTECODE": "1"}
+    for k in ("CORDUM_FORCE_CPU", "SAFETY_KERNEL_ADDR", "WORKER_CAPABILITIES"):
+        env.pop(k, None)
+    if torch.device(dev).type == "cpu":
+        env["CORDUM_FORCE_CPU"] = "1"
+    return env
+
+
+async def drive_gateway_process(torch, dev, card, workdir, record, *, timeout_s=300.0):
+    """17.4: the port's statebus, scheduler, workflow engine, gateway and
+    worker binaries as processes over TCP; this script is the gateway's
+    HTTP client.  ``record`` is phase 8's (as 16.4 takes it).  Returns each
+    binary's exit code and the worker's exit record; every process is
+    stopped on every path."""
+    from cordum_tpu_torch.infra import statebus
+    from cordum_tpu_torch.protocol import subjects as subj
+
+    port, http_port = free_port(), free_port()
+    url = f"statebus://127.0.0.1:{port}"
+    env = gateway_process_env(workdir, port, url, http_port, dev, torch)
+    names = ("statebus", "scheduler", "workflow_engine", "gateway", "worker")
+    logs = {name: os.path.join(workdir, f"{name}17.log") for name in names}
+    procs = {"statebus": start_process(["cordum_tpu_torch.cmd.statebus"], env, logs["statebus"])}
+    conn = None
+    rcs = {}
+    try:
+        kv, bus, conn = await connect_when_up(statebus, url, procs["statebus"])
+        beats = []
+
+        async def on_beat(subject, pkt):
+            if pkt.heartbeat is not None and pkt.heartbeat.worker_id == "w-gw":
+                beats.append(pkt.heartbeat)
+
+        await bus.subscribe(subj.HEARTBEAT, on_beat)
+        for name, ready in (("scheduler", '"scheduler running"'),
+                            ("workflow_engine", '"connected to statebus"'),
+                            ("gateway", '"gateway listening"')):
+            procs[name] = start_process([f"cordum_tpu_torch.cmd.{name}"], env, logs[name])
+            await wait_log(logs[name], ready, procs[name])
+        procs["worker"] = start_process(["cordum_tpu_torch.cmd.worker"], env, logs["worker"])
+        t0 = time.monotonic()
+        while not beats:
+            if procs["worker"].poll() is not None or time.monotonic() - t0 > timeout_s:
+                raise AssertionError(f"the worker process never beat; see {logs['worker']}")
+            await asyncio.sleep(0.1)
+        await asyncio.sleep(1.5)  # the scheduler and the gateway hear the same heartbeat
+        jobs = sched_process_jobs(record)
+        ids = [f"proc17-{i}-{tag}" for i, (tag, _, _) in enumerate(jobs)]
+        async with GatewayClient(f"http://127.0.0.1:{http_port}") as client:
+            t0 = time.monotonic()
+            for jid, (tag, topic, payload) in zip(ids, jobs):
+                await client.submit(jid, topic, payload)
+                if tag == "embed":  # one at a time, as phase 8 ran them
+                    await client.wait_job(jid, timeout_s)
+            docs = [(await client.wait_job(jid, timeout_s))["result"] for jid in ids]
+            wall = time.monotonic() - t0
+            texts = make_texts(np.random.default_rng(SEED + 20), GATEWAY_CHUNKS, 8, 60)
+            await client.submit("proc17-chunks", "job.gpu.embed", {"op": "embed", "texts": texts})
+            want = np.asarray((await client.wait_job("proc17-chunks"))["result"]["embeddings"],
+                              np.float32)
+            doc = await client.call("PUT", "/api/v1/context/chunks/proc17", json={
+                "chunks": [{"file_path": f"doc{i}", "content": t} for i, t in enumerate(texts)]})
+            window = (await client.call("POST", "/api/v1/context/window", json={
+                "memory_id": "proc17", "mode": "RAG", "payload": GATEWAY_QUERY}))["messages"]
+            got = await stored_vectors(kv, "proc17", texts)
+            if doc != {"embedded": len(texts)} or not np.array_equal(got, want):
+                raise AssertionError(f"chunk vectors through the processes differ from the "
+                                     f"embed job's; {doc}")
+            if not window[0]["source"].startswith("rag:"):
+                raise AssertionError(f"RAG window through the processes: {window}")
+            (gen_payload, gen_doc), ties = record["gen"][0], record["ties"][0]
+            run = await client.run_workflow(context_workflow(
+                "agent17p", texts, gen_payload["tokens"], gen_payload["max_new_tokens"]), {})
+            if not np.array_equal(await stored_vectors(
+                    kv, run["context"]["steps"]["remember"]["memory_id"], texts), want):
+                raise AssertionError("the workflow's chunk vectors differ from the embed job's")
+            compare_near_tie(run["context"]["steps"]["answer"]["tokens"], gen_doc["tokens"], ties,
+                             "generate in the workflow through the processes")
+        for name in ("gateway", "workflow_engine", "scheduler", "worker", "statebus"):
+            if name == "statebus":
+                await conn.close()
+                conn = None
+            rcs[name] = stop_process(procs[name])
+    finally:
+        if conn is not None:
+            await conn.close()
+        for proc in procs.values():
+            stop_process(proc)
+    ties_n = check_process_docs(jobs, docs, record, "w-gw", "the gateway's processes")
+    exit_doc = worker_exit_line(logs["worker"])
+    bad = {n: rc for n, rc in rcs.items() if rc != 0}
+    if bad or exit_doc.get("cancelled_sessions") != 0:
+        raise AssertionError(f"SIGTERM: exit codes {rcs}, worker {exit_doc}; see {logs}")
+    log(f"[gateway-proc] 17.4: statebus, scheduler, workflow engine, gateway and worker "
+        f"processes over TCP: {len(jobs)} jobs over HTTP SUCCEEDED once each in {wall:.1f} s "
+        f"with phase 8's results ({ties_n} near-tie positions); {len(texts)} chunks' vectors "
+        f"equal to their embed job's, the agent-loop workflow SUCCEEDED; SIGTERM exit codes "
+        f"{rcs}  [{card}]")
+    return rcs, exit_doc
+
+
+def phase_gateway_process(torch, dev, card, record8):
+    """17.4 on the card; returns the worker process's launches."""
+    import tempfile
+
+    from cordum_tpu_torch.models import llama
+    from cordum_tpu_torch.models.embedder import EmbedderConfig
+
+    with tempfile.TemporaryDirectory(prefix="cordum-gateway-") as workdir:
+        _, exit_doc = asyncio.run(drive_gateway_process(torch, dev, card, workdir, record8))
     return check_sched_process_launches(exit_doc, llama.LlamaConfig.tiny().n_layers,
                                         EmbedderConfig().n_layers)
 
@@ -6291,7 +6875,7 @@ def main() -> int:
     bf16_launches, params8b, serve4 = phase_serve(torch, dev, smi, cfg8b)
     torch.cuda.empty_cache()
     kernel["embed_attention"] = phase_embed_kernel(torch, dev, smi)
-    worker, numbers6, (sched16, _) = phase_worker(
+    worker, numbers6, (sched16, _, (gw17, _)) = phase_worker(
         torch, dev, smi, fp32=(cfg32, params32, prompts, oracle), bf16=(cfg8b, params8b))
     del params32, params8b  # phase 7 needs the room
     gc.collect()  # whatever of the stopped workers sits in reference cycles
@@ -6304,6 +6888,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     proc, record8 = phase_worker_process(torch, dev, smi, numbers6)
     sched_proc = phase_scheduler_process(torch, dev, smi, record8)
+    gw_proc = phase_gateway_process(torch, dev, smi, record8)
     gc.collect()
     torch.cuda.empty_cache()
     moe_rows, moe, moe_first_loss = phase_moe(torch, dev, smi)
@@ -6363,6 +6948,13 @@ def main() -> int:
     launches["paged_attention"]["float32"] += sched_proc["paged_attention"]
     launches["embed_attention"]["bfloat16"] += sched_proc["embed_attention"]
     launches["dense_attention_fwd"]["float32"] += sched_proc["dense_attention_fwd"]
+    # phase 17: 17.1's and 17.2's jobs through the gateway on phase 6's bf16
+    # worker; 17.4's worker process as 16.4's
+    for name in ("paged_attention", "embed_attention"):
+        launches[name]["bfloat16"] += gw17[name]
+    launches["paged_attention"]["float32"] += gw_proc["paged_attention"]
+    launches["embed_attention"]["bfloat16"] += gw_proc["embed_attention"]
+    launches["dense_attention_fwd"]["float32"] += gw_proc["dense_attention_fwd"]
     # phase 12's rank processes, and 13.2's ring chunks' forward launches
     for name in ("dense_attention_fwd", "dense_attention_bwd"):
         for dtype in ("float32", "bfloat16"):

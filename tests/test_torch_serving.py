@@ -235,6 +235,43 @@ print(len(mods))
     assert int(proc.stdout.split()[-1]) >= 10
 
 
+#: the gateway slice's modules: each must exist in the port and be reached
+#: by both scans above
+GATEWAY_SLICE = (
+    "infra.secrets", "infra.locks", "infra.dlq", "infra.artifacts", "infra.schemareg",
+    "obs.assembler", "obs.collector", "obs.slo", "obs.fleet", "workflow.models",
+    "workflow.eval", "workflow.store", "workflow.engine", "context.service",
+    "controlplane.workflowengine.service", "cmd.workflow_engine", "controlplane.gateway.auth",
+    "controlplane.gateway.admission", "controlplane.gateway.app", "cmd.gateway", "packs",
+    "controlplane.safetykernel.bundles")
+
+
+@pytest.mark.parametrize("name", GATEWAY_SLICE)
+def test_gateway_slice_module_is_scanned(name):
+    """Each module of the gateway slice is a file of the port (so the AST
+    scan reads it), imports nothing of JAX, the JAX package or ``msgpack``
+    (lazy imports included) and nothing of ``torch`` either: the gateway,
+    the workflow engine and the context service are host code, and their
+    binaries start without loading the device stack."""
+    path = REPO / "cordum_tpu_torch" / (name.replace(".", "/") + ".py")
+    assert path.is_file(), path
+    tops = {mod.split(".")[0] for mod in _imports(path)}
+    assert not tops & {"jax", "jaxlib", "cordum_tpu", "flax", "optax", "msgpack", "torch"}, tops
+    if name.startswith("cmd."):
+        code = f"""
+import sys
+class Block:
+    def find_spec(self, n, path=None, target=None):
+        if n.split('.')[0] in ('jax', 'jaxlib', 'cordum_tpu', 'msgpack', 'torch'):
+            raise ImportError('blocked: ' + n)
+sys.meta_path.insert(0, Block())
+import cordum_tpu_torch.{name}
+"""
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr
+
+
 def test_default_device_raises_without_a_card(env):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
