@@ -292,8 +292,8 @@ Every phase raises on failure.  Phases:
     job to DENIED and the DLQ with code ``SAFETY_DENY``.  (3) 1000
     synthetic workers (two pools, 1-8 cards, three topologies, varied load,
     capabilities and health) beside the card's worker, answered by a
-    responder on their direct subjects; 20,000 ``echo`` jobs in bursts of
-    256 a tick: each is dispatched once and ends SUCCEEDED once; then
+    responder on their direct subjects; 10,000 ``echo`` jobs (20,000
+    before phase 18 needed the time) in bursts of 256 a tick: each is dispatched once and ends SUCCEEDED once; then
     10,000 picks of the C scan equal the Python scan's on the same
     registry.  Prints scheduled jobs/s (submit to DISPATCHED), submit to
     result p50 and p99 and the C scan's share of the picks.  (4) The
@@ -338,6 +338,41 @@ Every phase raises on failure.  Phases:
     ``embed`` job's vectors bit for bit; the workflow's tokens under the
     near-tie rule); SIGTERM stops every process with exit 0; every
     process is stopped on every path.
+18. The statebus's durability, right after 17.4, every server a
+    ``python -m cordum_tpu_torch.cmd.statebus`` process (``infra/chaos.py``
+    ``ServerProc``) with its own AOF, a primary and a replica naming each
+    other in ``STATEBUS_PEERS`` with a 1 s heartbeat timeout; the
+    scheduler, gateway and worker binaries reach the pair as a ``|``
+    replica set.  (1) An async pair under 256 of 17.3's ``echo`` jobs over
+    ``jobs:batch`` to 16.3's 1000 synthetic workers (the async numbers),
+    then a sync pair (``STATEBUS_SYNC_REPLICATION=1``) under 768 such jobs
+    (cut from 17.3's 5000: sync replication ran about 10 jobs/s on the
+    card's host) while a worker process on the card (pool ``card``, phase 8's config)
+    takes 16.4's ``embed`` and ``llm.generate`` jobs over HTTP; the
+    primary is SIGKILLed after a third of the backlog and the rest is
+    submitted through the failover.  Every job SUCCEEDED once with its
+    canonical lifecycle in order, the replica promoted (epoch ≥ 1), the
+    card worker's results equal phase 8's (tokens under the near-tie rule)
+    and its B5 launches 16.4's, B1 once a layer a serving step; the old
+    primary restarted on its AOF demotes itself and catches up to the new
+    primary's ``(epoch, offset)``.  Prints scheduled jobs/s before and
+    after the kill, SIGKILL → promotion and → the first commit on the
+    promoted replica, ``cordum_statebus_op_seconds`` p50/p99 (bucket
+    bounds) and mean in sync and async mode, and the worst replication lag
+    seen.  (2) Over the same pair, a scheduler process (registry TTL 3 s,
+    ``WorkerFailover`` every 0.5 s) and two worker processes on the card
+    (``WorkerProc``, fp32 ``LlamaConfig.tiny()``): three ``llm.generate``
+    sessions on the first, which is SIGKILLed mid-decode; each resumes on
+    the second with its streamed tokens (``LABEL_RESUME_TOKENS``), and each
+    client's offset-assembled stream equals the fp32 oracle with no token
+    duplicated, missing or divergent; prints the time from the kill to the
+    first resumed token.  (3) Every server SIGTERMed; a primary alone on
+    the promoted replica's AOF reads back every job record and result
+    pointer of (1); then a sync pair under eight write loops, its primary
+    SIGKILLed after 400 acked writes: every acked write is on the promoted
+    replica, and the killed primary restarted alone on its AOF (with a
+    torn record appended) truncates the tail and holds every write it
+    acked.
 
 Tolerances (kernel vs plain version, max abs error), paged attention:
 fp32 1e-4 — the sums run in another order over up to 8192 keys, on O(1)
@@ -5591,9 +5626,10 @@ SCHED_RULES = (
 )
 #: the reference's DLQ code for a safety denial
 SCHED_DENY_CODE = "SAFETY_DENY"
-#: 16.3: the synthetic fleet (README's scale), the backlog, its bursts and
-#: the C-scan-against-Python picks
-SCHED_WORKERS, SCHED_JOBS, SCHED_BURST, SCHED_PICKS = 1000, 20000, 256, 10000
+#: 16.3: the synthetic fleet (README's scale), the backlog (cut from 20,000
+#: to make room for phase 18 in the time limit), its bursts and the
+#: C-scan-against-Python picks
+SCHED_WORKERS, SCHED_JOBS, SCHED_BURST, SCHED_PICKS = 1000, 10000, 256, 10000
 #: the synthetic fleet beats this often (the registry's TTL is 30 s)
 SCHED_BEAT_S = 5.0
 SCHED_TIMEOUT_S = 300.0
@@ -6812,6 +6848,788 @@ def phase_gateway_process(torch, dev, card, record8):
                                         EmbedderConfig().n_layers)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the statebus's durability
+# ---------------------------------------------------------------------------
+
+#: 18.1: the backlog (17.3's jobs over jobs:batch, three batches: sync
+#: replication holds each client connection to one replicated commit at a
+#: time, about 10 jobs/s on the card's host, so 17.3's 5000 would take 420
+#: s), the share of it submitted before the primary's SIGKILL, and the
+#: async leg's backlog (one batch)
+CHAOS_JOBS, CHAOS_KILL_SHARE, CHAOS_ASYNC_JOBS = 768, 1 / 3, 256
+#: the statebus pairs' heartbeat timeout (the reference chaos test's)
+CHAOS_HB_TIMEOUT = 1.0
+#: the scheduler's reconciler under a failover: lost submits, dispatches and
+#: results are replayed within seconds (the reference chaos test's)
+CHAOS_TIMEOUTS = {"reconciler": {
+    "dispatch_timeout_seconds": 60, "running_timeout_seconds": 600,
+    "scan_interval_seconds": 0.5, "pending_replay_seconds": 1.5, "result_replay_seconds": 1.5}}
+#: the card worker's jobs go to pool ``card``, 18.2's serving workers to
+#: pool ``chaos``; the synthetic fleet stays in phase 16's pools
+CHAOS_POOLS = {"topics": {**GATEWAY_POOLS["topics"], "job.card.>": "card",
+                          "job.chaos.>": "chaos"},
+               "pools": {**GATEWAY_POOLS["pools"], "card": {"requires": ["gpu"], "min_chips": 1},
+                         "chaos": {"requires": ["gpu"], "min_chips": 1}}}
+#: a successful job's lifecycle: replays may add events, never reorder these
+CANONICAL_EVENTS = ("submit", "scheduled", "dispatched", "running", "result")
+#: 18.2: the reference's three sessions (prompt lengths) and their length;
+#: the dead worker's registry TTL
+CHAOS_PROMPT_LENS, CHAOS_NEW, CHAOS_TTL_S = (3, 9, 14), 96, 3.0
+#: 18.3: the write loop's writers and the acked writes before the SIGKILL
+CHAOS_WRITERS, CHAOS_WRITES = 8, 400
+CHAOS_TIMEOUT_S = 300.0
+#: one jobs:batch request's deadline (a failover included)
+CHAOS_BATCH_S = 60.0
+
+
+def is_subsequence(needle, hay):
+    it = iter(hay)
+    return all(x in it for x in needle)
+
+
+def statebus_pair(workdir, tag, *, sync, env=None):
+    """A primary and a replica of ``cordum_tpu_torch.cmd.statebus`` (chaos
+    ``ServerProc`` s, not started), an AOF each, each other's peers; returns
+    them and the replica set's URL."""
+    from cordum_tpu_torch.infra.chaos import ServerProc
+
+    p, r = free_port(), free_port()
+    peers = f"statebus://127.0.0.1:{p},statebus://127.0.0.1:{r}"
+    common = {**(env or {}), "STATEBUS_PEERS": peers, "CORDUM_LOG_FORMAT": "json",
+              "STATEBUS_HEARTBEAT_TIMEOUT": str(CHAOS_HB_TIMEOUT),
+              "STATEBUS_SYNC_REPLICATION": "1" if sync else "0"}
+    primary = ServerProc(p, env={**common, "STATEBUS_AOF": os.path.join(workdir, f"{tag}-p.aof")},
+                         cwd=REPO_DIR)
+    replica = ServerProc(r, env={**common, "STATEBUS_AOF": os.path.join(workdir, f"{tag}-r.aof"),
+                                 "STATEBUS_REPLICA_OF": f"statebus://127.0.0.1:{p}"},
+                         cwd=REPO_DIR)
+    return primary, replica, f"statebus://127.0.0.1:{p}|statebus://127.0.0.1:{r}"
+
+
+async def start_pair(primary, replica, timeout_s=60.0):
+    """Start both servers; wait until the replica is attached."""
+    from cordum_tpu_torch.infra.replication import probe_role
+
+    await primary.start()
+    await replica.start()
+    deadline = time.monotonic() + timeout_s
+    while not ((await probe_role("127.0.0.1", primary.port)) or {}).get("replicas"):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the replica on :{replica.port} never attached")
+        await asyncio.sleep(0.05)
+
+
+def chaos_env(workdir, url, http_port, dev, torch, **extra):
+    """The control plane's processes over the replica set ``url``: 17.4's
+    environment with phase 18's pools and reconciler timeouts."""
+    import yaml
+
+    pools, timeouts = (os.path.join(workdir, n) for n in ("pools18.yaml", "timeouts18.yaml"))
+    with open(pools, "w") as f:
+        yaml.safe_dump(CHAOS_POOLS, f)
+    with open(timeouts, "w") as f:
+        yaml.safe_dump(CHAOS_TIMEOUTS, f)
+    env = {**os.environ, "CORDUM_STATEBUS_URL": url, "POOL_CONFIG_PATH": pools,
+           "SAFETY_POLICY_PATH": os.path.join(REPO_DIR, "config", "safety.yaml"),
+           "TIMEOUT_CONFIG_PATH": timeouts,
+           "GATEWAY_HTTP_ADDR": f"127.0.0.1:{http_port}", "CORDUM_API_KEYS": GATEWAY_KEY,
+           "CORDUM_ADMIN_KEYS": GATEWAY_ADMIN_KEY, "WORKER_LLAMA_DTYPE": "float32",
+           "WORKER_MAX_BATCH_SIZE": "256", "WORKER_HEARTBEAT_INTERVAL": "1",
+           "CUDA_VISIBLE_DEVICES": "0", "CORDUM_LOG_FORMAT": "json",
+           "PYTHONDONTWRITEBYTECODE": "1", **extra}
+    for k in ("CORDUM_FORCE_CPU", "SAFETY_KERNEL_ADDR", "WORKER_CAPABILITIES", "STATEBUS_PORT",
+              "WORKER_TOPICS", "WORKER_POOL", "WORKER_ID"):
+        if k not in extra:
+            env.pop(k, None)
+    if torch.device(dev).type == "cpu":
+        env["CORDUM_FORCE_CPU"] = "1"
+    return env
+
+
+class ChaosStack:
+    """18.1's control plane over one statebus pair: the scheduler and the
+    gateway binaries, and (``worker``) the card's worker process in pool
+    ``card`` at phase 8's config; this script holds one client of the
+    replica set.  ``stop`` SIGTERMs every process and returns the exit
+    codes; every process is stopped on every path."""
+
+    def __init__(self, torch, dev, workdir, tag, pair, *, worker):
+        self.workdir, self.tag = workdir, tag
+        self.primary, self.replica, self.url = pair
+        self.http_port = free_port()
+        self.env = chaos_env(workdir, self.url, self.http_port, dev, torch)
+        self.worker_id = f"w-card-{tag}" if worker else None
+        self.procs, self.logs = {}, {}
+        self.conn = None
+
+    def log_of(self, name):
+        return os.path.join(self.workdir, f"{self.tag}-{name}.log")
+
+    async def start(self):
+        from cordum_tpu_torch.infra import statebus
+        from cordum_tpu_torch.infra.jobstore import JobStore
+        from cordum_tpu_torch.infra.memstore import MemoryStore
+        from cordum_tpu_torch.protocol import subjects as subj
+
+        self.kv, self.bus, self.conn = await statebus.connect(self.url)
+        self.job_store, self.mem = JobStore(self.kv), MemoryStore(self.kv)
+        beats = []
+
+        async def on_beat(subject, pkt):
+            if pkt.heartbeat is not None and pkt.heartbeat.worker_id == self.worker_id:
+                beats.append(pkt.heartbeat)
+
+        await self.bus.subscribe(subj.HEARTBEAT, on_beat)
+        for name, ready in (("scheduler", '"scheduler running"'),
+                            ("gateway", '"gateway listening"')):
+            self.logs[name] = self.log_of(name)
+            self.procs[name] = start_process([f"cordum_tpu_torch.cmd.{name}"], self.env,
+                                             self.logs[name])
+            await wait_log(self.logs[name], ready, self.procs[name])
+        if self.worker_id:
+            self.logs["worker"] = self.log_of("worker")
+            self.procs["worker"] = start_process(["cordum_tpu_torch.cmd.worker"], {
+                **self.env, "WORKER_ID": self.worker_id, "WORKER_POOL": "card",
+                "WORKER_TOPICS": "job.card.>"}, self.logs["worker"])
+            t0 = time.monotonic()
+            while not beats:
+                if self.procs["worker"].poll() is not None or time.monotonic() - t0 > 600:
+                    raise AssertionError(f"the card worker never beat; see {self.logs['worker']}")
+                await asyncio.sleep(0.1)
+            await asyncio.sleep(1.5)  # the scheduler hears the same heartbeat
+
+    async def stop(self, names=("gateway", "scheduler", "worker")):
+        rcs = {}
+        for name in names:
+            if name in self.procs:
+                rcs[name] = await asyncio.to_thread(stop_process, self.procs.pop(name))
+        return rcs
+
+    async def close(self):
+        for proc in self.procs.values():
+            await asyncio.to_thread(stop_process, proc)
+        self.procs = {}
+        if self.conn is not None:
+            await self.conn.close()
+            self.conn = None
+
+
+async def chaos_submit(client, ids, shapes, *, on_batch=None):
+    """17.3's backlog over ``POST /api/v1/jobs:batch``; ``on_batch(lo)``
+    runs before each batch (18.1's SIGKILL).  Returns the submit start."""
+    t0 = time.time()
+    for lo in range(0, len(ids), GATEWAY_BULK):
+        if on_batch is not None:
+            await on_batch(lo)
+        batch = [{"job_id": jid, "topic": topic, "payload": {"op": "echo", "job": jid},
+                  "metadata": {"requires": list(requires)}}
+                 for jid, (topic, requires) in zip(ids[lo:lo + GATEWAY_BULK],
+                                                   shapes[lo:lo + GATEWAY_BULK])]
+        try:
+            doc = await asyncio.wait_for(client.call(
+                "POST", "/api/v1/jobs:batch", 202, json={"jobs": batch}), CHAOS_BATCH_S)
+        except asyncio.TimeoutError:
+            raise AssertionError(f"jobs:batch at job {lo}: no answer in {CHAOS_BATCH_S} s") from None
+        if doc["accepted"] != len(batch):
+            raise AssertionError(f"bulk submit: {doc['rejected']} of {len(batch)} rejected: "
+                                 f"{[j for j in doc['jobs'] if 'error' in j][:3]}")
+    return t0
+
+
+async def chaos_wait(js, ids, timeout_s):
+    """Wait until every job of ``ids`` is SUCCEEDED (or ``timeout_s``);
+    returns each job's state and event log."""
+    from cordum_tpu_torch.infra.jobstore import index_key
+
+    want, deadline = set(ids), time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        done = set(await js.kv.zrange(index_key("SUCCEEDED"), 0, -1))
+        if want <= done:
+            break
+        await asyncio.sleep(0.1)
+    states = await asyncio.gather(*(js.get_state(j) for j in ids))
+    events = await asyncio.gather(*(js.events(j) for j in ids))
+    return dict(zip(ids, states)), dict(zip(ids, events))
+
+
+def check_chaos_jobs(states, events):
+    """18.1's gates: every job SUCCEEDED, with one SUCCEEDED event and the
+    canonical lifecycle in order (replays may add events, never reorder).
+    Returns the jobs dispatched more than once."""
+    lost = {j: s for j, s in states.items() if s != "SUCCEEDED"}
+    if lost:
+        raise AssertionError(f"{len(lost)} of {len(states)} jobs lost or stuck after the "
+                             f"failover: {dict(list(lost.items())[:5])}; events "
+                             f"{[(j, events.get(j)) for j in list(lost)[:2]]}")
+    again = 0
+    for jid, evs in events.items():
+        names = [e.get("event") for e in evs]
+        ends = sum(e.get("state") == "SUCCEEDED" for e in evs)
+        if ends != 1 or not is_subsequence(CANONICAL_EVENTS, names):
+            raise AssertionError(f"{jid}: SUCCEEDED {ends} times, events {names}")
+        again += sum(e.get("state") == "DISPATCHED" for e in evs) > 1
+    return again
+
+
+def kill_point(n_jobs):
+    """The batch boundary nearest ``CHAOS_KILL_SHARE`` of the backlog, past
+    the first batch and before the last."""
+    lo = max(1, round(n_jobs * CHAOS_KILL_SHARE / GATEWAY_BULK)) * GATEWAY_BULK
+    if lo >= n_jobs:
+        raise AssertionError(f"a backlog of {n_jobs} jobs has no batch after the kill")
+    return lo
+
+
+def rate_around(events, t0, t_kill):
+    """Scheduled jobs/s (DISPATCHED events) from ``t0`` to the kill and from
+    the kill to the last dispatch."""
+    first = [min(e["ts_us"] for e in evs if e.get("state") == "DISPATCHED") / 1e6
+             for evs in events.values()]
+    if t_kill is None:
+        return len(first) / (max(first) - t0), float("nan")
+    before = [t for t in first if t < t_kill]
+    after = [t for t in first if t >= t_kill]
+    return (len(before) / (t_kill - t0),
+            len(after) / (max(after) - t_kill) if after else float("nan"))
+
+
+def op_quantiles(text, name="cordum_statebus_op_seconds"):
+    """p50 and p99 (bucket upper bounds, ms) and the mean (ms) of a
+    histogram over every label, from a metrics exposition."""
+    buckets, total, count = {}, 0.0, 0.0
+    for line in text.splitlines():
+        if line.startswith(name + "_bucket{"):
+            le = line.split('le="', 1)[1].split('"', 1)[0]
+            buckets[le] = buckets.get(le, 0.0) + float(line.rsplit(" ", 1)[1])
+        elif line.startswith(name + "_sum"):
+            total += float(line.rsplit(" ", 1)[1])
+        elif line.startswith(name + "_count"):
+            count += float(line.rsplit(" ", 1)[1])
+    if not count:
+        raise AssertionError(f"no {name} observations in the server's metrics")
+    les = sorted(buckets, key=lambda le: float("inf") if le == "+Inf" else float(le))
+
+    def q(p):
+        return next(float(le) * 1e3 for le in les if buckets[le] >= p * count)
+
+    return q(0.5), q(0.99), total / count * 1e3
+
+
+async def server_metrics(port):
+    from cordum_tpu_torch.infra.replication import admin_call
+
+    text = await admin_call("127.0.0.1", port, "metrics", timeout_s=5.0)
+    if not isinstance(text, str):
+        raise AssertionError(f"the statebus on :{port} returned no metrics")
+    return text
+
+
+class LagProbe:
+    """Samples the pair's role documents every 50 ms: the primary's worst
+    replica lag (ops), the SIGKILL → promotion and → first commit on the
+    promoted replica times."""
+
+    def __init__(self, primary, replica):
+        self.ports = (primary.port, replica.port)
+        self.max_lag, self.kill_at, self.promoted_s, self.first_commit_s = 0, None, None, None
+        self._task = asyncio.ensure_future(self._run())
+
+    async def _run(self):
+        from cordum_tpu_torch.infra.replication import probe_role
+
+        base = None
+        while self.first_commit_s is None:
+            docs = [await probe_role("127.0.0.1", p, timeout_s=0.5) for p in self.ports]
+            for doc in docs:
+                if doc and doc.get("role") == "primary":
+                    self.max_lag = max([self.max_lag] + [r["lag_ops"] for r in doc["replicas"]])
+            new = docs[1]
+            if self.kill_at is not None and new and new.get("role") == "primary":
+                now = time.monotonic()
+                if base is None:
+                    base, self.promoted_s = new["offset"], now - self.kill_at
+                elif new["offset"] > base:
+                    self.first_commit_s = now - self.kill_at
+            await asyncio.sleep(0.05 if self.kill_at is None else 0.01)
+
+    async def stop(self):
+        self._task.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await self._task
+
+
+def card_jobs(record):
+    """16.4's ``embed`` and ``llm.generate`` jobs, on pool ``card``'s topic."""
+    return [(tag, topic.replace("job.gpu.", "job.card."), p)
+            for tag, topic, p in sched_process_jobs(record) if tag in ("embed", "gen")]
+
+
+async def run_card_jobs(stack, client, jobs, timeout_s):
+    """16.4's pattern over HTTP: each embed waited for, the generates sent
+    together; returns their ids and results."""
+    ids = [f"card18-{i}-{tag}" for i, (tag, _, _) in enumerate(jobs)]
+    for jid, (tag, topic, payload) in zip(ids, jobs):
+        await client.submit(jid, topic, payload)
+        if tag == "embed":
+            await chaos_wait(stack.job_store, [jid], timeout_s)
+    states, _ = await chaos_wait(stack.job_store, ids, timeout_s)
+    bad = {j: s for j, s in states.items() if s != "SUCCEEDED"}
+    if bad:
+        raise AssertionError(f"the card worker's jobs through the failover: {bad}")
+    metas = [await stack.job_store.get_meta(j) for j in ids]
+    return ids, [await stack.mem.get_pointer(m["result_ptr"]) for m in metas]
+
+
+async def chaos_leg(stack, n_workers, n_jobs, *, prefix, seed, timeout_s, kill=False,
+                    side=None, drop=()):
+    """One backlog over the synthetic fleet through the gateway process;
+    with ``kill`` the primary is SIGKILLed after ``CHAOS_KILL_SHARE`` of it
+    is submitted and the rest goes in during the failover.  ``side`` runs
+    beside the backlog (the card's jobs).  Returns the numbers, the
+    states and event logs, and ``side``'s result."""
+    fleet = FleetResponder(stack.bus, stack.mem, sched_fleet(n_workers), drop=drop)
+    await fleet.start()
+    probe = LagProbe(stack.primary, stack.replica)
+    ids = [f"{prefix}-{i:05d}" for i in range(n_jobs)]
+    kill_lo = kill_point(n_jobs) if kill else None
+    numbers = {"jobs": n_jobs, "workers": n_workers}
+
+    async def on_batch(lo):
+        if lo == kill_lo:
+            numbers["sync op p50/p99/mean ms before the kill"] = op_quantiles(
+                await server_metrics(stack.primary.port))
+            probe.kill_at = time.monotonic()
+            numbers["killed at"] = time.time()
+            await asyncio.to_thread(stack.primary.kill)
+
+    side_task = None
+    try:
+        await asyncio.sleep(1.0)  # the scheduler and the gateway hear the fleet
+        async with GatewayClient(f"http://127.0.0.1:{stack.http_port}") as client:
+            side_task = asyncio.ensure_future(side(client)) if side else None
+            t0 = await chaos_submit(client, ids, sched_requests(n_jobs, seed=seed),
+                                    on_batch=on_batch)
+            numbers["accepted jobs/s"] = n_jobs / (time.time() - t0)
+            states, events = await chaos_wait(stack.job_store, ids, timeout_s)
+            side_out = await side_task if side_task else None
+    finally:
+        if side_task is not None and not side_task.done():
+            side_task.cancel()
+            with contextlib.suppress(BaseException):
+                await side_task
+        await fleet.stop()
+        await probe.stop()
+    numbers["dispatched more than once"] = check_chaos_jobs(states, events)
+    numbers["wall s"] = time.time() - t0
+    before, after = rate_around(events, t0, numbers.get("killed at"))
+    numbers["scheduled jobs/s" + (" before the kill" if kill else "")] = before
+    if kill:
+        numbers["scheduled jobs/s after the kill"] = after
+        numbers["SIGKILL -> promoted s"] = probe.promoted_s
+        numbers["SIGKILL -> first commit on the promoted replica s"] = probe.first_commit_s
+    numbers["max replication lag ops"] = probe.max_lag
+    return numbers, states, events, side_out
+
+
+async def rejoin_old_primary(old, new, timeout_s=60.0):
+    """Restart the SIGKILLed primary on its AOF: it must demote itself to a
+    replica of the promoted one and catch up to its ``(epoch, offset)``."""
+    from cordum_tpu_torch.infra.replication import probe_role
+
+    await old.start()
+    deadline, old_doc = time.monotonic() + timeout_s, None
+    while time.monotonic() < deadline:
+        new_doc = await probe_role("127.0.0.1", new.port)
+        old_doc = await probe_role("127.0.0.1", old.port)
+        if (new_doc and old_doc and old_doc["role"] == "replica"
+                and new_doc["role"] == "primary" and new_doc["epoch"] >= 1
+                and old_doc["epoch"] == new_doc["epoch"]
+                and old_doc["offset"] >= new_doc["offset"]):
+            return new_doc, old_doc
+        await asyncio.sleep(0.05)
+    raise AssertionError(f"the old primary did not demote and catch up: {old_doc}")
+
+
+async def drive_chaos_primary(torch, dev, card, workdir, record, sched16, *,
+                              n_workers=SCHED_WORKERS, n_jobs=CHAOS_JOBS,
+                              n_async=CHAOS_ASYNC_JOBS, timeout_s=CHAOS_TIMEOUT_S):
+    """18.1: an async leg, then the sync pair under the backlog and the card's
+    jobs, SIGKILL of the primary, the old primary's return.  Returns the
+    numbers, the pair (still running) and what 18.3 reads back."""
+    from cordum_tpu_torch.models import llama
+    from cordum_tpu_torch.models.embedder import EmbedderConfig
+
+    pair = statebus_pair(workdir, "async", sync=False)
+    stack = ChaosStack(torch, dev, workdir, "async", pair, worker=False)
+    try:
+        await start_pair(*pair[:2])
+        await stack.start()
+        async_numbers, _, _, _ = await chaos_leg(stack, n_workers, n_async, prefix="async18",
+                                                 seed=SEED + 21, timeout_s=timeout_s)
+        async_numbers["async op p50/p99/mean ms"] = op_quantiles(
+            await server_metrics(stack.primary.port))
+        rcs = await stack.stop()
+    finally:
+        await stack.close()
+        for s in pair[:2]:
+            await asyncio.to_thread(s.terminate)
+    if any(rcs.values()):
+        raise AssertionError(f"18.1's async leg: SIGTERM exit codes {rcs}")
+    pair = statebus_pair(workdir, "sync", sync=True)
+    stack = ChaosStack(torch, dev, workdir, "sync", pair, worker=True)
+    jobs = card_jobs(record)
+    try:
+        await start_pair(*pair[:2])
+        await stack.start()
+        numbers, states, events, (card_ids, docs) = await chaos_leg(
+            stack, n_workers, n_jobs, prefix="fleet18", seed=SEED + 22, timeout_s=timeout_s,
+            kill=True, side=lambda client: run_card_jobs(stack, client, jobs, timeout_s))
+        numbers["sync op p50/p99/mean ms after the failover"] = op_quantiles(
+            await server_metrics(stack.replica.port))
+        new_doc, old_doc = await rejoin_old_primary(stack.primary, stack.replica)
+        rcs = await stack.stop(("gateway", "scheduler", "worker"))
+        acked = {jid: (await stack.job_store.get_meta(jid)).get("result_ptr")
+                 for jid in [*states, *card_ids]}
+    except BaseException:
+        await stack.close()
+        for s in pair[:2]:
+            await asyncio.to_thread(s.kill)
+        raise
+    if any(rcs.values()):
+        raise AssertionError(f"18.1: SIGTERM exit codes {rcs}; see {stack.logs}")
+    ties_n = check_process_docs(jobs, docs, record, stack.worker_id, "the failover")
+    exit_doc = worker_exit_line(stack.logs["worker"])
+    launches = check_sched_process_launches(exit_doc, llama.LlamaConfig.tiny().n_layers,
+                                            EmbedderConfig().n_layers)
+    if launches["embed_attention"] != sched16["embed_attention"]:
+        raise AssertionError(f"18.1's card worker launched embed_attention "
+                             f"{launches['embed_attention']} times, 16.4's worker "
+                             f"{sched16['embed_attention']} for the same one-at-a-time embeds")
+    log(f"[chaos] 18.1: statebus primary + replica (sync replication, an AOF each, heartbeat "
+        f"timeout {CHAOS_HB_TIMEOUT} s), scheduler, gateway and card worker processes over the "
+        f"replica set; {n_jobs} echo jobs over jobs:batch to {n_workers} workers, the primary "
+        f"SIGKILLed after {kill_point(n_jobs)} were submitted: "
+        f"every job SUCCEEDED once in canonical order ({numbers['dispatched more than once']} "
+        f"dispatched again by a replay); the replica promoted (epoch {new_doc['epoch']}); the "
+        f"old primary back on its AOF demoted and caught up (offset {old_doc['offset']} >= "
+        f"{new_doc['offset']}); the card worker's {len(jobs)} jobs with 16.4's results "
+        f"({ties_n} near-tie positions) and launches {launches} (16.4's worker: "
+        f"paged_attention {sched16['paged_attention']}, embed_attention "
+        f"{sched16['embed_attention']})  [{card}]")
+    for k, v in {**async_numbers, **numbers}.items():
+        if k not in ("killed at", "jobs", "workers"):
+            log(f"[chaos] 18.1 (information): {k} {v!r}  [{card}]")
+    return launches, stack, pair, acked
+
+
+def assemble_stream(streams, pr):
+    """Put a stream packet's tokens at their offsets; a replayed prefix must
+    agree token for token with what already streamed."""
+    buf = streams.setdefault(pr.job_id, [])
+    off = pr.offset if pr.offset >= 0 else len(buf)
+    for i, t in enumerate(pr.tokens):
+        idx = off + i
+        if idx == len(buf):
+            buf.append(int(t))
+        elif idx < len(buf):
+            if buf[idx] != int(t):
+                raise AssertionError(f"{pr.job_id}: token {idx} streamed as {buf[idx]}, "
+                                     f"replayed as {t}")
+        else:
+            raise AssertionError(f"{pr.job_id}: token {idx} streamed past a gap at {len(buf)}")
+
+
+def check_resumed_streams(streams, results, oracle, ties, events):
+    """18.2's gates: each job's result and its offset-assembled client
+    stream equal the fp32 oracle (near-tie rule), the stream with no token
+    duplicated, missing or divergent; each job failed over once."""
+    for jid, want in oracle.items():
+        compare_near_tie(results[jid], want, ties[jid], f"{jid}: the resumed result")
+        if streams.get(jid) != results[jid]:
+            raise AssertionError(f"{jid}: the client's stream {streams.get(jid)} is not the "
+                                 f"result {results[jid]} (a token duplicated or missing)")
+        names = [e.get("event") for e in events[jid]]
+        if "failover" not in names or "cancelled" in names:
+            raise AssertionError(f"{jid}: events {names}")
+
+
+async def drive_chaos_worker(torch, dev, card, workdir, url, *, n_new=CHAOS_NEW,
+                             timeout_s=CHAOS_TIMEOUT_S):
+    """18.2: the reference's serving-worker SIGKILL over the statebus pair at
+    ``url``: a scheduler process (registry TTL ``CHAOS_TTL_S``, its
+    ``WorkerFailover`` scanning every 0.5 s) and two port worker processes
+    (``WorkerProc``) at phase 8's fp32 ``LlamaConfig.tiny()``; three
+    ``llm.generate`` sessions pinned to the first, which is SIGKILLed
+    mid-decode.  Returns the numbers and the survivor's exit record."""
+    import signal
+
+    from cordum_tpu_torch.infra import statebus
+    from cordum_tpu_torch.infra.chaos import WorkerProc
+    from cordum_tpu_torch.infra.jobstore import JobStore
+    from cordum_tpu_torch.infra.memstore import MemoryStore
+    from cordum_tpu_torch.models import llama
+    from cordum_tpu_torch.protocol import subjects as subj
+    from cordum_tpu_torch.protocol.types import (LABEL_SESSION_KEY, STATUS_HINT_STREAM,
+                                                 BusPacket, JobRequest, JobState)
+
+    env = chaos_env(workdir, url, free_port(), dev, torch, SCHEDULER_REGISTRY_TTL=str(CHAOS_TTL_S),
+                    WORKER_POOL="chaos", WORKER_TOPICS="job.chaos.>",
+                    WORKER_HEARTBEAT_INTERVAL="0.5", WORKER_SERVING_PAGE_SIZE="8",
+                    WORKER_SERVING_CACHE_PAGES="128", WORKER_SERVING_MAX_SESSIONS="8",
+                    WORKER_SERVING_MAX_NEW_TOKENS="256", WORKER_BATCHING="0")
+    env.pop("WORKER_ID", None)
+    sched_log = os.path.join(workdir, "chaos-scheduler.log")
+    sched = start_process(["cordum_tpu_torch.cmd.scheduler"], env, sched_log)
+    workers = [WorkerProc(f"chaos-w{i}", env=env, cwd=REPO_DIR,
+                          log_path=os.path.join(workdir, f"chaos-w{i}.log")) for i in (1, 2)]
+    kv, bus, conn = await statebus.connect(url)
+    js, ms = JobStore(kv), MemoryStore(kv)
+    streams, first_after, beats = {}, {}, set()
+    killed = {}
+    jobs = {}
+
+    async def tap(subject, pkt):
+        pr = pkt.job_progress
+        if pr is None or pr.status_hint != STATUS_HINT_STREAM or pr.job_id not in jobs:
+            return
+        assemble_stream(streams, pr)
+        if killed and pr.worker_id == "chaos-w2":
+            first_after.setdefault(pr.job_id, time.monotonic() - killed["at"])
+        elif all(4 <= len(streams.get(j, [])) < n_new - 20 for j in jobs):
+            workers[0].proc.send_signal(signal.SIGKILL)
+            killed.update(at=time.monotonic(), lens={j: len(s) for j, s in streams.items()})
+
+    async def on_beat(subject, pkt):
+        if pkt.heartbeat is not None:
+            beats.add(pkt.heartbeat.worker_id)
+
+    try:
+        await bus.subscribe(subj.PROGRESS, tap)
+        await bus.subscribe(subj.HEARTBEAT, on_beat)
+        await wait_log(sched_log, '"scheduler running"', sched)
+        for w in workers:
+            w.start()
+        t0 = time.monotonic()
+        while not {"chaos-w1", "chaos-w2"} <= beats:
+            if time.monotonic() - t0 > 600 or any(not w.alive for w in workers):
+                raise AssertionError(f"the serving workers never beat; see {workdir}/chaos-w*.log")
+            await asyncio.sleep(0.1)
+        await asyncio.sleep(1.5)  # the scheduler hears the same heartbeats
+        for i, plen in enumerate(CHAOS_PROMPT_LENS):
+            jid = f"chaos-gen-{i}"
+            prompt = [(7 * i + j + 1) % 256 for j in range(plen)]
+            jobs[jid] = prompt
+            ptr = await ms.put_context(jid, {"op": "llm.generate", "tokens": prompt,
+                                             "max_new_tokens": n_new,
+                                             "session_id": f"conv-chaos-{i}"})
+            await js.set_state(jid, JobState.PENDING, fields={
+                "topic": "job.chaos.generate", "tenant_id": "default"}, event="submit")
+            req = JobRequest(job_id=jid, topic="job.chaos.generate", context_ptr=ptr,
+                             tenant_id="default",
+                             labels={"preferred_worker_id": "chaos-w1",
+                                     LABEL_SESSION_KEY: f"conv-chaos-{i}"})
+            await js.put_request(req)
+            await bus.publish(subj.SUBMIT, BusPacket.wrap(req, sender_id="chaos18"))
+        states, events = await chaos_wait(js, list(jobs), timeout_s)
+        if not killed:
+            raise AssertionError(f"the sessions ended before the kill: {states}, streamed "
+                                 f"{ {j: len(s) for j, s in streams.items()} }")
+        results = {}
+        for jid in jobs:
+            meta = await js.get_meta(jid)
+            if states[jid] != "SUCCEEDED" or not meta.get("result_ptr"):
+                raise AssertionError(f"{jid} after the SIGKILL: {states[jid]}, {meta}")
+            results[jid] = (await ms.get_pointer(meta["result_ptr"]))["tokens"]
+        workers[0].kill()
+        await asyncio.to_thread(workers[1].terminate)
+        rc = await asyncio.to_thread(stop_process, sched)
+    finally:
+        for w in workers:
+            w.kill()
+        stop_process(sched)
+        await conn.close()
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32)
+    params = llama.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(WORKER_SEED),
+                               device=dev)
+    oracle, ties = {}, {}
+    for jid, prompt in jobs.items():
+        oracle[jid], ties[jid] = dense_greedy(torch, llama, params, cfg, prompt, n_new, dev)
+    check_resumed_streams(streams, results, oracle, ties, events)
+    if rc != 0 or workers[1].proc.returncode != 0:
+        raise AssertionError(f"18.2: scheduler exit {rc}, survivor exit "
+                             f"{workers[1].proc.returncode}; see {workdir}")
+    exit_doc = worker_exit_line(workers[1].log_path)
+    launches = check_survivor_launches(exit_doc, cfg.n_layers)
+    steps = exit_doc["serving_steps"]
+    numbers = {"streamed at the kill": killed["lens"],
+               "SIGKILL -> first resumed token s": min(first_after.values())}
+    log(f"[chaos] 18.2: {len(jobs)} llm.generate sessions on worker process chaos-w1 "
+        f"(LlamaConfig.tiny() fp32), SIGKILLed mid-decode (tokens streamed {killed['lens']}); "
+        f"the scheduler's WorkerFailover resumed each on chaos-w2 with its streamed tokens: "
+        f"results and offset-assembled streams equal to the fp32 oracle "
+        f"({sum(map(len, ties.values()))} near-tie positions), no token duplicated or missing; "
+        f"the survivor's paged_attention launches {launches['paged_attention']} "
+        f"({steps} serving steps)  [{card}]")
+    log(f"[chaos] 18.2 (information): SIGKILL -> first resumed token "
+        f"{numbers['SIGKILL -> first resumed token s']!r} s  [{card}]")
+    return launches, numbers
+
+
+def check_survivor_launches(exit_doc, n_layers):
+    """18.2's surviving worker launched B1 once a layer a serving step."""
+    launches, steps = exit_doc["kernel_launches"], exit_doc["serving_steps"]
+    if not launches["paged_attention"] == n_layers * steps > 0:
+        raise AssertionError(f"18.2's survivor launches {launches} ({steps} serving steps)")
+    return launches
+
+
+
+
+async def chaos_write_loop(workdir, tag, *, env=None, writers=CHAOS_WRITERS,
+                           writes=CHAOS_WRITES):
+    """18.3's second half: a sync pair under ``writers`` concurrent set
+    loops; the primary SIGKILLed once ``writes`` are acked, the loops go on
+    through the failover.  Every acked write must be on the promoted
+    replica; then, with a torn final record appended to the dead primary's
+    AOF, the primary restarted alone on it must truncate the tail and hold
+    every write it acked.  ``env`` reaches the server processes (a
+    rehearsal's planted faults).  Returns the write latencies."""
+    import signal
+
+    from cordum_tpu_torch.infra import statebus
+    from cordum_tpu_torch.infra.chaos import ServerProc
+    from cordum_tpu_torch.infra.replication import pack_record
+
+    primary, replica, url = statebus_pair(workdir, tag, sync=True, env=env)
+    kv = conn = None
+    acked, lat, kill_mark = {}, [], {}
+    try:
+        await start_pair(primary, replica)
+        kv, _, conn = await statebus.connect(url)
+
+        async def loop(w):
+            for i in range(2 * writes // writers):
+                key, val = f"loop-{w}-{i}", f"{w}:{i}".encode()
+                t = time.perf_counter()
+                await kv.set(key, val)
+                lat.append(time.perf_counter() - t)
+                acked[key] = val
+                if len(acked) == writes and not kill_mark:
+                    kill_mark["acked"] = dict(acked)
+                    primary.proc.send_signal(signal.SIGKILL)
+
+        await asyncio.gather(*(loop(w) for w in range(writers)))
+        primary.kill()
+        missing = [k for k, v in acked.items() if await kv.get(k) != v]
+        if missing:
+            raise AssertionError(f"{len(missing)} of {len(acked)} acked writes missing on the "
+                                 f"promoted replica: {missing[:5]}")
+    finally:
+        if conn is not None:
+            await conn.close()
+        primary.kill()
+        await asyncio.to_thread(replica.terminate)
+    aof = primary.env["STATEBUS_AOF"]
+    whole = os.path.getsize(aof)
+    with open(aof, "ab") as f:
+        rec = pack_record("set", ("torn", b"x" * 64))
+        f.write(rec[:len(rec) // 2])
+    alone = ServerProc(free_port(), env={**(env or {}), "STATEBUS_AOF": aof}, cwd=REPO_DIR)
+    await alone.start()
+    try:
+        kv, _, conn = await statebus.connect(f"statebus://127.0.0.1:{alone.port}")
+        lost = [k for k, v in kill_mark["acked"].items() if await kv.get(k) != v]
+        await conn.close()
+    finally:
+        await asyncio.to_thread(alone.terminate)
+    if lost or os.path.getsize(aof) != whole:
+        raise AssertionError(f"the killed primary's AOF: {len(lost)} of "
+                             f"{len(kill_mark['acked'])} acked writes missing {lost[:5]}, "
+                             f"{os.path.getsize(aof)} bytes after replay, {whole} before "
+                             f"a torn record was appended")
+    return {"acked writes": len(acked), "acked before the kill": len(kill_mark["acked"]),
+            "sync write p50 ms": float(np.percentile(lat, 50)) * 1e3,
+            "sync write p99 ms": float(np.percentile(lat, 99)) * 1e3}
+
+
+async def readback(workdir, aof, acked):
+    """18.3's first half: one primary alone on ``aof``; every job record and
+    result pointer of ``acked`` (job id → result pointer) must be there."""
+    from cordum_tpu_torch.infra import statebus
+    from cordum_tpu_torch.infra.chaos import ServerProc
+    from cordum_tpu_torch.infra.jobstore import JobStore
+    from cordum_tpu_torch.infra.memstore import MemoryStore
+
+    alone = ServerProc(free_port(), env={"STATEBUS_AOF": aof}, cwd=REPO_DIR)
+    await alone.start()
+    try:
+        kv, _, conn = await statebus.connect(f"statebus://127.0.0.1:{alone.port}")
+        js, ms = JobStore(kv), MemoryStore(kv)
+        bad = []
+        for jid, ptr in acked.items():
+            meta = await js.get_meta(jid)
+            if (meta.get("state") != "SUCCEEDED" or meta.get("result_ptr") != ptr
+                    or await ms.get_pointer(ptr) is None):
+                bad.append((jid, meta.get("state")))
+        await conn.close()
+    finally:
+        await asyncio.to_thread(alone.terminate)
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(acked)} jobs not read back from {aof}: {bad[:5]}")
+    return len(acked)
+
+
+async def drive_chaos(torch, dev, card, workdir, record, sched16, **sizes):
+    """Phase 18: 18.1, 18.2 over 18.1's pair, then 18.3."""
+    launches, stack, pair, acked = await drive_chaos_primary(
+        torch, dev, card, workdir, record, sched16, **sizes)
+    try:
+        served, numbers = await drive_chaos_worker(
+            torch, dev, card, workdir, pair[2],
+            **{k: v for k, v in sizes.items() if k == "timeout_s"})
+    finally:
+        await stack.close()
+        for s in pair[:2]:
+            await asyncio.to_thread(s.terminate)
+    n = await readback(workdir, pair[1].env["STATEBUS_AOF"], acked)
+    loop = await chaos_write_loop(workdir, "loop")
+    log(f"[chaos] 18.3: every server SIGTERMed; a primary alone on the promoted replica's AOF "
+        f"read back all {n} job records and result pointers of 18.1; a sync pair under "
+        f"{CHAOS_WRITERS} write loops, the primary SIGKILLed after {loop['acked before the kill']} "
+        f"acked writes: all {loop['acked writes']} acked writes on the promoted replica, and "
+        f"the killed primary alone on its AOF (a torn record appended) truncated the tail and "
+        f"held every write it acked  [{card}]")
+    for k in ("sync write p50 ms", "sync write p99 ms"):
+        log(f"[chaos] 18.3 (information): {k} {loop[k]!r}  [{card}]")
+    return {name: launches[name] + served[name] for name in ("paged_attention", "embed_attention")}
+
+
+def log_tails(workdir, lines=12):
+    """The last lines of each process log under ``workdir`` (a failed
+    phase's evidence)."""
+    for name in sorted(os.listdir(workdir)):
+        if name.endswith(".log"):
+            with open(os.path.join(workdir, name), errors="replace") as f:
+                tail = f.read().splitlines()[-lines:]
+            log(f"[chaos] --- {name} ---")
+            for line in tail:
+                log(line[:400])
+
+
+def phase_chaos(torch, dev, card, record8, sched16):
+    """Phase 18 on the card; returns the launches of its worker processes.
+    On a failure the tails of the processes' logs are printed."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="cordum-chaos-") as workdir:
+        try:
+            return asyncio.run(drive_chaos(torch, dev, card, workdir, record8, sched16))
+        except BaseException:
+            log_tails(workdir)
+            raise
+
+
 def build_kernels():
     """One ``nvcc`` per kernel source, all started together.  Returns each
     kernel row's source and each module's build log (empty where the
@@ -6889,6 +7707,7 @@ def main() -> int:
     proc, record8 = phase_worker_process(torch, dev, smi, numbers6)
     sched_proc = phase_scheduler_process(torch, dev, smi, record8)
     gw_proc = phase_gateway_process(torch, dev, smi, record8)
+    chaos18 = phase_chaos(torch, dev, smi, record8, sched_proc)
     gc.collect()
     torch.cuda.empty_cache()
     moe_rows, moe, moe_first_loss = phase_moe(torch, dev, smi)
@@ -6955,6 +7774,10 @@ def main() -> int:
     launches["paged_attention"]["float32"] += gw_proc["paged_attention"]
     launches["embed_attention"]["bfloat16"] += gw_proc["embed_attention"]
     launches["dense_attention_fwd"]["float32"] += gw_proc["dense_attention_fwd"]
+    # phase 18: the card worker of 18.1 (phase 8's config) and 18.2's
+    # surviving serving worker (fp32 LlamaConfig.tiny())
+    launches["paged_attention"]["float32"] += chaos18["paged_attention"]
+    launches["embed_attention"]["bfloat16"] += chaos18["embed_attention"]
     # phase 12's rank processes, and 13.2's ring chunks' forward launches
     for name in ("dense_attention_fwd", "dense_attention_bwd"):
         for dtype in ("float32", "bfloat16"):

@@ -14,6 +14,7 @@ Recreates reference ``core/controlplane/safetykernel/kernel.go`` behavior:
 """
 from __future__ import annotations
 
+import asyncio
 import hashlib
 import json
 import time
@@ -23,7 +24,7 @@ from typing import Any, Optional
 import yaml
 
 from ...infra.configsvc import ConfigService
-from ...protocol.types import PolicyCheckRequest, PolicyCheckResponse
+from ...protocol.types import SPAN_ERROR, SPAN_OK, PolicyCheckRequest, PolicyCheckResponse
 from .policy import SafetyPolicy, evaluate
 
 POLICY_FRAGMENT_PREFIX = "policy"  # cfg:system:policy/<fragment-id>
@@ -67,6 +68,8 @@ class SafetyKernel:
         # the kernel runs behind KernelService the SERVICE owns the span so
         # leave this unset there (one "evaluate" span per check either way)
         self._tracer = tracer
+        # evaluate spans still being published (off the decision path)
+        self._emits: set[asyncio.Task] = set()
         self._file_doc = policy_doc or {}
         self._policy_path = policy_path
         # signed bundles: when a pubkey is configured, the policy file must
@@ -218,14 +221,31 @@ class SafetyKernel:
     async def check(self, req: PolicyCheckRequest) -> PolicyCheckResponse:
         """Evaluate with decision cache (the hot path the scheduler calls).
         Emits an ``evaluate`` span (service ``safety-kernel``) when a tracer
-        is wired and an ambient trace context exists."""
+        is wired and an ambient trace context exists.
+
+        The span is published off the decision path (a departure from the
+        reference, which awaits the publish inside the check): across a
+        statebus failover the publish parks until the bus reconnects, which
+        outlasted the scheduler's check timeout and denied jobs fail-closed
+        for want of a trace span."""
         if self._tracer is None:
             return await self._check_cached(req)
-        async with self._tracer.span("evaluate", attrs={"topic": req.topic}) as sp:
+        sp = self._tracer.begin("evaluate", attrs={"topic": req.topic})
+        try:
             resp = await self._check_cached(req)
-            sp.attrs["decision"] = resp.decision
-            sp.attrs["snapshot"] = self._snapshot_id
-            return resp
+        except BaseException as e:
+            sp.attrs.setdefault("error", type(e).__name__)
+            self._emit(sp, SPAN_ERROR)
+            raise
+        sp.attrs["decision"] = resp.decision
+        sp.attrs["snapshot"] = self._snapshot_id
+        self._emit(sp, SPAN_OK)
+        return resp
+
+    def _emit(self, sp: Any, status: str) -> None:
+        task = asyncio.ensure_future(self._tracer.finish(sp, status=status))
+        self._emits.add(task)
+        task.add_done_callback(self._emits.discard)
 
     async def _check_cached(self, req: PolicyCheckRequest) -> PolicyCheckResponse:
         if not self._snapshot_id:

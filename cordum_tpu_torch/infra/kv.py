@@ -20,6 +20,8 @@ import asyncio
 import time
 from typing import Any, Iterable, Optional
 
+from .codec import packb, unpackb
+
 POINTER_SCHEME = "kv://"
 
 
@@ -630,6 +632,38 @@ class MemoryKV(KV):
         async with self._lock:
             ok, _ = self._pipe_locked(watches, ops)
             return ok
+
+    # replication snapshot (infra/replication.py) -------------------------
+    async def snapshot(self) -> bytes:
+        """Full-state dump for replica bootstrap: every live entry with its
+        VERSION preserved, so a replica loaded from a snapshot and then fed
+        the primary's op stream stays byte-for-byte version-identical —
+        clients that fail over mid-pipeline keep their watched versions
+        valid instead of conflicting on the first post-failover commit.
+        The blob is the reference's bytes (the port's msgpack codec)."""
+        async with self._lock:
+            now = time.monotonic()
+            items = []
+            for k, e in self._data.items():
+                if e.expires_at is not None and e.expires_at <= now:
+                    continue
+                tag, v = ("set", sorted(e.value)) if isinstance(e.value, set) else ("raw", e.value)
+                ttl = None if e.expires_at is None else e.expires_at - now
+                items.append([k, tag, v, e.version, ttl])
+            return packb([self._global_version, items])
+
+    async def load_snapshot(self, blob: bytes) -> None:
+        """Replace the whole store with a :meth:`snapshot` dump (replica
+        bootstrap / rejoin-after-divergence).  TTLs resume from now."""
+        gv, items = unpackb(blob)
+        async with self._lock:
+            self._data.clear()
+            now = time.monotonic()
+            for k, tag, v, ver, ttl in items:
+                if tag == "set":
+                    v = set(v)
+                self._data[k] = _Entry(v, None if ttl is None else now + ttl, int(ver))
+            self._global_version = int(gv)
 
     async def pipe_execute(
         self, watches: dict[str, int], ops: list[tuple]

@@ -5,23 +5,29 @@ One asyncio TCP server speaking a msgpack-framed protocol provides BOTH
 
   * the :class:`~cordum_tpu_torch.infra.kv.KV` surface (strings, hashes,
     z-sets, lists, sets, TTLs, versioned optimistic ``commit`` and the
-    atomic ``pipe``) backed by the in-process :class:`MemoryKV` engine, and
+    atomic ``pipe``) backed by the in-process :class:`MemoryKV` engine,
+    with optional append-only-file persistence (every mutating op logged
+    and flushed before its ack, fsynced at most 0.2 s apart; replayed on
+    restart, a torn or garbage final record truncated away), and
   * pub/sub with NATS-style wildcard subjects and queue groups
     (:class:`StateBusBus` delivers into local handlers with the same
     RetryAfter redelivery semantics as the loopback bus).
 
 Wire format: ``[4-byte BE length][msgpack array]`` (the port's codec,
-``infra/codec.py``).  Requests: ``[req_id, op, *args]`` → ``[req_id,
-"ok"|"err", result]``.  Server pushes: ``[0, "msg", sid, subject,
-packet_bytes]`` and ``[0, "goaway"]`` on a graceful stop.
+``infra/codec.py``; AOF records and snapshots are the reference's bytes).
+Requests: ``[req_id, op, *args]`` → ``[req_id, "ok"|"err", result]``.
+Server pushes: ``[0, "msg", sid, subject, packet_bytes]`` plus the
+replication/failover pushes in :mod:`cordum_tpu_torch.infra.replication`.
 
-The port's server is one standalone partition (always primary): it has no
-append-only file, no replication and no ``promote``/``demote``/
-``repl_sync`` (ROADMAP: still to port).  The client half is whole: it
-walks a ``|``-separated replica set, role-checks each dial when the set has
-more than one endpoint, reconnects with jittered backoff, re-issues its
-subscriptions and retransmits unacked requests after a failover, so it
-runs against the reference's replicated servers as well as this one.
+Replication & failover (docs/PROTOCOL.md §Replication): a server is a
+**primary** (accepts writes, ships committed records to attached replicas;
+with ``sync_replication`` a commit is acked only once a replica acked it)
+or a **replica** (read-only, applies the primary's stream, promotes on
+primary death or an admin ``promote`` frame; a returning old primary that
+finds a higher-epoch peer demotes itself).  Clients take a ``|``-separated
+replica set per partition and walk it on connection loss, role-checking
+each dial, re-issuing subscriptions and retransmitting unacked in-flight
+frames so a failover never silently drops a pipelined commit.
 """
 from __future__ import annotations
 
@@ -45,17 +51,45 @@ from .bus import (
     Subscription,
     compute_msg_id,
 )
+from .codec import OutOfData, Unpacker
 from .frames import FrameWriter as _FrameWriter, encode_frame as _encode, read_frame as _read_frame
 from .kv import KV, MemoryKV
 from .metrics import Metrics
+from . import syncsan
+from .replication import (
+    ReplicaLink,
+    ReplicationState,
+    pack_record,
+    parse_endpoint,
+    parse_replica_set,
+    probe_role,
+    unpack_record,
+)
 
-# KV ops forwarded verbatim to the MemoryKV engine
-_KV_OPS = frozenset((
-    "get", "set", "setnx", "delete", "del_eq", "expire", "keys", "hset", "hget",
-    "hgetall", "hdel", "hincrby", "zadd", "zrem", "zrange", "zrangebyscore", "zcard",
-    "zscore", "rpush", "lrange", "ltrim", "llen", "sadd", "smembers", "version",
-    "watch_read", "commit", "ping",
-))
+
+def _read_bytes(path: str) -> bytes:
+    """Sync AOF read; callers run it via asyncio.to_thread (CL003)."""
+    with open(path, "rb") as f:  # cordumlint: disable=CL003 -- runs via asyncio.to_thread
+        return f.read()
+
+
+def _truncate_file(path: str, size: int) -> None:
+    """Sync truncate (AOF tail recovery); runs via asyncio.to_thread."""
+    with open(path, "r+b") as f:  # cordumlint: disable=CL003 -- runs via asyncio.to_thread
+        f.truncate(size)
+
+
+# KV ops forwarded verbatim to the MemoryKV engine (name → is_mutation)
+_KV_OPS = {
+    "get": False, "set": True, "setnx": True, "delete": True, "del_eq": True,
+    "expire": True,
+    "keys": False, "hset": True, "hget": False, "hgetall": False, "hdel": True,
+    "hincrby": True, "zadd": True, "zrem": True, "zrange": False,
+    "zrangebyscore": False, "zcard": False, "zscore": False, "rpush": True,
+    "lrange": False, "ltrim": True, "llen": False, "sadd": True,
+    "smembers": False, "version": False, "watch_read": False, "commit": True,
+    "ping": False,
+}
 
 
 def _plain(v: Any) -> Any:
@@ -65,33 +99,27 @@ def _plain(v: Any) -> Any:
     return v
 
 
-def parse_endpoint(url: str) -> tuple[str, int]:
-    """``statebus://host:port`` (scheme optional) → ``(host, port)``."""
-    hostport = url.split("://", 1)[-1]
-    host, _, port = hostport.partition(":")
-    return host or "127.0.0.1", int(port or 7420)
-
-
-def parse_replica_set(url: str) -> list[tuple[str, int]]:
-    """One partition's ``|``-separated replica set → endpoint list.
-
-    ``statebus://h:7420|statebus://h:7520`` lists the primary first; clients
-    walk the list on connection loss until they find the current primary.
-    """
-    return [parse_endpoint(u.strip()) for u in url.split("|") if u.strip()]
-
-
+@syncsan.instrument
 class StateBusServer:
-    """One statebus partition: the KV engine and subscription routing."""
+    """The server process: KV engine + subscription routing + AOF +
+    primary/replica replication (docs/PROTOCOL.md §Replication)."""
 
-    def __init__(self, host: str = "127.0.0.1", port: int = 7420, *,
+    def __init__(self, host: str = "127.0.0.1", port: int = 7420, *, aof_path: str = "",
+                 replica_of: str = "", peers: tuple = (),
+                 sync_replication: bool = False, auto_promote: bool = True,
+                 heartbeat_interval_s: float = 1.0,
+                 heartbeat_timeout_s: float = 3.0,
                  partition: int = -1) -> None:
         self.host = host
         self.port = port
         # keyspace partition index this server serves (-1 = standalone);
-        # rides the telemetry health beacon
+        # rides the telemetry health beacon so the fleet view can group
+        # primaries/replicas per partition
         self.partition = partition
         self.kv = MemoryKV()
+        self.aof_path = aof_path
+        self._aof = None
+        self._last_fsync = 0.0
         self._server: Optional[asyncio.base_events.Server] = None
         # sid → (writer, pattern, queue)
         self._subs: dict[int, tuple[asyncio.StreamWriter, str, Optional[str]]] = {}
@@ -100,19 +128,53 @@ class StateBusServer:
         self._dedup: dict[str, float] = {}
         self._writers: set[asyncio.StreamWriter] = set()
         self._fws: dict[asyncio.StreamWriter, _FrameWriter] = {}
-        # per-op execution latency and pipeline sizes, rendered by the
-        # `metrics` wire op (cordum_statebus_op_seconds)
+        # server-side observability: per-op execution latency + pipeline
+        # sizes; rendered via the `metrics` wire op (cordum_statebus_op_seconds)
         self.metrics = Metrics()
+        # replication: every server tracks (epoch, offset) + a record
+        # backlog; `replica_of` starts this server as a replica of that
+        # endpoint, `peers` is the partition's replica set (used by the
+        # startup probe so a returning old primary demotes itself)
+        self.role = "replica" if replica_of else "primary"
+        self.replica_of = replica_of
+        self.peers = tuple(peers)
+        self.sync_replication = sync_replication
+        self.auto_promote = auto_promote
+        self.heartbeat_interval_s = heartbeat_interval_s
+        self.heartbeat_timeout_s = heartbeat_timeout_s
+        self.repl = ReplicationState(self)
+        # promote()/demote()/stop() hold this across their link-teardown
+        # awaits so a role transition racing a shutdown (or an auto-promote
+        # racing an admin demotion) cannot interleave and double-stop or
+        # leak the replica link (CL008)
+        self._role_lock = asyncio.Lock()
+        self._replica_link: Optional[ReplicaLink] = None  # cordum: guarded-by(_role_lock)
+        self._hb_task: Optional[asyncio.Task] = None
+        self._last_peer_probe = 0.0
         self._telemetry = None  # TelemetryExporter, created at start()
 
     # -- lifecycle ------------------------------------------------------
     async def start(self) -> None:
+        if self.aof_path:
+            await self._replay_aof()
+            self._aof = await asyncio.to_thread(open, self.aof_path, "ab")
         self._server = await asyncio.start_server(self._on_conn, self.host, self.port)
         if self.port == 0:
             self.port = self._server.sockets[0].getsockname()[1]
-        logx.info("statebus listening", host=self.host, port=self.port)
+        logx.info("statebus listening", host=self.host, port=self.port,
+                  aof=self.aof_path or "off", role=self.role,
+                  epoch=self.repl.epoch, offset=self.repl.offset)
+        if self.role == "replica":
+            await self._start_link(self.replica_of)
+        elif self.peers:
+            # returning old primary: a live peer primary with a HIGHER epoch
+            # was promoted while we were down — demote to it (exclusive
+            # promotion: no split-brain dual-accept)
+            await self._probe_peers()
+        self._hb_task = asyncio.ensure_future(self._hb_loop())
         # fleet telemetry beacon: the statebus IS the bus, so its exporter
-        # routes snapshots straight to this server's own subscribers
+        # routes snapshots straight to this server's own subscribers (the
+        # gateway's sys.telemetry.> wildcard subscribes on every partition)
         from ..obs.telemetry import TelemetryExporter
 
         async def _pub(subject: str, pkt: BusPacket) -> None:
@@ -125,34 +187,306 @@ class StateBusServer:
         )
         await self._telemetry.start()
 
-    async def stop(self) -> None:
-        """GOAWAY to every client (they fail over or reconnect at once
-        instead of waiting out call timeouts), then close."""
-        if self._telemetry is not None:
-            exporter, self._telemetry = self._telemetry, None
-            await exporter.stop()
-        goaway = _encode([0, "goaway"])
-        for w in list(self._writers):
+    async def stop(self, *, graceful: bool = True) -> None:
+        async with self._role_lock:
+            if self._telemetry is not None:
+                exporter, self._telemetry = self._telemetry, None
+                await exporter.stop()
+            if self._hb_task is not None:
+                task, self._hb_task = self._hb_task, None
+                task.cancel()
+                await logx.join_task(task, name="statebus-repl-hb")
+            if self._replica_link is not None:
+                await self._replica_link.stop()
+                self._replica_link = None
+            if graceful:
+                # GOAWAY before closing: clients fail over to the next endpoint
+                # immediately instead of waiting out call timeouts; an attached
+                # replica treats it as primary-dead and promotes NOW.  Direct
+                # transport writes (not the coalescer): the transport flushes
+                # buffered bytes before FIN on close.
+                goaway = _encode([0, "goaway"])
+                for w in list(self._writers):
+                    try:
+                        w.write(goaway)
+                    except (ConnectionError, OSError, RuntimeError):
+                        pass  # peer already gone
+            if self._server:
+                self._server.close()
+            # Close client writers BEFORE wait_closed: Python 3.12's
+            # Server.wait_closed() waits for connection handlers to finish, and
+            # handlers block reading from clients that never hang up.
+            for w in list(self._writers):
+                w.close()
+            if self._server:
+                await self._server.wait_closed()
+                self._server = None
+            if self._aof:
+                # SIGTERM-path durability: flush AND fsync before exit so a
+                # graceful shutdown never loses the tail to the page cache
+                self._aof.flush()
+                os.fsync(self._aof.fileno())
+                self._aof.close()
+                self._aof = None
+
+    async def crash(self) -> None:
+        """Fault-injection helper (infra/chaos.py): die like a SIGKILLed
+        process — no GOAWAY, no graceful drain.  Peers see a bare EOF, and
+        any replication frames still in the write coalescers are lost
+        (exactly the async-mode loss window)."""
+        await self.stop(graceful=False)
+
+    async def _replay_aof(self) -> None:
+        if not os.path.exists(self.aof_path):
+            return
+        n = 0
+        raw = await asyncio.to_thread(_read_bytes, self.aof_path)
+        unpacker = Unpacker()
+        unpacker.feed(raw)
+        good = 0  # byte offset of the last COMPLETE, well-formed record
+        corrupt = False
+        while True:
             try:
-                w.write(goaway)
-            except (ConnectionError, OSError, RuntimeError):
-                pass  # peer already gone
-        if self._server:
-            self._server.close()
-        # close client writers BEFORE wait_closed: Server.wait_closed() waits
-        # for connection handlers, which block reading from live clients
-        for w in list(self._writers):
-            w.close()
-        if self._server:
-            await self._server.wait_closed()
-            self._server = None
+                entry = unpacker.unpack()
+            except OutOfData:
+                break  # clean EOF, or a truncated final record (crash mid-write)
+            except Exception:  # noqa: BLE001 - garbage bytes mid-stream
+                corrupt = True
+                break
+            if (not isinstance(entry, (list, tuple)) or not entry
+                    or not isinstance(entry[0], str)):
+                corrupt = True  # decoded, but not a record — trailing garbage
+                break
+            good = unpacker.tell()
+            op, args = entry[0], entry[1:]
+            if op == "repl_meta":
+                self.repl.epoch = int((args[0] or {}).get("epoch", self.repl.epoch))
+                continue
+            if op == "repl_snapshot":
+                await self.kv.load_snapshot(args[1])
+                self.repl.offset = int(args[0])
+                n += 1
+                continue
+            try:
+                await getattr(self.kv, op)(*args)
+                n += 1
+            except Exception:
+                logx.warn("aof replay skipped bad entry", op=op)
+            # logged data records count toward the replication offset even
+            # when the replay apply fails — replicas numbered them too
+            self.repl.offset += 1
+        if good < len(raw):
+            # crash mid-write: recover to the last complete record instead
+            # of raising, and truncate so appends continue from a clean tail
+            logx.warn("aof tail truncated/corrupt; recovering",
+                      path=self.aof_path, dropped_bytes=len(raw) - good,
+                      garbage=corrupt)
+            await asyncio.to_thread(_truncate_file, self.aof_path, good)
+        logx.info("aof replayed", entries=n, offset=self.repl.offset,
+                  epoch=self.repl.epoch)
+
+    def _append_aof(self, rec: bytes) -> None:
+        if self._aof is not None:
+            self._aof.write(rec)
+            # flush before the op is acked: process-crash durability (an
+            # fsync interval below bounds power-loss exposure)
+            self._aof.flush()
+            now = time.monotonic()
+            if now - self._last_fsync > 0.2:
+                os.fsync(self._aof.fileno())
+                self._last_fsync = now
+
+    def _commit_record(self, op: str, args: tuple) -> int:
+        """Durably log one committed mutation and ship it to replicas.
+
+        One msgpack record serves both the AOF and the replication stream;
+        returns the record's replication offset (sync-mode commits wait on
+        it before acking the client)."""
+        rec = pack_record(op, args)
+        self._append_aof(rec)
+        return self.repl.advance(rec)
+
+    # -- replication role management ------------------------------------
+    def _persist_epoch(self) -> None:
+        if self._aof is not None:
+            self._aof.write(pack_record("repl_meta", ({"epoch": self.repl.epoch},)))
+            self._aof.flush()
+            os.fsync(self._aof.fileno())
+
+    async def _start_link(self, primary_url: str) -> None:
+        host, port = parse_endpoint(primary_url)
+        self._replica_link = ReplicaLink(
+            self, host, port, replica_id=f"{self.host}:{self.port}",
+            auto_promote=self.auto_promote,
+            heartbeat_timeout_s=self.heartbeat_timeout_s)
+        await self._replica_link.start()
+
+    async def _probe_peers(self) -> None:
+        for ep in self.peers:
+            host, port = parse_endpoint(ep)
+            if (host, port) == (self.host, self.port):
+                continue
+            doc = await probe_role(host, port, timeout_s=1.0)
+            if (doc and doc.get("role") == "primary"
+                    and int(doc.get("epoch", 0)) > self.repl.epoch):
+                logx.warn("peer primary holds a higher epoch; demoting self",
+                          peer=f"{host}:{port}", peer_epoch=doc.get("epoch"),
+                          epoch=self.repl.epoch)
+                await self.demote(f"statebus://{host}:{port}", reason="peer-epoch")
+                return
+
+    async def promote(self, *, reason: str = "admin") -> dict:
+        """Replica → primary (admin ``promote`` frame, or automatic takeover
+        on primary-dead).  Bumps + persists the epoch so promotion is
+        exclusive: a returning old primary sees the higher epoch and
+        demotes itself."""
+        async with self._role_lock:
+            if self.role != "primary":
+                link, self._replica_link = self._replica_link, None
+                self.role = "primary"
+                self.replica_of = ""
+                self.repl.epoch += 1
+                self._persist_epoch()
+                self.metrics.statebus_promotions.inc(reason=reason)
+                logx.info("statebus PROMOTED to primary", host=self.host,
+                          port=self.port, reason=reason, epoch=self.repl.epoch,
+                          offset=self.repl.offset)
+                if link is not None:
+                    await link.stop()
+            return {"role": self.role, "epoch": self.repl.epoch,
+                    "offset": self.repl.offset}
+
+    async def demote(self, primary_url: str, *, reason: str = "admin") -> dict:
+        """Primary → replica of ``primary_url`` (startup peer probe, or an
+        admin demotion).  Ordinary clients get a GOAWAY so they re-walk the
+        replica set to the real primary."""
+        async with self._role_lock:
+            if self._replica_link is not None:
+                await self._replica_link.stop()
+                self._replica_link = None
+            self.role = "replica"
+            self.replica_of = primary_url
+            self.repl.fail_waiters()
+            for w in list(self.repl.sessions):
+                self.repl.detach(w)
+            goaway = _encode([0, "goaway"])
+            for w in list(self._writers):
+                try:
+                    w.write(goaway)
+                except (ConnectionError, OSError, RuntimeError):
+                    pass  # peer already gone
+            await self._start_link(primary_url)
+            logx.info("statebus demoted to replica", primary=primary_url,
+                      reason=reason, epoch=self.repl.epoch)
+            return {"role": self.role, "epoch": self.repl.epoch,
+                    "offset": self.repl.offset}
+
+    async def adopt_epoch(self, epoch: int) -> None:
+        """Replica adopting its primary's epoch at incremental handshake."""
+        if epoch != self.repl.epoch:
+            self.repl.epoch = int(epoch)
+            self._persist_epoch()
+
+    async def apply_replicated(self, rec: bytes, offset: int) -> None:
+        """Apply one primary record on a replica (ReplicaLink pump)."""
+        if self.role != "replica" or offset <= self.repl.offset:
+            return  # stale link after promotion, or an overlap duplicate
+        entry = unpack_record(rec)
+        op, args = entry[0], entry[1:]
+        try:
+            await getattr(self.kv, op)(*args)
+        except Exception:
+            logx.warn("replicated record failed to apply", op=op)
+        self._append_aof(rec)
+        self.repl.offset = int(offset)
+        self.repl.bytes_total += len(rec)
+        # keep our own backlog current: after promotion, OTHER replicas
+        # (including the returning old primary) catch up incrementally
+        self.repl.backlog.append((int(offset), rec, self.repl.bytes_total))
+
+    async def load_replicated_snapshot(self, epoch: int, offset: int, blob: bytes) -> None:
+        """Re-seed a replica whose history diverged / fell past the backlog."""
+        await self.kv.load_snapshot(blob)
+        self.repl.epoch = int(epoch)
+        self.repl.offset = int(offset)
+        self.repl.bytes_total = 0
+        self.repl.backlog.clear()
+        if self._aof is not None:
+            await asyncio.to_thread(self._rewrite_aof_snapshot, int(offset), blob)
+        logx.info("replica re-seeded from snapshot", epoch=epoch, offset=offset)
+
+    def _rewrite_aof_snapshot(self, offset: int, blob: bytes) -> None:
+        """Sync AOF rewrite after a snapshot load (via asyncio.to_thread):
+        the old log described a different history and must not replay."""
+        self._aof.truncate(0)
+        self._aof.write(pack_record("repl_meta", ({"epoch": self.repl.epoch},)))
+        self._aof.write(pack_record("repl_snapshot", (offset, blob)))
+        self._aof.flush()
+        os.fsync(self._aof.fileno())
+
+    async def _hb_loop(self) -> None:
+        """Primary liveness beacon: replicas promote when it goes quiet.
+
+        The same tick also guards the OTHER split-brain direction: a primary
+        whose replicas all detached may have been spuriously failed over (a
+        GC pause or event-loop stall reads as primary-dead to the replica,
+        which promotes).  With a configured peer set, such a primary probes
+        its peers every ``heartbeat_timeout_s`` and demotes itself to a live
+        higher-epoch primary — the runtime extension of the startup probe,
+        so exclusive promotion holds without waiting for a restart."""
+        while True:
+            await asyncio.sleep(self.heartbeat_interval_s)
+            if self.role != "primary":
+                continue
+            if self.repl.sessions:
+                frame = _encode([0, "repl_hb", self.repl.epoch, self.repl.offset])
+                for w, sess in list(self.repl.sessions.items()):
+                    try:
+                        sess.fw.send(frame)
+                    except ConnectionError:
+                        self.repl.detach(w)
+            elif self.peers:
+                now = time.monotonic()
+                if now - self._last_peer_probe >= self.heartbeat_timeout_s:
+                    self._last_peer_probe = now
+                    await self._probe_peers()
 
     def _telemetry_health(self) -> dict:
-        return {"role": "statebus-primary", "partition": self.partition,
-                "endpoint": f"{self.host}:{self.port}"}
+        """Beacon fields for the fleet view: replication role/epoch/offset
+        plus worst attached-replica lag (primary) or link lag (replica)."""
+        doc = {
+            "role": f"statebus-{self.role}",
+            "partition": self.partition,
+            "endpoint": f"{self.host}:{self.port}",
+            "epoch": self.repl.epoch,
+            "offset": self.repl.offset,
+            "sync": self.sync_replication,
+            "replicas": len(self.repl.sessions),
+        }
+        link = self._replica_link
+        if link is not None:
+            doc["lag_ops"] = max(0, link.primary_offset - self.repl.offset)
+        elif self.repl.sessions:
+            lags = [r.get("lag_ops", 0) for r in self.repl.status()["replicas"]]
+            doc["lag_ops"] = max(lags) if lags else 0
+        return doc
 
     def _role_doc(self) -> dict:
-        return {"role": "primary", "endpoint": f"{self.host}:{self.port}"}
+        doc = {
+            "role": self.role,
+            "epoch": self.repl.epoch,
+            "offset": self.repl.offset,
+            "sync": self.sync_replication,
+            "primary": self.replica_of,
+            "endpoint": f"{self.host}:{self.port}",
+            "replicas": self.repl.status()["replicas"],
+        }
+        link = self._replica_link
+        if link is not None:
+            doc["link_connected"] = link.connected.is_set()
+            doc["primary_offset"] = link.primary_offset
+            doc["lag_ops"] = max(0, link.primary_offset - self.repl.offset)
+        return doc
 
     # -- connection handling -------------------------------------------
     async def _on_conn(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
@@ -164,13 +498,19 @@ class StateBusServer:
                 frame = await _read_frame(reader)
                 if frame is None:
                     break
-                # inline dispatch: KV ops are pure memory and replies are
-                # buffered, so a connection's ops apply in arrival order
+                # inline dispatch (no per-frame task): KV ops are pure memory
+                # and replies are buffered, so a frame costs no task churn
+                # and a connection's ops apply in arrival order
                 await self._dispatch(frame, writer)
         finally:
             self._writers.discard(writer)
             self._fws.pop(writer, None)
             await fw.close()
+            self.repl.detach(writer)
+            if not self.repl.sessions:
+                # no replica left to ack: release sync-mode commits now
+                # instead of making each wait out its timeout
+                self.repl.fail_waiters()
             dead = [sid for sid, (w, _, _) in self._subs.items() if w is writer]
             for sid in dead:
                 del self._subs[sid]
@@ -189,25 +529,55 @@ class StateBusServer:
         req_id, op, *args = frame
         try:
             if req_id == 0:
-                return  # a client notification (replica acks): no replica here
+                # client→server notification (no reply): replica acks
+                if op == "repl_ack" and args:
+                    self.repl.on_ack(writer, int(args[0]))
+                return
             if op in _KV_OPS:
+                if _KV_OPS[op] and self.role != "primary":
+                    await self._send(writer, [
+                        req_id, "err",
+                        f"READONLY replica of {self.replica_of or 'unknown'}"])
+                    return
                 t0 = time.perf_counter()
                 result = await getattr(self.kv, op)(*args)
-                self.metrics.statebus_op_seconds.observe(time.perf_counter() - t0, op=op)
+                offset = self._commit_record(op, tuple(args)) if _KV_OPS[op] else 0
+                self.metrics.statebus_op_seconds.observe(
+                    time.perf_counter() - t0, op=op
+                )
+                if offset and self.sync_replication and self.repl.sessions:
+                    await self.repl.wait_synced(offset)
                 await self._send(writer, [req_id, "ok", _plain(result)])
             elif op == "pipe":
-                # one wire frame = one atomic multi-op batch: N mutations,
-                # one round trip
+                # one wire frame = one atomic multi-op batch (the whole point
+                # of the pipeline layer: N mutations, ONE round trip) — and
+                # therefore the atomic REPLICATION unit: the batch ships to
+                # replicas as a single pipe_execute record
+                if self.role != "primary":
+                    await self._send(writer, [
+                        req_id, "err",
+                        f"READONLY replica of {self.replica_of or 'unknown'}"])
+                    return
                 watches, ops = args
                 t0 = time.perf_counter()
                 ok, versions = await self.kv.pipe_execute(watches, ops)
-                self.metrics.statebus_op_seconds.observe(time.perf_counter() - t0, op="pipe")
+                offset = self._commit_record("pipe_execute", (watches, ops))
+                self.metrics.statebus_op_seconds.observe(
+                    time.perf_counter() - t0, op="pipe"
+                )
                 self.metrics.kv_pipeline_size.observe(float(len(ops)))
+                if self.sync_replication and self.repl.sessions:
+                    await self.repl.wait_synced(offset)
                 await self._send(writer, [req_id, "ok", [ok, versions]])
             elif op == "metrics":
                 await self._send(writer, [req_id, "ok", self.metrics.render()])
             elif op == "role":
                 await self._send(writer, [req_id, "ok", self._role_doc()])
+            elif op == "promote":
+                await self._send(writer, [req_id, "ok",
+                                          await self.promote(reason="admin")])
+            elif op == "repl_sync":
+                await self._handle_repl_sync(req_id, writer, *args)
             elif op == "sub":
                 pattern, queue = args
                 sid = next(self._sid)
@@ -229,42 +599,99 @@ class StateBusServer:
                 logx.debug("could not deliver error reply", err=str(send_err))
 
     async def _route(self, subject: str, packet_bytes: bytes) -> None:
+        """Fan a publish out to every plain subscriber and one member of each
+        queue group.  A durable subject's message is delivered at most once
+        to each subscriber or group within ``DEDUP_WINDOW_S`` (a departure
+        from the reference, which drops a repeated message id outright): a
+        message that missed a group (a result retransmitted to a promoted
+        primary before the scheduler re-subscribed) reaches it on the
+        replay, and only there."""
         from ..protocol import subjects as subj
 
+        mid = ""
         if subj.is_durable_subject(subject):
             try:
                 pkt = BusPacket.from_wire(packet_bytes)
                 mid = compute_msg_id(subject, pkt)
             except Exception:
                 mid = ""
-            if mid:
-                now = time.monotonic()
-                if len(self._dedup) > 16384:
-                    for k in list(itertools.islice(self._dedup, 8192)):
-                        del self._dedup[k]
-                seen = self._dedup.get(mid)
-                if seen is not None and now - seen < DEDUP_WINDOW_S:
-                    return
-                self._dedup[mid] = now
+        now = time.monotonic()
+
+        def fresh(target: str) -> bool:
+            if not mid:
+                return True
+            key = f"{mid}|{target}"
+            seen = self._dedup.get(key)
+            if seen is not None and now - seen < DEDUP_WINDOW_S:
+                return False
+            self._dedup[key] = now
+            return True
+
         plain: list[tuple[int, asyncio.StreamWriter]] = []
         groups: dict[tuple[str, str], list[tuple[int, asyncio.StreamWriter]]] = {}
         for sid, (w, pattern, queue) in self._subs.items():
             if not subject_match(pattern, subject):
                 continue
             if queue is None:
-                plain.append((sid, w))
+                if fresh(f"sid:{sid}"):
+                    plain.append((sid, w))
             else:
                 groups.setdefault((pattern, queue), []).append((sid, w))
         for key, members in groups.items():
+            if not fresh(f"group:{key[0]}|{key[1]}"):
+                continue
             members.sort()
             i = self._rr.get(key, 0)
             plain.append(members[i % len(members)])
             self._rr[key] = i + 1
+        if len(self._dedup) > 16384:
+            for k in list(itertools.islice(self._dedup, 8192)):
+                del self._dedup[k]
         for sid, w in plain:
             try:
                 await self._send(w, [0, "msg", sid, subject, packet_bytes])
             except Exception as e:  # noqa: BLE001 - one dead peer must not stop fanout
                 logx.debug("dropping subscriber mid-fanout", sid=sid, err=str(e))
+
+    async def _handle_repl_sync(self, req_id: int, writer: asyncio.StreamWriter,
+                                replica_id: str, epoch: int, offset: int) -> None:
+        """Replica attach handshake: incremental catch-up from the record
+        backlog when the replica shares our history (same epoch, offset
+        within the backlog window), full snapshot re-seed otherwise."""
+        if self.role != "primary":
+            await self._send(writer, [
+                req_id, "err", f"not primary (replica of {self.replica_of})"])
+            return
+        fw = self._fws.get(writer)
+        if fw is None:
+            return
+        epoch, offset = int(epoch), int(offset)
+        if (epoch == self.repl.epoch and offset <= self.repl.offset
+                and self.repl.covers(offset)):
+            self.repl.attach(writer, replica_id, fw, offset)
+            await self._send(writer, [
+                req_id, "ok", ["incremental", self.repl.epoch, self.repl.offset]])
+            for rec_frame in self.repl.records_after(offset):
+                fw.send(rec_frame)
+            self.metrics.statebus_repl_syncs.inc(mode="incremental")
+            mode = "incremental"
+        else:
+            # snapshot + offset are captured in one event-loop tick (MemoryKV
+            # never holds its lock across an await), so no commit can land
+            # between the blob and the offset it claims to represent
+            blob = await self.kv.snapshot()
+            snap_offset = self.repl.offset
+            # acked starts at 0: the replica only counts as caught up (for
+            # sync-mode waits) once it confirms the snapshot load itself
+            self.repl.attach(writer, replica_id, fw, 0)
+            await self._send(writer, [
+                req_id, "ok", ["snapshot", self.repl.epoch, snap_offset]])
+            fw.send(_encode([0, "repl_snap", self.repl.epoch, snap_offset, blob]))
+            self.metrics.statebus_repl_syncs.inc(mode="snapshot")
+            mode = "snapshot"
+        logx.info("replica attached", replica=replica_id, mode=mode,
+                  replica_offset=offset, primary_offset=self.repl.offset)
+
 
 
 class _NotPrimary(ConnectionError):
@@ -631,7 +1058,7 @@ def _make_kv_method(op: str) -> Any:
     return method
 
 
-for _op in _KV_OPS - {"commit"}:
+for _op in _KV_OPS.keys() - {"commit"}:
     setattr(StateBusKV, _op, _make_kv_method(_op))
 
 

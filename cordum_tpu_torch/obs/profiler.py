@@ -17,7 +17,12 @@ Three probes, all off the hot path:
 * **GC-pause counters** — ``gc.callbacks`` timing each collection into
   ``cordum_gc_pauses_total{generation}`` and ``cordum_gc_pause_seconds``
   (a generation-2 pause IS event-loop lag; correlating the two histograms
-  separates GC stalls from blocking code).
+  separates GC stalls from blocking code).  The callback only queues each
+  pause; the sampler folds them into the metrics on its next tick (a
+  departure from the reference, whose callback observes at once: a
+  collection triggered while a thread holds a metric's lock, as a
+  telemetry snapshot of ``cordum_gc_pause_seconds`` does, then blocks on
+  that same lock forever and hangs the process).
 
 Everything flows through the process's ``Metrics`` registry, so the
 exporter ships it fleet-wide for free.
@@ -25,6 +30,7 @@ exporter ships it fleet-wide for free.
 from __future__ import annotations
 
 import asyncio
+import collections
 import gc
 import time
 import traceback
@@ -56,6 +62,9 @@ class RuntimeProfiler:
         self.last_slow_tick: Optional[dict[str, Any]] = None
         self._task: Optional[asyncio.Task] = None
         self._gc_start: dict[int, float] = {}
+        # (generation, seconds) of finished collections not yet folded into
+        # the metrics; appended by the gc callback, which takes no lock
+        self._gc_pauses: collections.deque[tuple[int, float]] = collections.deque()
         self._gc_cb_installed = False
 
     # ------------------------------------------------------------------
@@ -72,6 +81,7 @@ class RuntimeProfiler:
             except ValueError:
                 logx.warn("gc callback already removed", service=self.service)
             self._gc_cb_installed = False
+        self._fold_gc()
         if self._task is not None:
             task, self._task = self._task, None
             task.cancel()
@@ -84,6 +94,7 @@ class RuntimeProfiler:
             await asyncio.sleep(self.tick_s)
             lag = max(0.0, time.monotonic() - t0 - self.tick_s)
             self.metrics.eventloop_lag.observe(lag)
+            self._fold_gc()
             if lag >= self.slow_tick_s:
                 try:
                     self._dump_slow_tick(lag)
@@ -134,9 +145,15 @@ class RuntimeProfiler:
         elif phase == "stop":
             t0 = self._gc_start.pop(gen, None)
             if t0 is not None:
-                dur = time.monotonic() - t0
-                self.metrics.gc_pauses.inc(generation=str(gen))
-                self.metrics.gc_pause_seconds.observe(dur)
+                self._gc_pauses.append((gen, time.monotonic() - t0))
+
+    def _fold_gc(self) -> None:
+        """Count the queued collections into the metrics (outside any gc
+        callback, so taking the metrics' locks is safe)."""
+        while self._gc_pauses:
+            gen, dur = self._gc_pauses.popleft()
+            self.metrics.gc_pauses.inc(generation=str(gen))
+            self.metrics.gc_pause_seconds.observe(dur)
 
     # ------------------------------------------------------------------
     def health(self) -> dict[str, Any]:

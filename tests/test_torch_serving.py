@@ -272,6 +272,93 @@ import cordum_tpu_torch.{name}
         assert proc.returncode == 0, proc.stderr
 
 
+#: the statebus durability slice's modules: host code like the gateway
+#: slice's, and the statebus binary binds before the rest of the stack
+STATEBUS_SLICE = ("infra.replication", "infra.chaos", "infra.statebus", "infra.kv",
+                  "infra.codec", "infra.frames", "cmd.statebus")
+
+#: runs ``cordum_tpu_torch.cmd.statebus`` with JAX, the JAX package,
+#: ``msgpack`` and ``torch`` blocked: its whole import closure, the lazy
+#: imports a running server makes included
+_BLOCKED_STATEBUS = """
+import asyncio, sys
+class Block:
+    def find_spec(self, n, path=None, target=None):
+        if n.split('.')[0] in ('jax', 'jaxlib', 'cordum_tpu', 'msgpack', 'torch'):
+            raise ImportError('blocked: ' + n)
+sys.meta_path.insert(0, Block())
+from cordum_tpu_torch.cmd import statebus
+asyncio.run(statebus.main([]))
+"""
+
+
+@pytest.mark.parametrize("name", STATEBUS_SLICE)
+def test_statebus_slice_module_is_scanned(name):
+    """Each module of the statebus slice is a file of the port and imports
+    nothing of JAX, the JAX package, ``msgpack`` or ``torch``, lazy imports
+    included."""
+    path = REPO / "cordum_tpu_torch" / (name.replace(".", "/") + ".py")
+    assert path.is_file(), path
+    tops = {mod.split(".")[0] for mod in _imports(path)}
+    assert not tops & {"jax", "jaxlib", "cordum_tpu", "flax", "optax", "msgpack", "torch"}, tops
+
+
+def test_statebus_binary_serves_every_formerly_refused_variable(tmp_path):
+    """``STATEBUS_AOF``, ``STATEBUS_PARTITIONS`` > 1, ``STATEBUS_PEERS``,
+    ``STATEBUS_SYNC_REPLICATION``, ``STATEBUS_AUTO_PROMOTE``, the heartbeat
+    variables and ``STATEBUS_REPLICA_OF`` each start a server (the binary
+    refused the first five before): two partitions as primaries in one
+    process, a replica of partition 0 in another, both with the import
+    closure free of JAX, ``msgpack`` and ``torch``; SIGTERM exits 0 and
+    leaves one AOF a partition."""
+    import os
+    import signal
+    import time
+
+    from cordum_tpu_torch.infra.chaos import free_port
+    from cordum_tpu_torch.infra.replication import probe_role
+
+    base, rport = free_port(), free_port()
+    while rport in (base, base + 1):
+        rport = free_port()
+    peers = f"statebus://127.0.0.1:{base},statebus://127.0.0.1:{rport}"
+    common = {**os.environ, "STATEBUS_PEERS": peers, "STATEBUS_SYNC_REPLICATION": "1",
+              "STATEBUS_HEARTBEAT_TIMEOUT": "1.0", "STATEBUS_HEARTBEAT_INTERVAL": "0.2",
+              "POOL_CONFIG_PATH": str(tmp_path / "none.yaml")}
+    envs = [{**common, "STATEBUS_PORT": str(base), "STATEBUS_PARTITIONS": "2",
+             "STATEBUS_AOF": str(tmp_path / "p.aof")},
+            {**common, "STATEBUS_PORT": str(rport), "STATEBUS_AUTO_PROMOTE": "0",
+             "STATEBUS_AOF": str(tmp_path / "r.aof"),
+             "STATEBUS_REPLICA_OF": f"statebus://127.0.0.1:{base}"}]
+    procs = [subprocess.Popen([sys.executable, "-c", _BLOCKED_STATEBUS], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for env in envs]
+
+    async def roles():
+        deadline = time.monotonic() + 60
+        while True:
+            docs = [await probe_role("127.0.0.1", p, timeout_s=0.5)
+                    for p in (base, base + 1, rport)]
+            if all(docs) and docs[2].get("link_connected") and docs[0]["replicas"]:
+                return docs
+            assert all(p.poll() is None for p in procs), [p.communicate() for p in procs]
+            assert time.monotonic() < deadline, docs
+            await asyncio.sleep(0.1)
+
+    try:
+        docs = asyncio.run(roles())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        outs = [p.communicate(timeout=60)[0] for p in procs]
+    assert [d["role"] for d in docs] == ["primary", "primary", "replica"], docs
+    assert all(d["sync"] for d in docs[:2]) and docs[2]["primary"].endswith(str(base))
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert (tmp_path / "p.aof.0").is_file() and (tmp_path / "p.aof.1").is_file()
+    assert (tmp_path / "r.aof").is_file()
+
+
 def test_default_device_raises_without_a_card(env):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
